@@ -1,0 +1,149 @@
+"""Sinks: where micro-batch results go, trimmed to the §III path.
+
+The counterpart of ``repro/data/sinks.py``. The stream gives at-least-once
+delivery: a batch whose sink failed is replayed at the same offsets. Keyed
+sinks are idempotent by key — an item written twice is skipped the second
+time — which upgrades that to exactly-once.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Sequence
+
+import numpy as np
+
+KeyedItem = tuple[str, Any]
+
+
+def describe_result_items(result: Any, batch_index: int) -> list[KeyedItem]:
+    """Normalize a batch result into keyed items for a sink.
+
+    A list of ``(key, value)`` pairs (keys str or bytes) passes through;
+    ``None`` produces nothing; any other value becomes one item keyed by the
+    batch index, so replaying the batch overwrites rather than duplicates.
+    """
+    if result is None:
+        return []
+    if isinstance(result, list) and all(
+            isinstance(x, tuple) and len(x) == 2
+            and isinstance(x[0], (str, bytes)) for x in result):
+        return [(k.decode() if isinstance(k, bytes) else k, v)
+                for k, v in result]
+    return [(f"batch-{batch_index:06d}", result)]
+
+
+class KeyedSink:
+    """Base: in-process dedupe by key. Subclasses implement ``_write_one``;
+    ``_already_stored`` lets a subclass extend idempotence across restarts
+    (e.g. files on disk)."""
+
+    def __init__(self) -> None:
+        self._seen: set[str] = set()
+        self._lock = threading.Lock()
+
+    def _write_one(self, key: str, value: Any) -> None:  # pragma: no cover
+        raise NotImplementedError
+
+    def _already_stored(self, key: str) -> bool:
+        return False
+
+    def write_batch(self, items: Sequence[KeyedItem], *,
+                    overwrite: bool = False) -> int:
+        """``overwrite=True`` bypasses dedupe for keys that must track the
+        latest run (e.g. a final-result artifact)."""
+        n = 0
+        for key, value in items:
+            with self._lock:
+                dup = (not overwrite
+                       and (key in self._seen or self._already_stored(key)))
+                self._seen.add(key)
+            if dup:
+                continue
+            # the write outside the lock: a slow _write_one must not
+            # serialise other writers
+            self._write_one(key, value)
+            n += 1
+        return n
+
+
+class NpzDirectorySink(KeyedSink):
+    """Artifact store: one ``<key>.npz`` per item under ``directory``.
+    Values may be an array, a dict of arrays, or a scalar. Idempotent across
+    restarts: an existing file is never rewritten."""
+
+    def __init__(self, directory: str) -> None:
+        super().__init__()
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def path_for(self, key: str) -> str:
+        safe = key.replace(os.sep, "_")
+        return os.path.join(self.directory, f"{safe}.npz")
+
+    def _already_stored(self, key: str) -> bool:
+        return os.path.exists(self.path_for(key))
+
+    def _write_one(self, key: str, value: Any) -> None:
+        arrays = (dict(value) if isinstance(value, dict)
+                  else {"value": np.asarray(value)})
+        arrays = {k: np.asarray(v) for k, v in arrays.items()}
+        path = self.path_for(key)
+        # write via an open handle: np.savez would append ".npz" to a bare
+        # tmp name, and a ".tmp.npz" suffix would show up in keys_on_disk()
+        # after a crash before the rename
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+            # flush+fsync before the rename, or a crash can leave `path`
+            # naming torn bytes — and _already_stored would then skip the
+            # rewrite forever
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+
+    def keys_on_disk(self) -> list[str]:
+        return sorted(f[:-4] for f in os.listdir(self.directory)
+                      if f.endswith(".npz"))
+
+
+class MetricsSink:
+    """Latency/throughput aggregation over batches. ``observe(info)`` takes
+    each :class:`~repro_torch.core.dstream.BatchInfo`; ``write_batch`` counts
+    keyed items, so it sits next to a storage sink."""
+
+    def __init__(self) -> None:
+        # both surfaces may be called from different threads; one lock keeps
+        # the counters and the report() snapshot consistent
+        self._lock = threading.Lock()
+        self.batches = 0
+        self.records = 0
+        self.items = 0
+        self.latencies: list[float] = []
+
+    def observe(self, info: Any) -> None:
+        with self._lock:
+            self.batches += 1
+            self.records += info.num_records
+            self.latencies.append(info.processing_time)
+
+    def write_batch(self, items: Sequence[KeyedItem]) -> int:
+        with self._lock:
+            self.items += len(items)
+        return 0
+
+    def report(self) -> dict[str, float]:
+        with self._lock:
+            batches, records, items = self.batches, self.records, self.items
+            latencies = list(self.latencies)
+        if not latencies:
+            return {"batches": batches, "records": records, "items": items}
+        total = max(sum(latencies), 1e-9)
+        return {
+            "batches": batches,
+            "records": records,
+            "items": items,
+            "mean_latency_s": sum(latencies) / len(latencies),
+            "max_latency_s": max(latencies),
+            "throughput_rec_per_s": records / total,
+        }

@@ -1,0 +1,154 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for Hopper
+(``sm_90a``) into ``build/repro_torch/libptycho_kernels.so`` at the root of
+the checkout, at first use, and the library is loaded with ``ctypes``. The
+sources have a plain C interface and include no PyTorch header, so the build
+takes seconds; pointers and the stream cross as ``c_void_p``, element
+counts as ``c_int64`` and beta as ``c_float``. The library is rebuilt when
+the hash of the sources and flags changes. A failed build raises with
+nvcc's stderr: there is no fallback to the plain PyTorch versions.
+
+Nothing here runs at import time, so the CPU tests import every module
+without nvcc or a GPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.utils import get_logger
+
+log = get_logger(__name__)
+
+SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libptycho_kernels.so"
+# no --use_fast_math: the kernels must round as the plain versions do
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+# C entry point -> argument types; every entry returns a cudaError_t as int
+SIGNATURES = {
+    "modulus_project_launch": (_P, _P, _P, ctypes.c_int64, _P),
+    "overlap_products_launch": (_P, _P, _P, _P, ctypes.c_int64,
+                                ctypes.c_int64, _P),
+    "raar_combine_launch": (_P, _P, _P, _P, _P, ctypes.c_int64,
+                            ctypes.c_float, _P),
+}
+
+
+def find_nvcc() -> str:
+    """nvcc from PATH, else from ``$CUDA_HOME`` (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found is not None:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME; the "
+                       "CUDA toolkit is needed to build the port's kernels")
+
+
+def source_digest(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()
+
+
+def _replace_durably(tmp: Path, path: Path) -> None:
+    with open(tmp, "rb+") as f:
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
+          nvcc: str | None = None) -> Path:
+    """Compile ``src_dir/*.cu`` into ``build_dir/LIB_NAME`` unless a library
+    built from the same sources and flags is already there; returns its
+    path. Raises ``RuntimeError`` with nvcc's stderr when nvcc fails."""
+    sources = sorted(Path(src_dir).glob("*.cu"))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources in {src_dir}")
+    digest = source_digest(sources)
+    build_dir = Path(build_dir)
+    lib = build_dir / LIB_NAME
+    stamp = build_dir / (LIB_NAME + ".sha256")
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    build_dir.mkdir(parents=True, exist_ok=True)
+    # per-process temp names: two processes building at once each finish
+    # with a whole library, and the last os.replace wins
+    tmp = build_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                           f"{' '.join(cmd)}\n{proc.stderr}")
+    _replace_durably(tmp, lib)
+    stamp_tmp = build_dir / f"{stamp.name}.{os.getpid()}.tmp"
+    stamp_tmp.write_text(digest)
+    _replace_durably(stamp_tmp, stamp)
+    log.info("built %s from %d sources in %.2f s", lib, len(sources),
+             time.perf_counter() - t0)
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The built kernel library (built on the first call in a process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_tensor(op: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape: tuple[int, ...], device: torch.device | None = None
+                 ) -> None:
+    """Raise unless ``t`` is what a kernel reads through ``data_ptr()``: a
+    contiguous CUDA tensor of ``dtype`` and ``shape`` (on ``device`` when
+    given) with no lazy conjugate or negative bit."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{op}: {name} must be a tensor, got {type(t)}")
+    if t.device.type != "cuda":
+        raise ValueError(f"{op}: {name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{op}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{op}: {name} carries a lazy conj/neg bit; "
+                         "call .resolve_conj().resolve_neg() first")
+
+
+def check_launch(op: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{op}: kernel launch failed with cudaError_t {rc}")
+
+
+def current_stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,34 @@
+"""Shared utilities of the port: logging and device resolution."""
+from __future__ import annotations
+
+import logging
+import os
+
+import torch
+
+_LOG_FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
+
+
+def get_logger(name: str) -> logging.Logger:
+    if not name.startswith("repro_torch"):   # e.g. "__main__" under -m
+        name = f"repro_torch.{name}"
+    logger = logging.getLogger(name)
+    root = logging.getLogger("repro_torch")
+    if not root.handlers:
+        handler = logging.StreamHandler()
+        handler.setFormatter(logging.Formatter(_LOG_FORMAT))
+        root.addHandler(handler)
+        root.setLevel(os.environ.get("REPRO_LOG_LEVEL", "INFO"))
+    return logger
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The torch device to run on. Asking for CUDA on a host without a
+    usable GPU raises: the port never drops to the CPU on its own, so a
+    number measured on the CPU can never pass for a device number."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,267 @@
+"""The port's kernels against the reference, on the CPU.
+
+Each plain PyTorch version (what the port's ``ops`` run on a CPU tensor) is
+held against the JAX Pallas kernel in interpret mode and against the JAX
+``ref.py``, on the same numpy inputs, with the shape and beta sweeps and
+the tolerances of ``tests/test_kernels.py``. The CUDA kernels themselves
+need the card: ``chip_smoke.py`` holds them against these plain versions
+there. Also checked here: dispatch never launches for a CPU tensor and
+never falls back, the build raises with nvcc's output, and the port
+imports nothing of JAX or the reference package.
+"""
+import ast
+import pathlib
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.modulus import kernel as mod_kernel
+from repro.kernels.modulus import ref as mod_ref
+from repro.kernels.overlap import kernel as ov_kernel
+from repro.kernels.overlap import ref as ov_ref
+from repro.kernels.raar import kernel as raar_kernel
+from repro.kernels.raar import ref as raar_ref
+from repro_torch import kernels as t_kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels.modulus import kernel as t_mod_kernel
+from repro_torch.kernels.modulus import ops as t_mod_ops
+from repro_torch.kernels.overlap import kernel as t_ov_kernel
+from repro_torch.kernels.overlap import ops as t_ov_ops
+from repro_torch.kernels.raar import kernel as t_raar_kernel
+from repro_torch.kernels.raar import ops as t_raar_ops
+from repro_torch.utils import resolve_device
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _planes(seed, shape, n):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+
+def _seed(*parts):
+    return zlib.crc32(repr(parts).encode())
+
+
+def _c(re, im):
+    return torch.complex(torch.from_numpy(re), torch.from_numpy(im))
+
+
+def _close(got, want_re, want_im, tol):
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(want_re),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(want_im),
+                               rtol=tol, atol=tol)
+
+
+# -- modulus -------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(4, 16, 16), (7, 32, 32), (16, 8, 24),
+                                   (1, 64, 64)])
+@pytest.mark.parametrize("fb", [2, 16])
+def test_torch_modulus_sweep(shape, fb):
+    re, im, mag = _planes(_seed("modulus", shape), shape, 3)
+    mag = np.abs(mag)
+    got = t_mod_ops.modulus_project(_c(re, im), torch.from_numpy(mag))
+    pallas = mod_kernel.modulus_project(jnp.asarray(re), jnp.asarray(im),
+                                        jnp.asarray(mag), block_frames=fb,
+                                        interpret=True)
+    ref = mod_ref.modulus_project_ref(jnp.asarray(re), jnp.asarray(im),
+                                      jnp.asarray(mag))
+    for want in (pallas, ref):
+        _close(got, *want, tol=1e-6)
+
+
+def test_torch_modulus_projection_property():
+    """|π₁ψ| == measured magnitude (the modulus constraint, paper eq. 1)."""
+    re, im, mag = _planes(0, (3, 16, 16), 3)
+    mag = np.abs(mag) + 0.1
+    out = t_mod_ops.modulus_project(_c(re, im), torch.from_numpy(mag))
+    np.testing.assert_allclose(out.abs().numpy(), mag, rtol=1e-4, atol=1e-4)
+
+
+# -- raar ----------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(4, 16, 16), (5, 8, 40)])
+@pytest.mark.parametrize("beta", [0.5, 0.75, 0.9])
+def test_torch_raar_sweep(shape, beta):
+    planes = _planes(_seed("raar", shape), shape, 8)
+    fields = [_c(planes[2 * k], planes[2 * k + 1]) for k in range(4)]
+    got = t_raar_ops.raar_combine(*fields, beta=beta)
+    jp = [jnp.asarray(p) for p in planes]
+    pallas = raar_kernel.raar_combine(*jp, beta=beta, block_frames=3,
+                                      interpret=True)
+    ref = raar_ref.raar_combine_ref(*jp, beta=beta)
+    for want in (pallas, ref):
+        _close(got, *want, tol=1e-6)
+
+
+@pytest.mark.parametrize("beta", [0.5, 0.75, 0.9])
+def test_torch_raar_aliased_p2_is_p21(beta):
+    """The solver passes one tensor as p21 and p2 (SHARP's single-overlap
+    approximation); the result is still the four-input function."""
+    planes = _planes(_seed("raar-alias", beta), (3, 8, 8), 6)
+    psi, p1, p21 = (_c(planes[2 * k], planes[2 * k + 1]) for k in range(3))
+    got = t_raar_ops.raar_combine(psi, p1, p21, p21, beta=beta)
+    want = raar_ref.raar_combine_complex(
+        *(jnp.asarray(z.numpy()) for z in (psi, p1, p21, p21)), beta)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+
+
+# -- overlap -------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(4, 16, 16), (9, 24, 8)])
+def test_torch_overlap_sweep(shape):
+    a_re, a_im, b_re, b_im = _planes(_seed("overlap", shape), shape, 4)
+    num, den = t_ov_ops.overlap_products(_c(a_re, a_im), _c(b_re, b_im))
+    jp = [jnp.asarray(p) for p in (a_re, a_im, b_re, b_im)]
+    pallas = ov_kernel.overlap_products(*jp, block_frames=4, interpret=True)
+    ref = ov_ref.overlap_products_ref(*jp)
+    for n_re, n_im, d in (pallas, ref):
+        _close(num, n_re, n_im, tol=1e-6)
+        np.testing.assert_allclose(den.numpy(), np.asarray(d),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 16), (9, 24, 8)])
+def test_torch_overlap_shared_probe(shape):
+    """The object update's b is one (H, W) probe for every frame: the port
+    reads it in place; the reference broadcasts it into an (F, H, W) copy."""
+    a_re, a_im = _planes(_seed("overlap-a", shape), shape, 2)
+    b_re, b_im = _planes(_seed("overlap-b", shape), shape[1:], 2)
+    num, den = t_ov_ops.overlap_products(_c(a_re, a_im), _c(b_re, b_im))
+    jp = [jnp.asarray(a_re), jnp.asarray(a_im),
+          jnp.broadcast_to(jnp.asarray(b_re), shape),
+          jnp.broadcast_to(jnp.asarray(b_im), shape)]
+    n_re, n_im, d = ov_kernel.overlap_products(*jp, block_frames=4,
+                                               interpret=True)
+    assert num.shape == den.shape == shape
+    _close(num, n_re, n_im, tol=1e-6)
+    np.testing.assert_allclose(den.numpy(), np.asarray(d),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_torch_overlap_matches_complex_ref():
+    a_re, a_im, b_re, b_im = _planes(3, (3, 8, 8), 4)
+    num, den = t_ov_ops.overlap_products(_c(a_re, a_im), _c(b_re, b_im))
+    num_c, den_c = ov_ref.overlap_products_complex(
+        jnp.asarray(a_re + 1j * a_im), jnp.asarray(b_re + 1j * b_im))
+    np.testing.assert_allclose(num.numpy(), np.asarray(num_c),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(den.numpy(), np.asarray(den_c),
+                               rtol=1e-5, atol=1e-5)
+
+
+# -- dispatch ------------------------------------------------------------------
+def _cpu_calls():
+    z = torch.ones((2, 4, 4), dtype=torch.complex64)
+    mag = torch.ones((2, 4, 4))
+    return {
+        "modulus_project": (t_mod_ops.modulus_project,
+                            t_mod_kernel.modulus_project, (z, mag)),
+        "overlap_products": (t_ov_ops.overlap_products,
+                             t_ov_kernel.overlap_products, (z, z[0])),
+        "raar_combine": (t_raar_ops.raar_combine,
+                         t_raar_kernel.raar_combine, (z, z, z, z)),
+    }
+
+
+def test_torch_ops_on_cpu_tensors_launch_nothing():
+    t_kernels.reset_launch_counts()
+    for op, _, args in _cpu_calls().values():
+        op(*args)
+    assert t_kernels.launch_counts() == {name: 0 for name in _cpu_calls()}
+
+
+@pytest.mark.parametrize("name", ["modulus_project", "overlap_products",
+                                  "raar_combine"])
+def test_torch_kernels_refuse_cpu_tensors(name):
+    """A kernel wrapper takes CUDA tensors only, and ``ops`` asked for the
+    kernel does not fall back to the plain version."""
+    op, kernel_fn, args = _cpu_calls()[name]
+    t_kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernel_fn(*args)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        op(*args, use_kernel=True)
+    assert kernel_fn.launches == 0
+
+
+def test_torch_resolve_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+# -- build ---------------------------------------------------------------------
+def _fake_nvcc(tmp_path, body):
+    script = tmp_path / "nvcc"
+    script.write_text("#!/bin/sh\n" + body)
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_torch_build_failure_raises_with_nvcc_stderr(tmp_path):
+    (tmp_path / "src").mkdir()
+    (tmp_path / "src" / "k.cu").write_text("broken")
+    nvcc = _fake_nvcc(tmp_path, 'echo "k.cu(1): error: boom" >&2\nexit 2\n')
+    with pytest.raises(RuntimeError, match="error: boom"):
+        _build.build(tmp_path / "src", tmp_path / "build", nvcc=nvcc)
+    assert not list((tmp_path / "build").iterdir())
+
+
+def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
+    src = tmp_path / "src"
+    src.mkdir()
+    (src / "a.cu").write_text("// a")
+    (src / "b.cu").write_text("// b")
+    calls = tmp_path / "calls"
+    # record the arguments, then write the -o target as nvcc would
+    nvcc = _fake_nvcc(tmp_path, f'echo "$@" >> {calls}\n'
+                      'while [ "$1" != "-o" ]; do shift; done\n'
+                      'echo lib > "$2"\n')
+    lib = _build.build(src, tmp_path / "build", nvcc=nvcc)
+    assert lib.name == _build.LIB_NAME and lib.read_text() == "lib\n"
+    first = calls.read_text().splitlines()
+    assert len(first) == 1                      # one nvcc call for all
+    assert "sm_90a" in first[0] and "a.cu" in first[0] and "b.cu" in first[0]
+    assert "--use_fast_math" not in first[0]
+    _build.build(src, tmp_path / "build", nvcc=nvcc)
+    assert len(calls.read_text().splitlines()) == 1
+    (src / "b.cu").write_text("// b, edited")
+    _build.build(src, tmp_path / "build", nvcc=nvcc)
+    assert len(calls.read_text().splitlines()) == 2
+
+
+def test_torch_kernel_sources_name_the_tpu_kernel_they_replace():
+    for name in ("modulus", "overlap", "raar"):
+        text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+                ).read_text()
+        assert f"repro/kernels/{name}/kernel.py" in text
+        assert "Bound: device memory" in text
+        assert 'extern "C"' in text
+
+
+# -- import rule ---------------------------------------------------------------
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_torch_port_imports_no_jax_and_nothing_of_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    bad = []
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                bad.append(f"{path.relative_to(ROOT)}: {mod}")
+    assert bad == []
