@@ -13,7 +13,19 @@ Phases, each fatal on failure:
   5. the §III stream at the paper's Table II size (512 frames, 256x256
      object, 64x64 probe, scan step 8) through ``run_stream``, with its
      quality, the kernels' launch counts and the sink's contents checked;
-  6. a profile of RAAR steps at 512 frames: device time by kernel.
+  6. a profile of RAAR steps at 512 frames: device time by kernel;
+  7. the ART kernel against its plain PyTorch version on the card, at the
+     shapes of tests/test_kernels.py, at one whose width is not a multiple
+     of 4, and at the §IV path's full shape (the (19,456 x 65,536) system
+     of nray 256 and 76 angles, 8 slices and one sweep, and a stream
+     launch's 16 slices and two sweeps), each also against the plain
+     version in float64, timed beside its bound; then a launch's time at
+     16, 128 and 256 slices;
+  8. the §IV tomography stream at full width (256 slices of 256x256, 76
+     angles, 2 sweeps, 4 partitions) through ``run_stream``, with its
+     residual and volume error held to the JAX reference's, the ART
+     launches against the partitions processed, and the sink's keys; then
+     a profile of one of its batches: device time and idle share.
 It then prints a JSON line of the kernels, the nvidia-smi line again, and
 as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -36,14 +48,37 @@ SEED = 0
 F, H, W = 512, 64, 64               # the main path's largest batch
 PAPER_ARGS = ["--frames", "512", "--obj-size", "256", "--probe-size", "64",
               "--scan-step", "8"]
-# H100 SXM (NVIDIA data sheet): device memory rate, and the fp32 rate
-# outside the tensor cores
+# H100 SXM (NVIDIA data sheet): device memory rate, the fp32 rate outside
+# the tensor cores, and the L2's size
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+L2_BYTES = 50 * 2**20
 MAX_FINAL_ERROR = 0.10              # the JAX reference reaches 0.0865 here
 MIN_QUALITY = 0.92                  # ... and 0.943
 OWN_KERNELS = ("modulus_project_kernel", "overlap_products_kernel",
                "raar_combine_kernel")
+ART_SHAPES = ((8, 16), (20, 12), (32, 64))      # tests/test_kernels.py:93
+ART_ODD_SHAPE = (24, 37)        # ncol % 4 != 0: the kernel's float path
+ART_TOL = dict(rtol=1e-4, atol=1e-4)            # tests/test_kernels.py:107
+NRAY, NANGLES, NSLICE, PARTITIONS = 256, 76, 256, 4
+TOMO_ARGS = ["--nray", str(NRAY), "--angles", str(NANGLES), "--nslice",
+             str(NSLICE), "--iterations", "2", "--partitions",
+             str(PARTITIONS)]
+# The JAX reference at TOMO_ARGS: repro.apps.tomo.solver.reconstruct_slices
+# (use_pallas=False) on the CPU, printed by tools/tomo_reference_slices.py.
+# Sinogram residual |A f - b|/|b| and volume error |f - v|/|v| of the whole
+# volume, and of each of slices 124-131.
+REF_RESIDUAL, REF_ERROR = 0.4772438704967499, 0.6329998150856019
+REF_SLICES = range(124, 132)
+REF_SLICE_RESIDUAL = (0.5196922074787964, 0.5103182872600535,
+                      0.5006286466844522, 0.4907017190604099,
+                      0.4806879313024302, 0.47043846739413936,
+                      0.460561056291703, 0.45032384930051644)
+REF_SLICE_ERROR = (0.6561629934299793, 0.6542791921408858,
+                   0.652562630357193, 0.6505630711609283,
+                   0.6492461233015283, 0.6465218432424262,
+                   0.642746150133384, 0.6372793810563379)
+REF_TOL = 1e-3
 
 
 def _nvidia_smi() -> str:
@@ -80,6 +115,16 @@ def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
 
 def _max_err(torch, got, want) -> float:
     return float((got - want).abs().max())
+
+
+def _device_us(torch, prof) -> dict:
+    """Device time in µs by kernel name over a profiled run."""
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name] = (kernels.get(ev.name, 0.0)
+                                + ev.device_time_total)
+    return kernels
 
 
 def _without_launches(variants: list[dict]) -> list[dict]:
@@ -236,11 +281,7 @@ def profile_phase(torch, dev, problem) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    kernels = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.name] = (kernels.get(ev.name, 0.0)
-                                + ev.device_time_total)
+    kernels = _device_us(torch, prof)
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms == 0:
         print("  profile: the profiler saw no device time (not measured)")
@@ -268,7 +309,8 @@ def stream_phase(torch, dev) -> dict:
     steps = res["iterations"]
     expect = {"modulus_project": steps, "raar_combine": steps,
               # the probe update's second launch from iteration 2 on
-              "overlap_products": 2 * steps - min(steps, 2)}
+              "overlap_products": 2 * steps - min(steps, 2),
+              "art_sweep": 0}
     print(f"  steps {steps}, launches {counts}, expected {expect}")
     if counts != expect or res["launches"] != expect:
         raise AssertionError(f"launch counts {counts} (run_stream reports "
@@ -300,6 +342,238 @@ def stream_phase(torch, dev) -> dict:
           f"(<= {MAX_FINAL_ERROR}), quality {res['quality']:.4f} "
           f"(>= {MIN_QUALITY})")
     return counts
+
+
+def art_phase(torch, dev, flush) -> dict:
+    """The ART kernel against its plain version in float32 (held to
+    ART_TOL) and in float64 (reported), timed beside its bound."""
+    import numpy as np
+
+    from repro_torch.apps.tomo.projector import make_system, project
+    from repro_torch.apps.tomo.solver import make_phantom
+    from repro_torch.kernels.art import kernel as ak
+    from repro_torch.kernels.art import ops as ao
+    from repro_torch.kernels.art import ref as ar
+
+    def measure(label, A, b, f0, iters, reps):
+        nrow, ncol = A.shape
+        nslice = b.shape[0]
+        inv_rip = ao.inverse_row_norms(A)
+
+        def call():
+            return ak.art_sweep(A, b, inv_rip, f0, 1.0, iters)
+
+        def plain():
+            return ar.art_sweep_ref(A, b, inv_rip, f0, 1.0, iters)
+
+        got, want = call(), plain()
+        want64 = ar.art_sweep_ref(A.double(), b.double(), inv_rip.double(),
+                                  f0.double(), 1.0, iters)
+        torch.cuda.synchronize()
+        err = _max_err(torch, got, want)
+        err64 = _max_err(torch, got.double(), want64)
+        plain64 = _max_err(torch, want.double(), want64)
+        del want64
+        print(f"  art_sweep {label}: max|kernel - plain| {err:.3g} "
+              f"(tol 1e-4 + 1e-4 relative); against float64: kernel "
+              f"{err64:.3g}, plain {plain64:.3g}; max|f| "
+              f"{float(want.abs().max()):.3g}", flush=True)
+        torch.testing.assert_close(got, want, **ART_TOL)
+        ms = _time_ms(torch, call, reps=reps, warmup=1, flush=flush)
+        plain_ms = _time_ms(torch, plain, reps=3, warmup=1, flush=flush)
+        # each input read once, the output written once, except A: larger
+        # than the L2, it comes from device memory again every sweep. The dot
+        # and the axpy are 4 operations an element of A, a slice and a sweep
+        a_reads = iters if 4 * nrow * ncol > L2_BYTES else 1
+        nbytes = 4 * (a_reads * nrow * ncol + nslice * nrow + nrow
+                      + 2 * nslice * ncol)
+        bound, by = _bound_ms(nbytes, 4 * nrow * ncol * nslice * iters)
+        print(f"    kernel {ms:.4f} ms ({ms * 1e3 / (nrow * iters):.3f} "
+              f"us a row step), plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), library n/a", flush=True)
+        return {"name": f"art_sweep ({label})", "route": "cuda",
+                "source": "src/repro_torch/csrc/art.cu",
+                "replaces": "src/repro/kernels/art/kernel.py:43",
+                "max_abs_err": err, "err_vs_float64": err64,
+                "plain_err_vs_float64": plain64, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": None}
+
+    rng = np.random.default_rng(SEED)
+    variants = []
+    for nrow, ncol in ART_SHAPES + (ART_ODD_SHAPE,):
+        for iters in (1, 3):
+            A = rng.standard_normal((nrow, ncol)).astype(np.float32)
+            f_true = rng.standard_normal((3, ncol)).astype(np.float32)
+            A_t = torch.from_numpy(A).to(dev)
+            b = torch.from_numpy(f_true @ A.T).to(dev)
+            f0 = torch.zeros((3, ncol), device=dev)
+            variants.append(measure(
+                f"{nrow}x{ncol}, 3 slices, {iters} "
+                f"sweep{'s' if iters > 1 else ''}", A_t, b, f0, iters, 25))
+
+    angles = np.linspace(-75, 75, NANGLES)
+    t0 = time.perf_counter()
+    A_host = make_system(NRAY, angles)
+    t1 = time.perf_counter()
+    A = torch.from_numpy(A_host).to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nnz = (A != 0).sum(dim=1)
+    print(f"  system matrix {tuple(A.shape)} fp32 "
+          f"({A.numel() * 4 / 2**30:.2f} GiB): host build {t1 - t0:.2f} s, "
+          f"copy to the card {t2 - t1:.2f} s; non-zeros a row: mean "
+          f"{float(nnz.double().mean()):.1f}, min {int(nnz.min())}, max "
+          f"{int(nnz.max())} of {A.shape[1]}", flush=True)
+    del nnz
+    vol = torch.from_numpy(make_phantom(NSLICE, NRAY, SEED)).to(dev)
+    for lo, nslice, iters in ((124, 8, 1), (120, 16, 2)):
+        b = project(A, vol[lo:lo + nslice]).contiguous()
+        f0 = torch.zeros((nslice, NRAY * NRAY), device=dev)
+        variants.append(measure(
+            f"{A.shape[0]}x{A.shape[1]}, slices {lo}-{lo + nslice - 1}, "
+            f"{iters} sweep{'s' if iters > 1 else ''}", A, b, f0, iters, 3))
+    # one block a slice: how a launch's time grows with its slices (blocks)
+    inv_rip = ao.inverse_row_norms(A)
+    for nslice in (16, 128, 256):
+        b = project(A, vol[:nslice]).contiguous()
+        f0 = torch.zeros((nslice, NRAY * NRAY), device=dev)
+        ms = _time_ms(torch, lambda: ak.art_sweep(A, b, inv_rip, f0, 1.0, 1),
+                      reps=3, warmup=1)
+        print(f"  occupancy: {nslice} slices, one sweep: {ms:.3f} ms, "
+              f"{ms * 1e3 / A.shape[0]:.3f} us a row step, "
+              f"{ms / nslice:.3f} ms a slice", flush=True)
+    # the row of a stream launch: 16 slices, two sweeps
+    return dict(variants[-1], name="art_sweep",
+                max_abs_err=max(v["max_abs_err"] for v in variants),
+                variants=variants)
+
+
+def tomo_phase(torch, dev, kernel_ms: float) -> int:
+    """The §IV stream at full width; returns the ART launches it made."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.apps.tomo.solver import clear_system_cache
+    from repro_torch.apps.tomo.stream import parse_args, run_stream
+
+    clear_system_cache()            # a cold start: build and copy anew
+    torch.cuda.empty_cache()
+    out = OUT / "tomo"
+    shutil.rmtree(out, ignore_errors=True)
+    args = parse_args(TOMO_ARGS + ["--out", str(out)])
+    kernels.reset_launch_counts()
+    res = run_stream(args, device=dev)
+    counts = kernels.launch_counts()
+    launches = counts["art_sweep"]
+    print(f"  partitions processed {res['partitions']}, launches {counts}")
+    if not launches == res["partitions"] == res["launches"] > 0:
+        raise AssertionError(f"ART launches {launches} (run_stream reports "
+                             f"{res['launches']}) != partitions processed "
+                             f"{res['partitions']}, or none")
+    if any(n for name, n in counts.items() if name != "art_sweep"):
+        raise AssertionError(f"other kernels launched: {counts}")
+    if not np.isfinite(res["volume"]).all():
+        raise AssertionError("non-finite values in the gathered volume")
+    if res["volume"].shape != (NSLICE, NRAY, NRAY):
+        raise AssertionError(f"volume shape {res['volume'].shape}")
+    got = {"residual": (res["residual"], REF_RESIDUAL),
+           "error": (res["error"], REF_ERROR)}
+    for i, s in enumerate(REF_SLICES):
+        got[f"slice {s} residual"] = (float(res["slice_residuals"][s]),
+                                      REF_SLICE_RESIDUAL[i])
+        got[f"slice {s} error"] = (float(res["slice_errors"][s]),
+                                   REF_SLICE_ERROR[i])
+    worst = max(abs(a - b) for a, b in got.values())
+    print(f"  residual {res['residual']:.6f} (JAX {REF_RESIDUAL:.6f}), "
+          f"volume error {res['error']:.6f} (JAX {REF_ERROR:.6f}); slices "
+          f"{REF_SLICES.start}-{REF_SLICES.stop - 1} residuals "
+          f"{[round(float(res['slice_residuals'][s]), 6) for s in REF_SLICES]}"
+          f", errors "
+          f"{[round(float(res['slice_errors'][s]), 6) for s in REF_SLICES]}; "
+          f"max |port - JAX| {worst:.3g} (tol {REF_TOL})")
+    bad = {k: v for k, v in got.items() if not abs(v[0] - v[1]) <= REF_TOL}
+    if bad:
+        raise AssertionError(f"off the JAX reference by more than {REF_TOL}:"
+                             f" {bad}")
+    # batches of NSLICE / PARTITIONS slices, each cut into PARTITIONS
+    per = NSLICE // PARTITIONS // PARTITIONS
+    want_keys = [f"slices-{i:04d}-{i + per - 1:04d}"
+                 for i in range(0, NSLICE, per)]
+    if res["sink_keys"] != want_keys:
+        raise AssertionError(f"sink holds {res['sink_keys']}, expected "
+                             f"{want_keys}")
+    in_batches = sum(res["batch_times"])
+    print(f"  set-up {res['setup_time']:.3f} s: system matrix host build "
+          f"{res['matrix_build_time']:.3f} s, copy to the card "
+          f"{res['matrix_copy_time']:.3f} s")
+    print(f"  stream OK: {len(res['batch_times'])} batches, batch times (s) "
+          f"{[round(t, 4) for t in res['batch_times']]}, stream "
+          f"{res['stream_time']:.3f} s ({in_batches:.3f} s in batches), "
+          f"{NSLICE / res['stream_time']:.2f} slices/s; {launches} launches "
+          f"x {kernel_ms:.1f} ms (phase 7, stream-launch shape) = "
+          f"{launches * kernel_ms / 1e3 / res['stream_time']:.3f} of the "
+          f"stream's wall time; {len(res['sink_keys'])} sink keys")
+    return launches
+
+
+def tomo_profile_phase(torch, dev) -> None:
+    """Device time and idle share of one §IV batch (NSLICE / PARTITIONS
+    slices in PARTITIONS RDD partitions) through the stream's own partition
+    function, with the system already on the card."""
+    import functools
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.apps.tomo.solver import TomoConfig, simulate_tilt_series
+    from repro_torch.apps.tomo.stream import reconstruct_partition
+    from repro_torch.core.rdd import Context
+
+    cfg = TomoConfig(nray=NRAY, iterations=2, angles=tuple(
+        np.linspace(-75, 75, NANGLES).tolist()))      # as run_stream's
+    nslice = NSLICE // PARTITIONS
+    _, _, sino = simulate_tilt_series(cfg, nslice, seed=SEED, device=dev)
+    records = list(enumerate(sino))
+    part = functools.partial(reconstruct_partition, config=cfg, device=dev)
+
+    def batch():
+        Context().parallelize(records, PARTITIONS).map_partitions(
+            part).collect_partitions()      # each partition ends on the host
+
+    t0 = time.perf_counter()                # wall time without the profiler
+    batch()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for attempt in (1, 2):
+        before = kernels.launch_counts()["art_sweep"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            batch()
+        launched = kernels.launch_counts()["art_sweep"] - before
+        seen = sum(1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "art_sweep_kernel" in ev.name)
+        if seen == launched:
+            break
+        print(f"  profile {attempt}: the profiler saw {seen} of the "
+              f"{launched} ART launches")
+    else:
+        print("  profile: launches missing from the trace; idle share not "
+              "measured")
+        return
+    by_kernel = _device_us(torch, prof)
+    busy_ms = sum(by_kernel.values()) / 1e3
+    art_ms = sum(us for name, us in by_kernel.items()
+                 if "art_sweep_kernel" in name) / 1e3
+    print(f"  one batch of {nslice} slices in {PARTITIONS} partitions: wall "
+          f"{wall_ms:.3f} ms unprofiled; device busy {busy_ms:.3f} ms "
+          f"(profiled, {seen} ART launches seen of {launched}), idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; the ART kernel "
+          f"{art_ms:.3f} ms")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:10.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
+              f"{name[:90]}")
 
 
 def main() -> int:
@@ -348,6 +622,18 @@ def main() -> int:
 
     print("[6] where a RAAR step's device time goes:", flush=True)
     profile_phase(torch, dev, problem)
+    del problem
+
+    print("[7] the ART kernel against its plain version (float32, tol 1e-4; "
+          "float64 reported):", flush=True)
+    l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    art_row = art_phase(torch, dev, l2_flush.zero_)
+    del l2_flush
+    rows.append(art_row)
+
+    print("[8] the tomography stream at full width:", flush=True)
+    art_row["launches"] = tomo_phase(torch, dev, art_row["ms"])
+    tomo_profile_phase(torch, dev)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -3,7 +3,9 @@
 The JAX package ``repro`` is the reference; this package is its
 counterpart for an NVIDIA Hopper GPU and keeps its module paths and names.
 It imports ``torch``, numpy and scipy, and nothing of ``jax`` or ``repro``.
-The main path is the paper's §III streaming ptychography loop
+Its paths are the paper's §III streaming ptychography loop
 (``python -m repro_torch.apps.ptycho.stream``), whose three elementwise
-hot spots run as hand-written CUDA kernels (``repro_torch/csrc``).
+hot spots run as hand-written CUDA kernels (``repro_torch/csrc``), and its
+§IV streaming tomography (``python -m repro_torch.apps.tomo.stream``),
+whose ART sweep is a hand-written CUDA kernel too.
 """

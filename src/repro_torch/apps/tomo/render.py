@@ -1,0 +1,41 @@
+"""Rendering stage (paper Figs. 13-15, ParaView/ParaViewWeb stand-in).
+
+The counterpart of ``repro/apps/tomo/render.py:render_volume``, a numpy
+copy: orthogonal slices and a max-intensity projection of the gathered
+volume, saved as NPY and, where matplotlib is installed, as a PNG.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+
+def render_volume(volume: np.ndarray, outdir: str, prefix: str = "tomo"
+                  ) -> list[str]:
+    os.makedirs(outdir, exist_ok=True)
+    paths = []
+    mid = volume.shape[0] // 2
+    views = {
+        "slice_z": volume[mid],
+        "slice_y": volume[:, volume.shape[1] // 2],
+        "mip": volume.max(axis=0),
+    }
+    np.save(os.path.join(outdir, f"{prefix}_volume.npy"), volume)
+    paths.append(os.path.join(outdir, f"{prefix}_volume.npy"))
+    try:
+        import matplotlib
+    except ImportError:        # no matplotlib: the .npy is the artifact
+        return paths
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, axes = plt.subplots(1, len(views), figsize=(4 * len(views), 4))
+    for ax, (name, img) in zip(np.atleast_1d(axes), views.items()):
+        ax.imshow(img, cmap="viridis")
+        ax.set_title(name)
+        ax.axis("off")
+    path = os.path.join(outdir, f"{prefix}_views.png")
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    paths.append(path)
+    return paths

@@ -2,17 +2,22 @@
 
 The counterpart of ``repro/core/rdd.py``: partitioned, lazily evaluated
 datasets, where a partition is computed (from the broker, for the RDDs of
-``create_rdd``) when it is asked for. ``create_rdd`` builds one partition per broker offset
-range, and each micro-batch unions the per-topic RDDs. The reference's
-threaded task scheduler (retries, speculation) and its other
-transformations are left out: partitions are computed in order, in the
-calling thread.
+``create_rdd``) when it is asked for. ``create_rdd`` builds one partition per
+broker offset range, and each micro-batch unions the per-topic RDDs; the
+§IV path re-cuts a batch with ``Context.parallelize`` and runs its sweep
+with ``map_partitions``. The reference's threaded task scheduler (retries,
+speculation) and its other transformations are left out: partitions are
+computed in order, in the calling thread. On one card its threads would
+only queue on one stream, and a speculative copy would launch a kernel
+twice.
 """
 from __future__ import annotations
 
 import bisect
 import itertools
-from typing import Any, Callable
+from typing import Any, Callable, Iterable
+
+import numpy as np
 
 
 class RDD:
@@ -26,6 +31,13 @@ class RDD:
 
     def compute_partition(self, idx: int) -> Any:
         return self._compute(idx)
+
+    def map_partitions(self, fn: Callable[[Any], Any]) -> "RDD":
+        """``fn`` applied to each whole partition, lazily."""
+        def compute(idx: int) -> Any:
+            return fn(self.compute_partition(idx))
+
+        return RDD(self.context, self.num_partitions, compute)
 
     def union(self, *others: "RDD") -> "RDD":
         """Paper Fig. 8: per-topic RDDs combined with a union before the MPI
@@ -56,3 +68,16 @@ class Context:
     scheduler; here partitions run in the calling thread, so it holds
     nothing, and it stays so that RDDs are made as the reference makes
     them."""
+
+    def parallelize(self, data: Iterable[Any], num_partitions: int) -> RDD:
+        """An RDD of ``data`` cut into ``num_partitions`` contiguous slices,
+        as Spark (and the reference) cuts it."""
+        items = list(data)
+        if num_partitions <= 0:
+            raise ValueError("num_partitions must be positive")
+        bounds = np.linspace(0, len(items), num_partitions + 1).astype(int)
+
+        def compute(idx: int) -> list[Any]:
+            return items[bounds[idx]:bounds[idx + 1]]
+
+        return RDD(self, num_partitions, compute)

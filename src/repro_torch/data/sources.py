@@ -1,4 +1,4 @@
-"""Data sources, trimmed to the §III detector.
+"""Data sources, trimmed to the §III detector and the §IV tilt series.
 
 The counterpart of ``repro/data/sources.py``: a source is polled for
 ``(key, value)`` records; a replayable one also ``seek``s, so a restarted
@@ -82,3 +82,19 @@ class DetectorSource(SequenceSource):
         if self._emit_frames:
             return key, (i, np.asarray(self.problem.magnitudes_host[i]))
         return key, i
+
+
+class ProjectionSource(SequenceSource):
+    """TEM tilt series (paper §IV): one record per sinogram slice, keyed
+    ``slice-%06d``, with ``value = (slice_index, sinogram_row)`` read from
+    a host array."""
+
+    def __init__(self, sinogram: np.ndarray, interval: float = 0.0) -> None:
+        super().__init__(interval=interval)
+        self._sino = np.asarray(sinogram)
+
+    def __len__(self) -> int:
+        return len(self._sino)
+
+    def record_at(self, i: int) -> RecordKV:
+        return f"slice-{i:06d}".encode(), (i, self._sino[i])

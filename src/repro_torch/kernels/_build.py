@@ -1,13 +1,14 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into ``build/repro_torch/libptycho_kernels.so`` at the root of
-the checkout, at first use, and the library is loaded with ``ctypes``. The
-sources have a plain C interface and include no PyTorch header, so the build
-takes seconds; pointers and the stream cross as ``c_void_p``, element
-counts as ``c_int64`` and beta as ``c_float``. The library is rebuilt when
-the hash of the sources and flags changes. A failed build raises with
-nvcc's stderr: there is no fallback to the plain PyTorch versions.
+(``sm_90a``) into ``build/repro_torch/librepro_torch_kernels.so`` at the
+root of the checkout, at first use, and the library is loaded with
+``ctypes``. The sources have a plain C interface and include no PyTorch
+header, so the build takes seconds; pointers and the stream cross as
+``c_void_p``, counts and sizes as ``c_int64`` and beta as ``c_float``. The
+library is rebuilt when the hash of the sources and flags changes. A failed
+build raises with nvcc's stderr: there is no fallback to the plain PyTorch
+versions.
 
 Nothing here runs at import time, so the CPU tests import every module
 without nvcc or a GPU.
@@ -31,7 +32,7 @@ log = get_logger(__name__)
 
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-LIB_NAME = "libptycho_kernels.so"
+LIB_NAME = "librepro_torch_kernels.so"
 # no --use_fast_math: the kernels must round as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -44,6 +45,8 @@ SIGNATURES = {
                                 ctypes.c_int64, _P),
     "raar_combine_launch": (_P, _P, _P, _P, _P, ctypes.c_int64,
                             ctypes.c_float, _P),
+    "art_sweep_launch": (_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_int64, ctypes.c_int64, ctypes.c_float, _P),
 }
 
 

@@ -26,6 +26,8 @@ from repro.kernels.raar import kernel as raar_kernel
 from repro.kernels.raar import ref as raar_ref
 from repro_torch import kernels as t_kernels
 from repro_torch.kernels import _build
+from repro_torch.kernels.art import kernel as t_art_kernel
+from repro_torch.kernels.art import ops as t_art_ops
 from repro_torch.kernels.modulus import kernel as t_mod_kernel
 from repro_torch.kernels.modulus import ops as t_mod_ops
 from repro_torch.kernels.overlap import kernel as t_ov_kernel
@@ -157,6 +159,7 @@ def test_torch_overlap_matches_complex_ref():
 def _cpu_calls():
     z = torch.ones((2, 4, 4), dtype=torch.complex64)
     mag = torch.ones((2, 4, 4))
+    A, b, f0 = torch.ones((6, 8)), torch.ones((2, 6)), torch.zeros((2, 8))
     return {
         "modulus_project": (t_mod_ops.modulus_project,
                             t_mod_kernel.modulus_project, (z, mag)),
@@ -164,6 +167,9 @@ def _cpu_calls():
                              t_ov_kernel.overlap_products, (z, z[0])),
         "raar_combine": (t_raar_ops.raar_combine,
                          t_raar_kernel.raar_combine, (z, z, z, z)),
+        "art_sweep": (t_art_ops.art_reconstruct,
+                      lambda A, b, f0: t_art_kernel.art_sweep(
+                          A, b, torch.ones(6), f0), (A, b, f0)),
     }
 
 
@@ -175,7 +181,7 @@ def test_torch_ops_on_cpu_tensors_launch_nothing():
 
 
 @pytest.mark.parametrize("name", ["modulus_project", "overlap_products",
-                                  "raar_combine"])
+                                  "raar_combine", "art_sweep"])
 def test_torch_kernels_refuse_cpu_tensors(name):
     """A kernel wrapper takes CUDA tensors only, and ``ops`` asked for the
     kernel does not fall back to the plain version."""
@@ -185,7 +191,7 @@ def test_torch_kernels_refuse_cpu_tensors(name):
         kernel_fn(*args)
     with pytest.raises(ValueError, match="CUDA tensor"):
         op(*args, use_kernel=True)
-    assert kernel_fn.launches == 0
+    assert t_kernels.launch_counts()[name] == 0
 
 
 def test_torch_resolve_device_raises_without_gpu(monkeypatch):
@@ -223,6 +229,8 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
                       'while [ "$1" != "-o" ]; do shift; done\n'
                       'echo lib > "$2"\n')
     lib = _build.build(src, tmp_path / "build", nvcc=nvcc)
+    # one library for every path's kernels, named after none of them
+    assert _build.LIB_NAME == "librepro_torch_kernels.so"
     assert lib.name == _build.LIB_NAME and lib.read_text() == "lib\n"
     first = calls.read_text().splitlines()
     assert len(first) == 1                      # one nvcc call for all
@@ -235,13 +243,17 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     assert len(calls.read_text().splitlines()) == 2
 
 
-def test_torch_kernel_sources_name_the_tpu_kernel_they_replace():
-    for name in ("modulus", "overlap", "raar"):
-        text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu"
-                ).read_text()
-        assert f"repro/kernels/{name}/kernel.py" in text
-        assert "Bound: device memory" in text
-        assert 'extern "C"' in text
+@pytest.mark.parametrize("name,bound", [
+    ("modulus", "Bound: device memory"),
+    ("overlap", "Bound: device memory"),
+    ("raar", "Bound: device memory"),
+    ("art", "Bound: the dependent chain of row steps"),
+])
+def test_torch_kernel_sources_name_the_tpu_kernel_they_replace(name, bound):
+    text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
+    assert f"repro/kernels/{name}/kernel.py" in text
+    assert bound in text
+    assert 'extern "C"' in text
 
 
 # -- import rule ---------------------------------------------------------------

@@ -35,7 +35,8 @@ def test_torch_stream_fast_drains_every_frame(fast_run):
     assert res["iterations"] == (len(res["batch_errors"])
                                  * args.iters_per_batch + args.final_iters)
     assert res["launches"] == {"modulus_project": 0, "overlap_products": 0,
-                               "raar_combine": 0}       # CPU: plain versions
+                               "raar_combine": 0,       # CPU: plain versions
+                               "art_sweep": 0}          # not on this path
     assert np.isfinite(res["final_error"])
     assert res["final_error"] < res["batch_errors"][0]
     assert res["quality"] > 0.9
