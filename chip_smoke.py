@@ -25,7 +25,25 @@ Phases, each fatal on failure:
      angles, 2 sweeps, 4 partitions) through ``run_stream``, with its
      residual and volume error held to the JAX reference's, the ART
      launches against the partitions processed, and the sink's keys; then
-     a profile of one of its batches: device time and idle share.
+     a profile of one of its batches: device time and idle share;
+  9. the flash-attention kernel against its plain version on the card, at
+     the shapes of tests/test_kernels.py (fp32 and bf16), at S = 1,000
+     through ``ops`` (not a multiple of its 64-row tiles), and at the
+     model's prefill (B 4, S 1,024, H 16, hd 128) in bf16 and fp32; at the
+     model shape in bf16 timed beside its bound and beside PyTorch's
+     ``scaled_dot_product_attention`` (timed for the table only);
+ 10. internlm2-1.8b at full width on the card from the seed: a 4 x 1,024
+     prompt batch prefilled with the kernel and with the naive attention,
+     logits and greedy tokens compared; then the serve invariant (greedy
+     prefill + decode equals the argmax of teacher-forced prefills) in
+     fp32, B 2, S 256, 4 tokens, with the kernel on;
+ 11. the serve stream at full width through ``run_serve``: 16 requests of
+     1,024 tokens in batches of 4, 32 tokens out each, in bf16, its
+     flash launches counted (4 batches x 24 layers); then one batch: its
+     tokens against the model's own prefill/decode_step loop, the same loop
+     with the naive attention (reported: the first differing token of each
+     request and the top-2 logit gap there), and a profile: device time by
+     kernel and idle share.
 It then prints a JSON line of the kernels, the nvidia-smi line again, and
 as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -49,14 +67,17 @@ F, H, W = 512, 64, 64               # the main path's largest batch
 PAPER_ARGS = ["--frames", "512", "--obj-size", "256", "--probe-size", "64",
               "--scan-step", "8"]
 # H100 SXM (NVIDIA data sheet): device memory rate, the fp32 rate outside
-# the tensor cores, and the L2's size
+# the tensor cores, the dense bf16 rate of the tensor cores, and the L2's
+# size
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 L2_BYTES = 50 * 2**20
 MAX_FINAL_ERROR = 0.10              # the JAX reference reaches 0.0865 here
 MIN_QUALITY = 0.92                  # ... and 0.943
 OWN_KERNELS = ("modulus_project_kernel", "overlap_products_kernel",
                "raar_combine_kernel")
+GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")    # cuBLAS's kernels
 ART_SHAPES = ((8, 16), (20, 12), (32, 64))      # tests/test_kernels.py:93
 ART_ODD_SHAPE = (24, 37)        # ncol % 4 != 0: the kernel's float path
 ART_TOL = dict(rtol=1e-4, atol=1e-4)            # tests/test_kernels.py:107
@@ -79,6 +100,15 @@ REF_SLICE_ERROR = (0.6561629934299793, 0.6542791921408858,
                    0.6492461233015283, 0.6465218432424262,
                    0.642746150133384, 0.6372793810563379)
 REF_TOL = 1e-3
+FLASH_SHAPES = ((64, 16), (128, 32), (32, 8))    # tests/test_kernels.py:124
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:136
+MODEL_B, MODEL_S, MODEL_H, MODEL_HD = 4, 1024, 16, 128
+ARCH = "internlm2-1.8b"
+# bf16 prefill of the 4 x 1,024 batch, kernel against naive attention: the
+# largest last-token logit difference allowed (see PERF.md, §6)
+MAX_PREFILL_LOGIT_DIFF = 0.25
+SERVE_ARGS = ["--requests", "16", "--batch", "4", "--prompt-len", "1024",
+              "--gen", "32", "--seed", str(SEED)]
 
 
 def _nvidia_smi() -> str:
@@ -107,8 +137,9 @@ def _time_ms(torch, fn, reps: int = 25, warmup: int = 3,
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def _bound_ms(nbytes: float, ops: float,
+              ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / MEM_BYTES_PER_S, ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -310,7 +341,7 @@ def stream_phase(torch, dev) -> dict:
     expect = {"modulus_project": steps, "raar_combine": steps,
               # the probe update's second launch from iteration 2 on
               "overlap_products": 2 * steps - min(steps, 2),
-              "art_sweep": 0}
+              "art_sweep": 0, "flash_attention": 0}
     print(f"  steps {steps}, launches {counts}, expected {expect}")
     if counts != expect or res["launches"] != expect:
         raise AssertionError(f"launch counts {counts} (run_stream reports "
@@ -576,6 +607,332 @@ def tomo_profile_phase(torch, dev) -> None:
               f"{name[:90]}")
 
 
+def flash_phase(torch, dev, flush) -> dict:
+    """The flash kernel against its plain version (held to FLASH_TOL) at
+    the test shapes, at S = 1,000 through ``ops`` and at the model's
+    prefill shape; at the model shape timed beside its bound and SDPA."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fo
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    rng = np.random.default_rng(SEED)
+
+    def qkv(shape, dtype):
+        return [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, getattr(torch, dtype)) for _ in range(3)]
+
+    def check(label, dtype, got, want):
+        torch.cuda.synchronize()
+        err = _max_err(torch, got.float(), want.float())
+        tol = FLASH_TOL[dtype]
+        print(f"  flash_attention {label}, {dtype}: max|kernel - plain| "
+              f"{err:.3g} (tol {tol} + {tol} relative)", flush=True)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        return {"name": f"flash_attention ({label}, {dtype})",
+                "max_abs_err": err}
+
+    variants = []
+    for S, hd in FLASH_SHAPES:
+        for dtype in FLASH_TOL:
+            q, k, v = qkv((4, S, hd), dtype)
+            got = fk.flash_attention(q[:, :, None], k[:, :, None],
+                                     v[:, :, None])[:, :, 0]
+            variants.append(check(f"BH 4, S {S}, hd {hd}", dtype, got,
+                                  fr.attention_ref(q, k, v)))
+    for dtype in FLASH_TOL:         # the tail: 1,000 = 15 x 64 + 40
+        q, k, v = qkv((1, 1000, MODEL_H, MODEL_HD), dtype)
+        variants.append(check(
+            f"ops, B 1, S 1000, H {MODEL_H}, hd {MODEL_HD}", dtype,
+            fo.flash_attention(q, k, v),
+            fo.flash_attention(q, k, v, use_kernel=False)))
+    main_row = None
+    for dtype in ("bfloat16", "float32"):
+        shape = (MODEL_B, MODEL_S, MODEL_H, MODEL_HD)
+        q, k, v = qkv(shape, dtype)
+
+        def call():
+            return fk.flash_attention(q, k, v)
+
+        def plain():
+            return fo.flash_attention(q, k, v, use_kernel=False)
+
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        got = call()
+        row = check(f"B {MODEL_B}, S {MODEL_S}, H {MODEL_H}, hd {MODEL_HD}",
+                    dtype, got, plain())
+        sdpa_err = _max_err(torch, got.float(),
+                            library().transpose(1, 2).float())
+        ms = _time_ms(torch, call, flush=flush)
+        plain_ms = _time_ms(torch, plain, flush=flush)
+        library_ms = _time_ms(torch, library, flush=flush)
+        # q, k, v read once and o written once; QK^T and PV over the causal
+        # half, 2 operations a multiply-add, at the card's rate for the type
+        bh, elem = MODEL_B * MODEL_H, q.element_size()
+        ops = 2 * 2 * bh * (MODEL_S * (MODEL_S + 1) / 2) * MODEL_HD
+        bound, by = _bound_ms(4 * bh * MODEL_S * MODEL_HD * elem, ops,
+                              BF16_TC_OPS_PER_S if dtype == "bfloat16"
+                              else FP32_OPS_PER_S)
+        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}), library (SDPA) {library_ms:.4f} ms; "
+              f"max|kernel - SDPA| {sdpa_err:.3g} (reported)", flush=True)
+        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=library_ms, max_abs_err_vs_library=sdpa_err)
+        variants.append(row)
+        if dtype == "bfloat16":
+            main_row = row
+    return dict(main_row, name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:79",
+                launches=0,
+                max_abs_err=max(v["max_abs_err"] for v in variants),
+                variants=variants)
+
+
+def _param_count(params) -> int:
+    if isinstance(params, dict):
+        return sum(_param_count(v) for v in params.values())
+    if isinstance(params, list):
+        return sum(_param_count(v) for v in params)
+    return params.numel()
+
+
+def model_phase(torch, dev) -> None:
+    """internlm2-1.8b at full width: the prefill with the kernel against
+    the naive attention (bf16), then the serve invariant in fp32."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    config = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              config)
+    torch.cuda.synchronize()
+    n = _param_count(params)
+    print(f"  {ARCH}: {config.num_layers} layers, d_model {config.d_model}, "
+          f"{config.num_heads}/{config.num_kv_heads} heads of "
+          f"{config.resolved_head_dim}, d_ff {config.d_ff}, vocab "
+          f"{config.vocab_size}: {n / 1e9:.3f} B parameters, "
+          f"{n * 2 / 1e9:.2f} GB in bf16, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
+    naive = config.replace(attention_impl="naive")
+    with torch.inference_mode():
+        before = kernels.launch_counts()["flash_attention"]
+        lk, _ = transformer.prefill(params, {"tokens": tokens}, config)
+        launched = kernels.launch_counts()["flash_attention"] - before
+        ln, _ = transformer.prefill(params, {"tokens": tokens}, naive)
+        ms_k = _time_ms(torch, lambda: transformer.prefill(
+            params, {"tokens": tokens}, config), reps=3, warmup=1)
+        ms_n = _time_ms(torch, lambda: transformer.prefill(
+            params, {"tokens": tokens}, naive), reps=3, warmup=1)
+    if not (torch.isfinite(lk).all() and torch.isfinite(ln).all()):
+        raise AssertionError("non-finite prefill logits")
+    if lk.shape != (MODEL_B, 1, config.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    diff = _max_err(torch, lk.float(), ln.float())
+    agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
+    print(f"  bf16 prefill of {MODEL_B} x {MODEL_S} tokens: kernel "
+          f"({launched} launches) against naive attention: last-token "
+          f"logits max|diff| {diff:.4g} (limit {MAX_PREFILL_LOGIT_DIFF}; "
+          f"max|logit| {float(ln.float().abs().max()):.3g}), greedy tokens "
+          f"agree {agree}/{MODEL_B}; prefill {ms_k:.2f} ms with the kernel, "
+          f"{ms_n:.2f} ms naive", flush=True)
+    if launched != config.num_layers:
+        raise AssertionError(f"{launched} flash launches in a prefill of "
+                             f"{config.num_layers} layers")
+    if not diff <= MAX_PREFILL_LOGIT_DIFF:
+        raise AssertionError(f"kernel and naive prefill logits differ by "
+                             f"{diff} > {MAX_PREFILL_LOGIT_DIFF}")
+    del params, lk, ln
+    torch.cuda.empty_cache()
+
+    # the serve invariant of tests/test_models.py:45-84, in full fp32
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    config = config.replace(dtype="float32", param_dtype="float32")
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              config)
+    B, S, G = 2, 256, 4
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                           (B, S))).to(dev)
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(params, {"tokens": tokens},
+                                            config, max_len=S + G)
+        serve = [logits[:, -1].argmax(-1)]
+        for _ in range(G - 1):
+            logits, cache = transformer.decode_step(
+                params, serve[-1][:, None], cache, config)
+            serve.append(logits[:, -1].argmax(-1))
+        full = tokens
+        for g in range(G):
+            logits2, _ = transformer.prefill(params, {"tokens": full}, config,
+                                             max_len=full.shape[1] + 1)
+            nxt = logits2[:, -1].argmax(-1)
+            if not torch.equal(nxt, serve[g]):
+                raise AssertionError(f"serve invariant broken at step {g}: "
+                                     f"{nxt.tolist()} != {serve[g].tolist()}")
+            full = torch.cat([full, nxt[:, None]], dim=1)
+    print(f"  fp32 serve invariant at full width (B {B}, S {S}, {G} tokens, "
+          f"the kernel on): greedy prefill + decode == teacher-forced "
+          f"prefills, tokens {torch.stack(serve, 1).tolist()}", flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+def _greedy(torch, params, config, prompts, gen: int):
+    """Greedy prefill + ``gen - 1`` decode steps: the tokens (B, gen) on the
+    host, and each token's logits (B, V) in fp32."""
+    from repro_torch.models import transformer
+
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(
+            params, {"tokens": prompts}, config,
+            max_len=prompts.shape[1] + gen)
+        steps = [logits[:, -1].float()]
+        for _ in range(gen - 1):
+            tok = steps[-1].argmax(-1, keepdim=True)
+            logits, cache = transformer.decode_step(params, tok, cache,
+                                                    config)
+            steps.append(logits[:, -1].float())
+    return torch.stack([s.argmax(-1) for s in steps], 1).cpu(), steps
+
+
+def serve_phase(torch, dev) -> int:
+    """The serve stream at full width; returns its flash launches."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import parse_args, run_serve
+
+    args = parse_args(SERVE_ARGS)
+    kernels.reset_launch_counts()
+    res = run_serve(args, device=dev)
+    counts = kernels.launch_counts()
+    n_layers = res["config"].num_layers
+    batches = -(-args.requests // args.batch)
+    want = batches * n_layers
+    print(f"  launches {counts} (run_serve reports {res['launches']}), "
+          f"expected flash_attention {batches} batches x {n_layers} layers "
+          f"= {want}")
+    if counts["flash_attention"] != want or res["launches"] != counts:
+        raise AssertionError(f"flash launches {counts['flash_attention']} "
+                             f"!= {want}")
+    if any(n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(f"other kernels launched: {counts}")
+    results = res["results"]
+    vocab = res["config"].vocab_size
+    if sorted(results) != list(range(args.requests)) or any(
+            len(t) != args.gen or not all(0 <= x < vocab for x in t)
+            for t in results.values()):
+        raise AssertionError(f"results {results}")
+    print(f"  served {len(results)} requests x {args.gen} tokens "
+          f"({res['tokens']} tokens) in {res['stream_s']:.3f} s: "
+          f"{res['tokens_per_s']:.1f} tokens/s")
+    print(f"  per batch: prefill (s) {[round(x, 4) for x in res['prefill_s']]}"
+          f", decode of {args.gen - 1} steps (s) "
+          f"{[round(x, 4) for x in res['decode_s']]}, time to first token "
+          f"(s) {[round(x, 4) for x in res['ttft_s']]}")
+    print(f"  realtime report {res['report']}; request 0 -> "
+          f"{results[0][:8]}", flush=True)
+    return counts["flash_attention"]
+
+
+def serve_profile_phase(torch, dev) -> None:
+    """One served batch (4 prompts of 1,024 tokens, 32 tokens out) through
+    ``run_serve`` on weights drawn from the same seed: its tokens against
+    the model's own prefill/decode_step loop, the same loop with the naive
+    attention (reported), then its device time by kernel and idle share."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args, run_serve
+    from repro_torch.models import transformer
+
+    args = parse_args(SERVE_ARGS[2:] + ["--requests", "4"])
+    config = get_config(args.arch)
+    params = transformer.init(torch.Generator(device=dev).manual_seed(
+        args.seed), config)
+    res = run_serve(args, device=dev, params=params)   # warm
+    res = run_serve(args, device=dev, params=params)   # unprofiled wall
+    wall_ms = res["stream_s"] * 1e3
+    # the same prompts through the model's own prefill/decode_step loop
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(np.stack([
+        rng.integers(0, config.vocab_size, (args.prompt_len,), dtype=np.int32)
+        for _ in range(args.requests)]).astype(np.int64)).to(dev)
+    direct, lk = _greedy(torch, params, config, prompts, args.gen)
+    if [res["results"][i] for i in range(args.requests)] != direct.tolist():
+        raise AssertionError("run_serve's tokens differ from the model's "
+                             "own prefill/decode_step loop")
+    print(f"  run_serve's {args.requests} x {args.gen} tokens equal the "
+          f"model's prefill/decode_step loop on the same prompts", flush=True)
+    # replayed with the naive attention (reported): where a request's
+    # tokens first part, both runs saw the same context, so the top-2 logit
+    # gaps there say whether the kernel's rounding tipped a near tie
+    naive, ln = _greedy(torch, params, config.replace(attention_impl="naive"),
+                        prompts, args.gen)
+    same = [bool((direct[i] == naive[i]).all()) for i in range(args.requests)]
+    print(f"  the batch replayed with naive attention: {sum(same)}/"
+          f"{args.requests} requests give the same {args.gen} tokens "
+          f"(reported)", flush=True)
+    for i in (i for i in range(args.requests) if not same[i]):
+        t = int((direct[i] != naive[i]).nonzero()[0, 0])
+        gk = lk[t][i].topk(2).values
+        gn = ln[t][i].topk(2).values
+        print(f"    request {i}: first differs at token {t} of {args.gen}; "
+              f"top-2 logit gap there {float(gk[0] - gk[1]):.4g} with the "
+              f"kernel, {float(gn[0] - gn[1]):.4g} naive; max|logit diff| "
+              f"{float((lk[t][i] - ln[t][i]).abs().max()):.4g}", flush=True)
+    for attempt in (1, 2):
+        before = kernels.launch_counts()["flash_attention"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_serve(args, device=dev, params=params)
+        launched = kernels.launch_counts()["flash_attention"] - before
+        seen = sum(1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "flash_attention_kernel" in ev.name)
+        if seen == launched:
+            break
+        print(f"  profile {attempt}: the profiler saw {seen} of the "
+              f"{launched} flash launches")
+    else:
+        print("  profile: launches missing from the trace; idle share not "
+              "measured")
+        return
+    by_kernel = _device_us(torch, prof)
+    busy_ms = sum(by_kernel.values()) / 1e3
+    flash_ms = sum(us for name, us in by_kernel.items()
+                   if "flash_attention_kernel" in name) / 1e3
+    gemm_ms = sum(us for name, us in by_kernel.items()
+                  if "flash_attention_kernel" not in name
+                  and any(m in name.lower() for m in GEMM_MARKERS)) / 1e3
+    print(f"  one batch (4 x {args.prompt_len} tokens, {args.gen} out): "
+          f"wall {wall_ms:.3f} ms unprofiled (prefill "
+          f"{res['prefill_s'][0] * 1e3:.3f} ms, decode "
+          f"{res['decode_s'][0] * 1e3:.3f} ms); device busy {busy_ms:.3f} ms "
+          f"(profiled, {seen} flash launches seen of {launched}), idle share "
+          f"{max(0.0, 1 - busy_ms / wall_ms):.4f}; flash kernel "
+          f"{flash_ms:.3f} ms, GEMMs {gemm_ms:.3f} ms, the rest "
+          f"{busy_ms - flash_ms - gemm_ms:.3f} ms")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"    {us / 1e3:10.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
+              f"{name[:90]}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print("chip_smoke: no src/repro_torch next to this script; run it "
@@ -634,6 +991,23 @@ def main() -> int:
     print("[8] the tomography stream at full width:", flush=True)
     art_row["launches"] = tomo_phase(torch, dev, art_row["ms"])
     tomo_profile_phase(torch, dev)
+    from repro_torch.apps.tomo.solver import clear_system_cache
+    clear_system_cache()            # the 4.75 GiB system off the card
+    torch.cuda.empty_cache()
+
+    print("[9] the flash-attention kernel against its plain version (fp32 "
+          "tol 1e-5, bf16 2e-2):", flush=True)
+    l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    flash_row = flash_phase(torch, dev, l2_flush.zero_)
+    del l2_flush
+    rows.append(flash_row)
+
+    print(f"[10] {ARCH} at full width:", flush=True)
+    model_phase(torch, dev)
+
+    print("[11] the serve stream at full width:", flush=True)
+    flash_row["launches"] = serve_phase(torch, dev)
+    serve_profile_phase(torch, dev)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -7,5 +7,7 @@ Its paths are the paper's §III streaming ptychography loop
 (``python -m repro_torch.apps.ptycho.stream``), whose three elementwise
 hot spots run as hand-written CUDA kernels (``repro_torch/csrc``), and its
 §IV streaming tomography (``python -m repro_torch.apps.tomo.stream``),
-whose ART sweep is a hand-written CUDA kernel too.
+whose ART sweep is a hand-written CUDA kernel too, and the language-model
+serving loop (``python -m repro_torch.launch.serve``), whose prefill runs
+causal attention in a hand-written CUDA flash kernel.
 """

@@ -95,17 +95,25 @@ def gather_patches(obj: torch.Tensor, positions: np.ndarray | torch.Tensor,
 def accumulate_patches(canvas: torch.Tensor, iy: torch.Tensor,
                        ix: torch.Tensor, values: torch.Tensor
                        ) -> torch.Tensor:
-    """``canvas[iy, ix] += values`` in place, overlapping patches summed.
+    """``canvas[iy, ix] += values`` in place, overlapping patches summed in
+    an order fixed by the indices, so no sum depends on thread timing.
 
-    ``index_put_(accumulate=True)`` sums duplicates in index order on the
-    CPU and, by sorting, on CUDA too, so the sums do not depend on the
-    order atomics happen to land in. A complex canvas is scattered through
-    its float view."""
-    if canvas.is_complex():
-        torch.view_as_real(canvas).index_put_(
-            (iy, ix), torch.view_as_real(values), accumulate=True)
-    else:
-        canvas.index_put_((iy, ix), values, accumulate=True)
+    On CUDA, ``index_put_(accumulate=True)`` sorts the indices and sums
+    each run of duplicates in order (a complex canvas is scattered through
+    its float view). On the CPU its float path adds with atomics from
+    several threads once it has 32,768 values or more, so two runs sum in
+    different orders and differ in the last bits, which the RAAR iterations
+    then amplify; there ``index_add_`` on the flattened canvas sums
+    serially, in index order."""
+    if canvas.is_cuda:
+        if canvas.is_complex():
+            torch.view_as_real(canvas).index_put_(
+                (iy, ix), torch.view_as_real(values), accumulate=True)
+        else:
+            canvas.index_put_((iy, ix), values, accumulate=True)
+        return canvas
+    flat = (iy * canvas.shape[-1] + ix).expand(values.shape)
+    canvas.view(-1).index_add_(0, flat.reshape(-1), values.reshape(-1))
     return canvas
 
 

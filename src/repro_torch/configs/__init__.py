@@ -1,0 +1,32 @@
+"""Architecture registry of the port: the configs it can serve.
+
+The counterpart of ``repro/configs/__init__.py:get_config``, over the
+ported archs only. Every module exports ``CONFIG`` (the published numbers)
+and ``reduced()`` (a tiny variant of the same family for CPU tests).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import DTYPES, ModelConfig
+
+ARCHS: dict[str, str] = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+}
+# the reference's other archs, which wait for ROADMAP Queue 1 item 8
+WAITING = ("llava-next-34b", "minitron-8b", "gemma-7b", "starcoder2-3b",
+           "whisper-medium", "recurrentgemma-2b", "rwkv6-7b",
+           "kimi-k2-1t-a32b", "granite-moe-3b-a800m")
+
+
+def get_config(arch: str, reduced: bool = False) -> ModelConfig:
+    if arch in WAITING:
+        raise KeyError(f"arch {arch!r} waits for ROADMAP Queue 1 item 8; "
+                       f"ported: {sorted(ARCHS)}")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; ported: {sorted(ARCHS)}")
+    mod = importlib.import_module(ARCHS[arch])
+    return mod.reduced() if reduced else mod.CONFIG
+
+
+__all__ = ["ARCHS", "DTYPES", "ModelConfig", "WAITING", "get_config"]

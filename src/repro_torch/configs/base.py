@@ -1,0 +1,67 @@
+"""Model configuration, trimmed to what the dense serve path reads.
+
+The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
+names and defaults for the fields kept, but ``attention_impl``, whose
+values are the port's own (below). The reference keeps dtypes as
+strings (``dtype``, ``param_dtype``); ``DTYPES`` maps them to torch dtypes.
+Only the fields internlm2-1.8b sets or the serve path reads are kept: its
+layers are RMSNorm, a SwiGLU MLP, RoPE and an untied head. The options of
+the archs that wait (the gemma embedding scale and (1 + w) norm, LayerNorm,
+GELU and squared ReLU, ungated MLPs, learned positions, tied embeddings,
+the logit soft cap) and the fields of MoE, recurrent, audio and VLM blocks,
+sharding, remat and scan come with the slice that ports an arch setting
+them. ``local_window`` and ``is_encoder_decoder`` stay so that a config
+asking for a sliding window or cross-attention is refused, not served as
+something else.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+DTYPES: dict[str, torch.dtype] = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+}
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense (the only family ported)
+    num_layers: int
+    d_model: int
+    num_heads: int                 # query heads
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 => d_model // num_heads
+    rope_theta: float = 10_000.0
+    local_window: int = 0          # sliding window: not ported, refused
+    is_encoder_decoder: bool = False   # cross-attention: not ported, refused
+    # numerics / execution
+    dtype: str = "bfloat16"        # activation/compute dtype
+    param_dtype: str = "bfloat16"
+    # flash: the CUDA kernel for a causal prefill on the card, naive
+    # elsewhere; naive: naive everywhere. The reference's blocked and
+    # triangular schedules are not ported and are refused.
+    attention_impl: str = "flash"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @property
+    def parameter_dtype(self) -> torch.dtype:
+        return DTYPES[self.param_dtype]
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

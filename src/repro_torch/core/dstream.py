@@ -34,9 +34,11 @@ class StreamingContext:
     """Drives micro-batches: broker topics -> union RDD -> pipeline fn -> sinks."""
 
     def __init__(self, context: Context, broker: Broker,
-                 max_records_per_partition: int | None = None) -> None:
+                 max_records_per_partition: int | None = None, *,
+                 batch_interval: float = 0.1) -> None:
         self.context = context
         self.broker = broker
+        self.batch_interval = batch_interval
         self.max_records_per_partition = max_records_per_partition
         self._topics: list[str] = []
         self._batch_fn: Callable[[RDD, BatchInfo], Any] | None = None
@@ -161,3 +163,20 @@ class StreamingContext:
         for r in ranges:
             self._offsets[r.topic][r.partition] = r.until
             self.broker.commit(r.topic, r.partition, r.until)
+
+    # -- near-real-time accounting ------------------------------------------
+    def realtime_report(self) -> dict[str, float]:
+        """Is processing keeping up with the batch interval? (paper §III).
+        The keys and values of ``repro/core/dstream.py:realtime_report``."""
+        if not self._history:
+            return {"batches": 0}
+        times = [b.processing_time for b in self._history]
+        recs = sum(b.num_records for b in self._history)
+        return {
+            "batches": len(self._history),
+            "records": recs,
+            "mean_processing_s": sum(times) / len(times),
+            "max_processing_s": max(times),
+            "throughput_rec_per_s": recs / max(sum(times), 1e-9),
+            "keeps_up": max(times) <= self.batch_interval,
+        }

@@ -12,13 +12,15 @@ from __future__ import annotations
 
 def _wrappers() -> dict:
     from repro_torch.kernels.art import kernel as art
+    from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.modulus import kernel as modulus
     from repro_torch.kernels.overlap import kernel as overlap
     from repro_torch.kernels.raar import kernel as raar
     return {"modulus_project": modulus.modulus_project,
             "overlap_products": overlap.overlap_products,
             "raar_combine": raar.raar_combine,
-            "art_sweep": art.art_sweep}
+            "art_sweep": art.art_sweep,
+            "flash_attention": flash.flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

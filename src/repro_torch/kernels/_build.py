@@ -47,6 +47,9 @@ SIGNATURES = {
                             ctypes.c_float, _P),
     "art_sweep_launch": (_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
                          ctypes.c_int64, ctypes.c_int64, ctypes.c_float, _P),
+    "flash_attention_launch": (_P, _P, _P, _P, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_int64, ctypes.c_int64, _P),
 }
 
 

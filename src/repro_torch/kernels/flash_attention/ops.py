@@ -1,0 +1,27 @@
+"""Dispatch for causal attention in the model layout: the CUDA kernel for a
+CUDA tensor, the plain PyTorch version for a CPU tensor. A kernel that fails
+to build or launch raises; nothing falls back to the plain version."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel, ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    use_kernel: bool | None = None) -> torch.Tensor:
+    """q, k, v: (B, S, H, hd) with K/V repeated to H -> (B, S, H, hd),
+    causal. The kernel reads this layout in place and masks the tail past
+    S, where ``repro/kernels/flash_attention/ops.py`` transposes to
+    (B*H, S, hd) and pads S to its blocks; rows < S are the same function.
+    ``use_kernel=None`` means the kernel iff ``q`` is on CUDA; ``False``
+    asks for the plain version on either device."""
+    if q.is_cuda if use_kernel is None else use_kernel:
+        return kernel.flash_attention(q, k, v)
+    B, S, H, hd = q.shape
+
+    def to_bhsd(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(B * H, x.shape[1], hd)
+
+    out = ref.attention_ref(to_bhsd(q), to_bhsd(k), to_bhsd(v), causal=True)
+    return out.reshape(B, H, S, hd).transpose(1, 2)

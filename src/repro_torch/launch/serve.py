@@ -1,0 +1,165 @@
+"""Serving entry point: batched request streaming through the Spark-MPI stack.
+
+The counterpart of ``repro/launch/serve.py``. Requests (prompts) arrive on
+a broker topic; the streaming context cuts them into micro-batches; each
+batch is prefilled once (causal attention in the CUDA flash kernel) and
+decoded greedily for ``--gen`` tokens with the KV cache — the paper's
+near-real-time loop with a language model as the "MPI application". It
+reports per-batch prefill and decode times, the time to first token,
+tokens/s and the stream's near-real-time report.
+
+The reference's ``--reduced`` cannot be turned off (``store_true`` with
+``default=True``), so it always serves the 2-layer, 64-wide toy; here it is
+off unless given, and the entry point serves the full model. The weights
+are random, drawn from ``--seed`` (nothing pretrained can be fetched).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
+        --requests 16 --batch 4 --prompt-len 1024 --gen 32
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.core.broker import Broker
+from repro_torch.core.dstream import StreamingContext
+from repro_torch.core.rdd import Context
+from repro_torch.kernels import launch_counts
+from repro_torch.models.registry import get_model
+from repro_torch.utils import get_logger, resolve_device
+
+log = get_logger(__name__)
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the arch's tiny variant (CPU tests)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def build_serve_fns(config: ModelConfig) -> tuple[Callable, Callable]:
+    """``prefill(params, batch, max_len=None)`` and ``decode_step(params,
+    tokens, cache)`` of the config's family (``training.py:54-64``)."""
+    model = get_model(config)
+
+    def prefill(params: dict, batch: dict, max_len: int | None = None
+                ) -> tuple[torch.Tensor, dict]:
+        return model.prefill(params, batch, config, max_len=max_len)
+
+    def decode_step(params: dict, tokens: torch.Tensor, cache: dict
+                    ) -> tuple[torch.Tensor, dict]:
+        return model.decode_step(params, tokens, cache, config)
+
+    return prefill, decode_step
+
+
+def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
+              params: dict | None = None, config: ModelConfig | None = None
+              ) -> dict[str, Any]:
+    """Serve ``args.requests`` prompts in micro-batches of ``args.batch``.
+
+    ``config`` is the model to serve, by default ``args.arch`` (its
+    ``reduced()`` variant under ``--reduced``); ``params`` are its weights,
+    by default drawn from ``args.seed`` on the device. Returns the greedy tokens by request
+    id (``results``), the number of tokens served, per batch the prefill and
+    decode times (each taken once that batch's tokens reached the host) and
+    the time to first token of its requests (from the stream's start; every
+    request is queued before it), the stream's wall time, tokens/s, the
+    ``realtime_report`` and the kernel launches this run made."""
+    dev = resolve_device(device)
+    if config is None:
+        config = get_config(args.arch, reduced=args.reduced)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = get_model(config).init(gen, config)
+    prefill, decode = build_serve_fns(config)
+    launches_before = launch_counts()
+
+    broker = Broker()
+    broker.create_topic("requests", partitions=1)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        broker.produce("requests", {
+            "id": i,
+            "prompt": rng.integers(0, config.vocab_size,
+                                   (args.prompt_len,), dtype=np.int32)})
+
+    sc = StreamingContext(Context(), broker,
+                          max_records_per_partition=args.batch)
+    sc.subscribe(["requests"])
+    results: dict[int, list[int]] = {}
+    prefill_s: list[float] = []
+    decode_s: list[float] = []
+    ttft_s: list[float] = []
+    max_len = args.prompt_len + args.gen
+
+    def on_batch(rdd, info):
+        reqs = rdd.collect()
+        if not reqs:
+            return None
+        t0 = time.perf_counter()
+        while len(reqs) < args.batch:         # pad the last micro-batch
+            reqs.append(reqs[-1])
+        prompts = torch.from_numpy(
+            np.stack([r["prompt"] for r in reqs]).astype(np.int64)).to(dev)
+        with torch.inference_mode():
+            logits, cache = prefill(params, {"tokens": prompts},
+                                    max_len=max_len)
+            tokens = logits[:, -1:].argmax(dim=-1)
+            tokens[:, 0].cpu()                # waits for the prefill
+            t1 = time.perf_counter()
+            outs = [tokens[:, 0]]
+            for _ in range(args.gen - 1):
+                logits, cache = decode(params, tokens, cache)
+                tokens = logits[:, -1:].argmax(dim=-1)
+                outs.append(tokens[:, 0])
+            gen = torch.stack(outs, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+        prefill_s.append(t1 - t0)
+        decode_s.append(t2 - t1)
+        ttft_s.append(t1 - t_start)
+        for r, g in zip(reqs, gen):
+            results.setdefault(int(r["id"]), list(map(int, g)))
+        return len(reqs)
+
+    sc.foreach_batch(on_batch)
+    t_start = time.perf_counter()
+    while len(results) < args.requests:
+        if sc.run_one_batch() is None:
+            break
+    stream_s = time.perf_counter() - t_start
+    n_tok = sum(len(v) for v in results.values())
+    after = launch_counts()
+    return {"config": config, "device": str(dev), "results": results,
+            "tokens": n_tok, "prefill_s": prefill_s, "decode_s": decode_s,
+            "ttft_s": ttft_s, "stream_s": stream_s,
+            "tokens_per_s": n_tok / stream_s,
+            "report": sc.realtime_report(),
+            "launches": {k: after[k] - launches_before[k] for k in after}}
+
+
+def main(argv: list[str] | None = None) -> None:
+    res = run_serve(parse_args(argv))
+    rep = res["report"]
+    log.info("served %d requests, %d tokens in %.2fs (%.1f tok/s; mean "
+             "batch %.3fs; first token after %.3fs)", len(res["results"]),
+             res["tokens"], res["stream_s"], res["tokens_per_s"],
+             rep.get("mean_processing_s", 0.0),
+             min(res["ttft_s"], default=0.0))
+    log.info("request 0 -> %s", res["results"].get(0, [])[:8])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""The reference's parameters as the port's: how the tests give both
+packages the same weights.
+
+``repro.models.transformer.init`` stacks each layer leaf along a leading
+(L, ...) axis for ``jax.lax.scan``; the port keeps a list of per-layer
+dicts. The caller passes the reference's tree with its leaves as numpy
+arrays (``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves
+arrive as ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so
+every leaf keeps its dtype and value.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def tensor_from_numpy(a: np.ndarray,
+                      device: str | torch.device = "cpu") -> torch.Tensor:
+    """A numpy array (bf16 included) as a tensor of the same dtype, on a
+    copy (the reference's arrays are read-only)."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree(node: Any, fn) -> Any:
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def params_from_jax(tree: dict, config: ModelConfig,
+                    device: str | torch.device = "cpu") -> dict:
+    """The reference's dense-transformer parameters (numpy leaves, layer
+    leaves stacked on a leading L axis) as the port's, on ``device``."""
+    n = config.num_layers
+
+    def layer(i: int) -> dict:
+        def leaf(a: np.ndarray) -> torch.Tensor:
+            a = np.asarray(a)
+            if a.shape[:1] != (n,):
+                raise ValueError(f"layer leaf of shape {a.shape} is not "
+                                 f"stacked over {n} layers")
+            return tensor_from_numpy(a[i], device)
+        return _tree(tree["layers"], leaf)
+
+    def whole(a: np.ndarray) -> torch.Tensor:
+        return tensor_from_numpy(np.asarray(a), device)
+
+    return {"embed": _tree(tree["embed"], whole),
+            "layers": [layer(i) for i in range(n)],
+            "final_norm": _tree(tree["final_norm"], whole)}

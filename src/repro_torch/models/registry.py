@@ -1,0 +1,29 @@
+"""Model registry: family -> module implementing the serve API.
+
+The counterpart of ``repro/models/registry.py``, with the dense family
+only. API of a family module:
+    init(gen, config) -> params
+    prefill(params, batch, config, max_len) -> (last_logits, cache)
+    decode_step(params, tokens, cache, config) -> (logits, cache)
+    init_cache(config, batch, max_len, device) -> cache
+"""
+from __future__ import annotations
+
+from types import ModuleType
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+_FAMILIES: dict[str, ModuleType] = {"dense": transformer}
+# the reference's other families, which wait for ROADMAP Queue 1 item 8
+_WAITING = ("moe", "vlm", "audio", "ssm", "hybrid")
+
+
+def get_model(config: ModelConfig) -> ModuleType:
+    if config.family in _WAITING:
+        raise NotImplementedError(f"model family {config.family!r} waits "
+                                  "for ROADMAP Queue 1 item 8")
+    try:
+        return _FAMILIES[config.family]
+    except KeyError:
+        raise ValueError(f"unknown model family {config.family!r}") from None

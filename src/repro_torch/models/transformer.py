@@ -1,0 +1,112 @@
+"""Decoder-only transformer LM, the dense family: init and the serve path.
+
+The counterpart of ``repro/models/transformer.py`` for ``family="dense"``.
+The reference scans a stacked (L, ...) parameter tree under ``jax.lax.scan``
+with a remat policy, both compile devices for XLA; here the layers are a
+Python list of per-layer dicts, run in a loop. The serve path keeps the
+reference's API: ``prefill`` runs the prompt, fills the cache and returns
+last-token logits; ``decode_step`` appends one token. The cache keeps the
+reference's (L, B, Smax, KH, hd) layout and its scalar ``pos`` (an int
+here), and is updated in place. MoE layers, the VLM image prefix and the
+training loss wait for ROADMAP Queue 1 items 8-9.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+
+# -- init ----------------------------------------------------------------------
+def _init_block(gen: torch.Generator, config: ModelConfig,
+                dtype: torch.dtype) -> dict:
+    return {"attn": attn.init_attention(gen, config, dtype),
+            "mlp": L.init_mlp(gen, config, dtype),
+            "norm1": L.init_norm(config, dtype, gen.device),
+            "norm2": L.init_norm(config, dtype, gen.device)}
+
+
+def init(gen: torch.Generator, config: ModelConfig) -> dict:
+    """Random parameters in ``config.param_dtype``, drawn from ``gen`` on
+    its device: {'embed': {...}, 'layers': [per-layer dicts],
+    'final_norm': {...}}."""
+    dtype = config.parameter_dtype
+    embed = L.init_embedding(gen, config, dtype)
+    layers = [_init_block(gen, config, dtype)
+              for _ in range(config.num_layers)]
+    return {"embed": embed, "layers": layers,
+            "final_norm": L.init_norm(config, dtype, gen.device)}
+
+
+# -- one transformer block -------------------------------------------------------
+def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
+           positions: torch.Tensor, cache: dict | None
+           ) -> tuple[torch.Tensor, dict | None]:
+    h = L.rmsnorm(x, block_params["norm1"]["scale"])
+    a, new_cache = attn.attention_layer(h, block_params["attn"], config,
+                                        positions, cache=cache)
+    x = x + a
+    h = L.rmsnorm(x, block_params["norm2"]["scale"])
+    x = x + L.mlp(h, block_params["mlp"], config)
+    return x, new_cache
+
+
+def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
+                positions: torch.Tensor, cache: dict | None
+                ) -> tuple[torch.Tensor, dict | None]:
+    """The blocks in order, each with its layer's slice of the cache."""
+    for i, block_params in enumerate(params["layers"]):
+        layer_cache = None
+        if cache is not None:
+            layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
+                           "pos": cache["pos"]}
+        x, _ = _block(x, block_params, config, positions, layer_cache)
+    if cache is None:
+        return x, None
+    return x, {"k": cache["k"], "v": cache["v"],
+               "pos": cache["pos"] + positions.shape[1]}
+
+
+# -- input embedding -------------------------------------------------------------
+def _embed_inputs(params: dict, tokens: torch.Tensor, config: ModelConfig,
+                  start_pos: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    B, S = tokens.shape
+    x = L.embed_tokens(tokens, params["embed"], config)
+    positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
+    return x, positions
+
+
+# -- serving -----------------------------------------------------------------------
+def init_cache(config: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> dict:
+    """'k', 'v': (L, batch, max_len, KH, hd) zeros in the activation dtype;
+    'pos': 0."""
+    layer = attn.init_cache(config, batch, max_len, device)
+    shape = (config.num_layers,) + tuple(layer["k"].shape)
+    return {"k": layer["k"].new_zeros(shape),
+            "v": layer["v"].new_zeros(shape), "pos": 0}
+
+
+def prefill(params: dict, batch: dict, config: ModelConfig,
+            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Run the full prompt ``batch['tokens']`` (B, S), fill a fresh cache
+    of ``max_len`` (default S) slots, return last-token logits (B, 1, V)."""
+    tokens = batch["tokens"]
+    x, positions = _embed_inputs(params, tokens, config)
+    cache = init_cache(config, tokens.shape[0], max_len or x.shape[1],
+                       tokens.device)
+    x, cache = _run_layers(x, params, config, positions, cache)
+    x = L.rmsnorm(x, params["final_norm"]["scale"])
+    return L.lm_logits(x[:, -1:], params["embed"], config), cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
+                config: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """tokens: (B, 1) -> (logits (B, 1, V), the cache one token on)."""
+    x, positions = _embed_inputs(params, tokens, config,
+                                 start_pos=cache["pos"])
+    x, cache = _run_layers(x, params, config, positions, cache)
+    x = L.rmsnorm(x, params["final_norm"]["scale"])
+    return L.lm_logits(x, params["embed"], config), cache

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import kernel as fa_kernel
+from repro.kernels.flash_attention import ref as fa_ref
 from repro.kernels.modulus import kernel as mod_kernel
 from repro.kernels.modulus import ref as mod_ref
 from repro.kernels.overlap import kernel as ov_kernel
@@ -28,6 +30,9 @@ from repro_torch import kernels as t_kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.art import kernel as t_art_kernel
 from repro_torch.kernels.art import ops as t_art_ops
+from repro_torch.kernels.flash_attention import kernel as t_fa_kernel
+from repro_torch.kernels.flash_attention import ops as t_fa_ops
+from repro_torch.kernels.flash_attention import ref as t_fa_ref
 from repro_torch.kernels.modulus import kernel as t_mod_kernel
 from repro_torch.kernels.modulus import ops as t_mod_ops
 from repro_torch.kernels.overlap import kernel as t_ov_kernel
@@ -155,11 +160,75 @@ def test_torch_overlap_matches_complex_ref():
                                rtol=1e-5, atol=1e-5)
 
 
+# -- flash attention -----------------------------------------------------------
+def _to_jax(x, dtype):
+    return jnp.asarray(x, dtype)
+
+
+def _to_torch(x, dtype):
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.parametrize("S,hd,bq,bkv", [(64, 16, 16, 32), (128, 32, 32, 32),
+                                         (32, 8, 32, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_torch_flash_attention_sweep(S, hd, bq, bkv, dtype):
+    """The plain version against the JAX ``attention_ref`` and the Pallas
+    kernel in interpret mode, on the sweep and tolerances of
+    tests/test_kernels.py:124-139 (fp32 1e-5, bf16 2e-2). The bf16 inputs
+    are the same fp32 draws rounded to bf16 by each package."""
+    q, k, v = _planes(_seed("flash", S, hd), (4, S, hd), 3)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    got = t_fa_ref.attention_ref(*(_to_torch(x, td) for x in (q, k, v)),
+                                 causal=True)
+    jq, jk, jv = (_to_jax(x, jd) for x in (q, k, v))
+    pallas = fa_kernel.flash_attention_bhsd(jq, jk, jv, block_q=bq,
+                                            block_kv=bkv, causal=True,
+                                            interpret=True)
+    ref = fa_ref.attention_ref(jq, jk, jv, causal=True)
+    assert got.dtype == td and got.shape == (4, S, hd)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+def test_torch_flash_attention_model_layout():
+    """``ops`` in the (B, S, H, hd) layout, S = 40 not a multiple of the
+    kernel's 64-row tiles (the reference pads it to its blocks), against the
+    JAX ``naive_attention`` at 2e-5, as tests/test_kernels.py:142-156."""
+    from repro.models.attention import naive_attention
+    B, S, H, hd = 2, 40, 4, 16
+    q, k, v = _planes(_seed("flash-layout"), (B, S, H, hd), 3)
+    got = t_fa_ops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)))
+    pos = jnp.broadcast_to(jnp.arange(S), (B, S))
+    want = naive_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           pos, pos, causal=True)
+    assert got.shape == (B, S, H, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_torch_flash_attention_ref_keeps_the_bottom_right_mask():
+    """At Sq < Skv the reference's plain version aligns the causal mask
+    bottom-right (``tril(k=Skv - Sq)``), which the port reproduces; the
+    kernel's top-left mask agrees with it only at Sq = Skv."""
+    q, = _planes(_seed("flash-rect-q"), (2, 8, 16), 1)
+    k, v = _planes(_seed("flash-rect-kv"), (2, 24, 16), 2)
+    got = t_fa_ref.attention_ref(*(torch.from_numpy(x) for x in (q, k, v)))
+    want = fa_ref.attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
 # -- dispatch ------------------------------------------------------------------
 def _cpu_calls():
     z = torch.ones((2, 4, 4), dtype=torch.complex64)
     mag = torch.ones((2, 4, 4))
     A, b, f0 = torch.ones((6, 8)), torch.ones((2, 6)), torch.zeros((2, 8))
+    qkv = torch.ones((1, 5, 2, 8))
     return {
         "modulus_project": (t_mod_ops.modulus_project,
                             t_mod_kernel.modulus_project, (z, mag)),
@@ -170,6 +239,8 @@ def _cpu_calls():
         "art_sweep": (t_art_ops.art_reconstruct,
                       lambda A, b, f0: t_art_kernel.art_sweep(
                           A, b, torch.ones(6), f0), (A, b, f0)),
+        "flash_attention": (t_fa_ops.flash_attention,
+                            t_fa_kernel.flash_attention, (qkv, qkv, qkv)),
     }
 
 
@@ -181,7 +252,8 @@ def test_torch_ops_on_cpu_tensors_launch_nothing():
 
 
 @pytest.mark.parametrize("name", ["modulus_project", "overlap_products",
-                                  "raar_combine", "art_sweep"])
+                                  "raar_combine", "art_sweep",
+                                  "flash_attention"])
 def test_torch_kernels_refuse_cpu_tensors(name):
     """A kernel wrapper takes CUDA tensors only, and ``ops`` asked for the
     kernel does not fall back to the plain version."""
@@ -248,6 +320,7 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     ("overlap", "Bound: device memory"),
     ("raar", "Bound: device memory"),
     ("art", "Bound: the dependent chain of row steps"),
+    ("flash_attention", "Bound: operations, at the fp32 FMA rate"),
 ])
 def test_torch_kernel_sources_name_the_tpu_kernel_they_replace(name, bound):
     text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()

@@ -36,7 +36,8 @@ def test_torch_stream_fast_drains_every_frame(fast_run):
                                  * args.iters_per_batch + args.final_iters)
     assert res["launches"] == {"modulus_project": 0, "overlap_products": 0,
                                "raar_combine": 0,       # CPU: plain versions
-                               "art_sweep": 0}          # not on this path
+                               "art_sweep": 0,          # not on this path
+                               "flash_attention": 0}
     assert np.isfinite(res["final_error"])
     assert res["final_error"] < res["batch_errors"][0]
     assert res["quality"] > 0.9
@@ -51,9 +52,9 @@ def test_torch_stream_sink_is_idempotent(fast_run):
     assert res["sink_keys"] == want
     again = run_stream(args, device="cpu")
     assert again["sink_keys"] == want
-    # equal up to the round-off of multithreaded CPU reductions
-    np.testing.assert_allclose(again["batch_errors"], res["batch_errors"],
-                               rtol=1e-5)
+    # the same sums in the same order: the scatter-adds run in index order
+    # (sim.accumulate_patches), so a rerun repeats every bit
+    np.testing.assert_array_equal(again["batch_errors"], res["batch_errors"])
     sink = NpzDirectorySink(f"{args.out}/ptycho")
     with np.load(sink.path_for("object-final")) as z:
         assert z["obj"].shape == (args.obj_size, args.obj_size)
