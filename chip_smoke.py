@@ -14,32 +14,40 @@ Phases, each fatal on failure:
      object, 64x64 probe, scan step 8) through ``run_stream``, with its
      quality, the kernels' launch counts and the sink's contents checked;
   6. a profile of RAAR steps at 512 frames: device time by kernel;
-  7. the ART kernel against its plain PyTorch version on the card, at the
-     shapes of tests/test_kernels.py, at one whose width is not a multiple
-     of 4, and at the §IV path's full shape (the (19,456 x 65,536) system
+  7. the ART kernel over the system's non-zeros (CSR) against its plain
+     dense PyTorch version on the card, at the shapes of
+     tests/test_kernels.py, at (24, 37), at a dense (8, 1,000) whose rows
+     are longer than a warp holds in registers, and at the §IV path's full
+     shape (the (19,456 x 65,536) system
      of nray 256 and 76 angles, 8 slices and one sweep, and a stream
      launch's 16 slices and two sweeps), each also against the plain
-     version in float64, timed beside its bound; then a launch's time at
-     16, 128 and 256 slices;
+     version in float64, timed beside its bound and the dense sweep's
+     bound; then a launch's time at 16, 128 and 256 slices;
   8. the §IV tomography stream at full width (256 slices of 256x256, 76
      angles, 2 sweeps, 4 partitions) through ``run_stream``, with its
      residual and volume error held to the JAX reference's, the ART
      launches against the partitions processed, and the sink's keys; then
      a profile of one of its batches: device time and idle share;
-  9. the flash-attention kernel against its plain version on the card, at
-     the shapes of tests/test_kernels.py (fp32 and bf16), at S = 1,000
-     through ``ops`` (not a multiple of its 64-row tiles), and at the
-     model's prefill (B 4, S 1,024, H 16, hd 128) in bf16 and fp32; at the
-     model shape in bf16 timed beside its bound and beside PyTorch's
-     ``scaled_dot_product_attention`` (timed for the table only);
+  9. ptxas's registers, shared memory and spills of the two kernels new in
+     this slice and the HGMMA count of the wgmma kernel's SASS; then both
+     flash-attention kernels against their plain version on the card: the
+     SIMT kernel at the shapes of tests/test_kernels.py (fp32 and small-hd
+     bf16), at S = 1,000 through ``ops`` and at the model's prefill (B 4,
+     S 1,024, H 16, hd 128) in fp32; the wgmma kernel at every bf16 hd-128
+     shape: S 64 and 130 (one 128-row tile, a ragged second), 1,000 and
+     the model's prefill; at the model shape each timed beside its bound
+     and beside PyTorch's ``scaled_dot_product_attention`` (timed for the
+     table only);
  10. internlm2-1.8b at full width on the card from the seed: a 4 x 1,024
-     prompt batch prefilled with the kernel and with the naive attention,
-     logits and greedy tokens compared; then the serve invariant (greedy
-     prefill + decode equals the argmax of teacher-forced prefills) in
-     fp32, B 2, S 256, 4 tokens, with the kernel on;
+     prompt batch prefilled with the kernel (every launch on the wgmma
+     kernel) and with the naive attention, logits and greedy tokens
+     compared; then the serve invariant (greedy prefill + decode equals the
+     argmax of teacher-forced prefills) in fp32, B 2, S 256, 4 tokens, with
+     the kernel on (the SIMT kernel);
  11. the serve stream at full width through ``run_serve``: 16 requests of
      1,024 tokens in batches of 4, 32 tokens out each, in bf16, its
-     flash launches counted (4 batches x 24 layers); then one batch: its
+     flash launches counted (4 batches x 24 layers, all on the wgmma
+     kernel); then one batch: its
      tokens against the model's own prefill/decode_step loop, the same loop
      with the naive attention (reported: the first differing token of each
      request and the top-2 logit gap there), and a profile: device time by
@@ -77,9 +85,14 @@ MAX_FINAL_ERROR = 0.10              # the JAX reference reaches 0.0865 here
 MIN_QUALITY = 0.92                  # ... and 0.943
 OWN_KERNELS = ("modulus_project_kernel", "overlap_products_kernel",
                "raar_combine_kernel")
+ART_KERNEL = "art_csr_kernel"
+FLASH_KERNELS = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
 GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")    # cuBLAS's kernels
 ART_SHAPES = ((8, 16), (20, 12), (32, 64))      # tests/test_kernels.py:93
-ART_ODD_SHAPE = (24, 37)        # ncol % 4 != 0: the kernel's float path
+ART_ODD_SHAPE = (24, 37)        # kept from the dense kernel's checks
+# rows of 1,000 non-zeros: past the 32 x 24 pairs a warp holds in
+# registers, so the kernel's tail loop runs
+ART_LONG_SHAPE = (8, 1000)
 ART_TOL = dict(rtol=1e-4, atol=1e-4)            # tests/test_kernels.py:107
 NRAY, NANGLES, NSLICE, PARTITIONS = 256, 76, 256, 4
 TOMO_ARGS = ["--nray", str(NRAY), "--angles", str(NANGLES), "--nslice",
@@ -149,10 +162,13 @@ def _max_err(torch, got, want) -> float:
 
 
 def _device_us(torch, prof) -> dict:
-    """Device time in µs by kernel name over a profiled run."""
+    """Device time in µs by kernel name over a profiled run (not counting
+    the profiler's own step annotations, which it also puts on the device's
+    timeline)."""
     kernels = {}
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith("ProfilerStep")):
             kernels[ev.name] = (kernels.get(ev.name, 0.0)
                                 + ev.device_time_total)
     return kernels
@@ -375,9 +391,34 @@ def stream_phase(torch, dev) -> dict:
     return counts
 
 
+def _csr_bound_ms(csr, nslice: int, iters: int) -> tuple[float, str]:
+    """The bytes and operations these inputs need: the CSR's columns, values
+    and row pointers (again every sweep once larger than the L2), b,
+    inv_rip, f in and out; a dot and an axpy, 4 operations a non-zero, a
+    slice and a sweep."""
+    nrow, ncol = csr.shape
+    nnz = csr.col.numel()
+    csr_bytes = 8 * nnz + 8 * (nrow + 1)
+    reads = iters if csr_bytes > L2_BYTES else 1
+    return _bound_ms(reads * csr_bytes + 4 * (nslice * nrow + nrow
+                                              + 2 * nslice * ncol),
+                     4 * nnz * nslice * iters)
+
+
+def _dense_bound_ms(nrow: int, ncol: int, nslice: int,
+                    iters: int) -> tuple[float, str]:
+    """The dense sweep's bound: A read once a sweep when it
+    exceeds the L2, every element of it a dot and an axpy."""
+    a_reads = iters if 4 * nrow * ncol > L2_BYTES else 1
+    return _bound_ms(4 * (a_reads * nrow * ncol + nslice * nrow + nrow
+                          + 2 * nslice * ncol),
+                     4 * nrow * ncol * nslice * iters)
+
+
 def art_phase(torch, dev, flush) -> dict:
-    """The ART kernel against its plain version in float32 (held to
-    ART_TOL) and in float64 (reported), timed beside its bound."""
+    """The ART kernel over the system's non-zeros (CSR) against the plain
+    dense version in float32 (held to ART_TOL) and in float64 (reported),
+    timed beside its bound and the dense sweep's."""
     import numpy as np
 
     from repro_torch.apps.tomo.projector import make_system, project
@@ -386,53 +427,53 @@ def art_phase(torch, dev, flush) -> dict:
     from repro_torch.kernels.art import ops as ao
     from repro_torch.kernels.art import ref as ar
 
-    def measure(label, A, b, f0, iters, reps):
+    def measure(label, A, b, f0, iters, reps, csr=None):
         nrow, ncol = A.shape
         nslice = b.shape[0]
         inv_rip = ao.inverse_row_norms(A)
+        if csr is None:
+            csr = ao.csr_rows(A)
 
         def call():
-            return ak.art_sweep(A, b, inv_rip, f0, 1.0, iters)
+            return ak.art_sweep(csr, b, inv_rip, f0, 1.0, iters)
 
         def plain():
             return ar.art_sweep_ref(A, b, inv_rip, f0, 1.0, iters)
 
-        got, want = call(), plain()
+        want = plain()
         want64 = ar.art_sweep_ref(A.double(), b.double(), inv_rip.double(),
                                   f0.double(), 1.0, iters)
+        got = call()
         torch.cuda.synchronize()
         err = _max_err(torch, got, want)
+        torch.testing.assert_close(got, want, **ART_TOL)
         err64 = _max_err(torch, got.double(), want64)
         plain64 = _max_err(torch, want.double(), want64)
         del want64
-        print(f"  art_sweep {label}: max|kernel - plain| {err:.3g} "
-              f"(tol 1e-4 + 1e-4 relative); against float64: kernel "
-              f"{err64:.3g}, plain {plain64:.3g}; max|f| "
+        print(f"  art_sweep {label}: max|kernel - plain| {err:.3g} (tol "
+              f"1e-4 + 1e-4 relative); against float64: "
+              f"kernel {err64:.3g}, plain {plain64:.3g}; max|f| "
               f"{float(want.abs().max()):.3g}", flush=True)
-        torch.testing.assert_close(got, want, **ART_TOL)
         ms = _time_ms(torch, call, reps=reps, warmup=1, flush=flush)
         plain_ms = _time_ms(torch, plain, reps=3, warmup=1, flush=flush)
-        # each input read once, the output written once, except A: larger
-        # than the L2, it comes from device memory again every sweep. The dot
-        # and the axpy are 4 operations an element of A, a slice and a sweep
-        a_reads = iters if 4 * nrow * ncol > L2_BYTES else 1
-        nbytes = 4 * (a_reads * nrow * ncol + nslice * nrow + nrow
-                      + 2 * nslice * ncol)
-        bound, by = _bound_ms(nbytes, 4 * nrow * ncol * nslice * iters)
-        print(f"    kernel {ms:.4f} ms ({ms * 1e3 / (nrow * iters):.3f} "
-              f"us a row step), plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), library n/a", flush=True)
+        bound, by = _csr_bound_ms(csr, nslice, iters)
+        dense, dense_by = _dense_bound_ms(nrow, ncol, nslice, iters)
+        print(f"    kernel {ms:.4f} ms ({ms * 1e3 / (nrow * iters):.3f} us a "
+              f"row step); plain {plain_ms:.4f} ms; bound {bound:.4g} ms ({by}, the "
+              f"{csr.col.numel()} non-zeros), dense bound {dense:.4g} ms "
+              f"({dense_by}); library n/a", flush=True)
         return {"name": f"art_sweep ({label})", "route": "cuda",
                 "source": "src/repro_torch/csrc/art.cu",
                 "replaces": "src/repro/kernels/art/kernel.py:43",
                 "max_abs_err": err, "err_vs_float64": err64,
                 "plain_err_vs_float64": plain64, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "dense_bound_ms": dense,
                 "library_ms": None}
 
     rng = np.random.default_rng(SEED)
     variants = []
-    for nrow, ncol in ART_SHAPES + (ART_ODD_SHAPE,):
+    for nrow, ncol in ART_SHAPES + (ART_ODD_SHAPE, ART_LONG_SHAPE):
         for iters in (1, 3):
             A = rng.standard_normal((nrow, ncol)).astype(np.float32)
             f_true = rng.standard_normal((3, ncol)).astype(np.float32)
@@ -450,12 +491,18 @@ def art_phase(torch, dev, flush) -> dict:
     A = torch.from_numpy(A_host).to(dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    nnz = (A != 0).sum(dim=1)
+    csr = ao.csr_rows(A)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    nnz = csr.row_ptr[1:] - csr.row_ptr[:-1]
     print(f"  system matrix {tuple(A.shape)} fp32 "
           f"({A.numel() * 4 / 2**30:.2f} GiB): host build {t1 - t0:.2f} s, "
-          f"copy to the card {t2 - t1:.2f} s; non-zeros a row: mean "
-          f"{float(nnz.double().mean()):.1f}, min {int(nnz.min())}, max "
-          f"{int(nnz.max())} of {A.shape[1]}", flush=True)
+          f"copy to the card {t2 - t1:.2f} s, CSR on the card "
+          f"{t3 - t2:.3f} s ({csr.col.numel()} non-zeros, "
+          f"{8 * csr.col.numel() / 1e6:.1f} MB of columns and values); "
+          f"non-zeros a row: mean {float(nnz.double().mean()):.1f}, min "
+          f"{int(nnz.min())}, max {int(nnz.max())} of {A.shape[1]}",
+          flush=True)
     del nnz
     vol = torch.from_numpy(make_phantom(NSLICE, NRAY, SEED)).to(dev)
     for lo, nslice, iters in ((124, 8, 1), (120, 16, 2)):
@@ -463,17 +510,18 @@ def art_phase(torch, dev, flush) -> dict:
         f0 = torch.zeros((nslice, NRAY * NRAY), device=dev)
         variants.append(measure(
             f"{A.shape[0]}x{A.shape[1]}, slices {lo}-{lo + nslice - 1}, "
-            f"{iters} sweep{'s' if iters > 1 else ''}", A, b, f0, iters, 3))
-    # one block a slice: how a launch's time grows with its slices (blocks)
+            f"{iters} sweep{'s' if iters > 1 else ''}", A, b, f0, iters, 5,
+            csr))
+    # one warp a slice: how a launch's time grows with its slices
     inv_rip = ao.inverse_row_norms(A)
     for nslice in (16, 128, 256):
         b = project(A, vol[:nslice]).contiguous()
         f0 = torch.zeros((nslice, NRAY * NRAY), device=dev)
-        ms = _time_ms(torch, lambda: ak.art_sweep(A, b, inv_rip, f0, 1.0, 1),
-                      reps=3, warmup=1)
+        ms = _time_ms(torch, lambda: ak.art_sweep(csr, b, inv_rip, f0, 1.0,
+                                                  1), reps=3, warmup=1)
         print(f"  occupancy: {nslice} slices, one sweep: {ms:.3f} ms, "
               f"{ms * 1e3 / A.shape[0]:.3f} us a row step, "
-              f"{ms / nslice:.3f} ms a slice", flush=True)
+              f"{ms / nslice:.4f} ms a slice", flush=True)
     # the row of a stream launch: 16 slices, two sweeps
     return dict(variants[-1], name="art_sweep",
                 max_abs_err=max(v["max_abs_err"] for v in variants),
@@ -536,8 +584,8 @@ def tomo_phase(torch, dev, kernel_ms: float) -> int:
                              f"{want_keys}")
     in_batches = sum(res["batch_times"])
     print(f"  set-up {res['setup_time']:.3f} s: system matrix host build "
-          f"{res['matrix_build_time']:.3f} s, copy to the card "
-          f"{res['matrix_copy_time']:.3f} s")
+          f"{res['matrix_build_time']:.3f} s, copy to the card with its "
+          f"row norms and CSR {res['matrix_copy_time']:.3f} s")
     print(f"  stream OK: {len(res['batch_times'])} batches, batch times (s) "
           f"{[round(t, 4) for t in res['batch_times']]}, stream "
           f"{res['stream_time']:.3f} s ({in_batches:.3f} s in batches), "
@@ -555,7 +603,7 @@ def tomo_profile_phase(torch, dev) -> None:
     import functools
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch import kernels
     from repro_torch.apps.tomo.solver import TomoConfig, simulate_tilt_series
@@ -577,14 +625,20 @@ def tomo_profile_phase(torch, dev) -> None:
     batch()
     wall_ms = (time.perf_counter() - t0) * 1e3
     for attempt in (1, 2):
-        before = kernels.launch_counts()["art_sweep"]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the trace's first step can miss a launch: a warm-up step is traced
+        # and dropped, the second batch is the one read
+        # (active=2 and no second step: the window closes with the context,
+        # which keeps its events)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=2)) as prof:
             batch()
-        launched = kernels.launch_counts()["art_sweep"] - before
-        seen = sum(1 for ev in prof.events()
+            prof.step()
+            before = kernels.launch_counts()["art_sweep"]
+            batch()
+            launched = kernels.launch_counts()["art_sweep"] - before
+        seen = sum(1 for ev in prof.events() or ()
                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and "art_sweep_kernel" in ev.name)
+                   and ART_KERNEL in ev.name)
         if seen == launched:
             break
         print(f"  profile {attempt}: the profiler saw {seen} of the "
@@ -596,7 +650,7 @@ def tomo_profile_phase(torch, dev) -> None:
     by_kernel = _device_us(torch, prof)
     busy_ms = sum(by_kernel.values()) / 1e3
     art_ms = sum(us for name, us in by_kernel.items()
-                 if "art_sweep_kernel" in name) / 1e3
+                 if ART_KERNEL in name) / 1e3
     print(f"  one batch of {nslice} slices in {PARTITIONS} partitions: wall "
           f"{wall_ms:.3f} ms unprofiled; device busy {busy_ms:.3f} ms "
           f"(profiled, {seen} ART launches seen of {launched}), idle share "
@@ -607,10 +661,55 @@ def tomo_profile_phase(torch, dev) -> None:
               f"{name[:90]}")
 
 
-def flash_phase(torch, dev, flush) -> dict:
-    """The flash kernel against its plain version (held to FLASH_TOL) at
-    the test shapes, at S = 1,000 through ``ops`` and at the model's
-    prefill shape; at the model shape timed beside its bound and SDPA."""
+def build_report(kernels: tuple[str, ...]) -> None:
+    """ptxas's registers, shared memory and spills of ``kernels`` (from the
+    build's log), and the HGMMA instructions in the wgmma kernel's SASS
+    (cuobjdump, next to nvcc); raises if there are none."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    log = _build.BUILD_DIR / _build.LOG_NAME
+    entry = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = next((k for k in kernels if k in m.group(1)), None)
+            if entry:
+                print(f"  ptxas {entry} ({m.group(1)[:60]}):")
+        elif entry and ("Used" in line or "spill" in line):
+            print(f"    {line.split('ptxas info    :')[-1].strip()}")
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    if not cuobjdump.exists():
+        print(f"  cuobjdump not found next to nvcc ({cuobjdump}): the HGMMA "
+              f"count is not measured")
+        return
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.BUILD_DIR / _build.LIB_NAME)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and "HGMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    n = sum(c for f, c in counts.items() if "flash_attention_wgmma" in f)
+    print(f"  HGMMA instructions in flash_attention_wgmma_kernel's SASS: {n}"
+          f" (all functions: {sum(counts.values())})")
+    if n == 0:
+        raise AssertionError("no HGMMA in the wgmma kernel's SASS")
+
+
+def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
+    """Both flash kernels against their plain version (held to FLASH_TOL):
+    the SIMT kernel at the test shapes (fp32 and small-hd bf16) and at the
+    model shape in fp32; the wgmma kernel at every bf16 hd-128 shape, S
+    64 and 130 (one tile, a ragged second), 1,000 through ``ops`` and the
+    model's prefill. At the model shape each timed beside its bound and
+    PyTorch's ``scaled_dot_product_attention`` (timed for the table only).
+    Returns the wgmma row and the SIMT row."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -618,6 +717,7 @@ def flash_phase(torch, dev, flush) -> dict:
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.flash_attention import ref as fr
 
+    build_report(("flash_attention_wgmma_kernel", "art_csr_kernel"))
     rng = np.random.default_rng(SEED)
 
     def qkv(shape, dtype):
@@ -635,22 +735,42 @@ def flash_phase(torch, dev, flush) -> dict:
         return {"name": f"flash_attention ({label}, {dtype})",
                 "max_abs_err": err}
 
-    variants = []
+    def designed(design, fn):
+        """Run ``fn``, asserting that its one launch went to ``design``."""
+        before = dict(fk.flash_attention.launches_by_design)
+        out = fn()
+        after = fk.flash_attention.launches_by_design
+        if {d: after[d] - before[d] for d in after} != {
+                d: int(d == design) for d in after}:
+            raise AssertionError(f"expected one {design} launch: {before} -> "
+                                 f"{after}")
+        return out
+
+    variants = {"wgmma": [], "simt": []}
     for S, hd in FLASH_SHAPES:
         for dtype in FLASH_TOL:
             q, k, v = qkv((4, S, hd), dtype)
-            got = fk.flash_attention(q[:, :, None], k[:, :, None],
-                                     v[:, :, None])[:, :, 0]
-            variants.append(check(f"BH 4, S {S}, hd {hd}", dtype, got,
-                                  fr.attention_ref(q, k, v)))
-    for dtype in FLASH_TOL:         # the tail: 1,000 = 15 x 64 + 40
-        q, k, v = qkv((1, 1000, MODEL_H, MODEL_HD), dtype)
-        variants.append(check(
-            f"ops, B 1, S 1000, H {MODEL_H}, hd {MODEL_HD}", dtype,
-            fo.flash_attention(q, k, v),
+            got = designed("simt", lambda: fk.flash_attention(
+                q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0])
+            variants["simt"].append(check(f"simt, BH 4, S {S}, hd {hd}",
+                                          dtype, got,
+                                          fr.attention_ref(q, k, v)))
+    for B, S, H in ((2, 64, 4), (2, 130, 4)):
+        q, k, v = qkv((B, S, H, MODEL_HD), "bfloat16")
+        got = designed("wgmma", lambda: fk.flash_attention(q, k, v))
+        variants["wgmma"].append(check(
+            f"wgmma, B {B}, S {S}, H {H}, hd {MODEL_HD}", "bfloat16", got,
             fo.flash_attention(q, k, v, use_kernel=False)))
-    main_row = None
+    for dtype in FLASH_TOL:         # the tail: 1,000 = 7 x 128 + 104
+        design = fk.design_for(getattr(torch, dtype), MODEL_HD)
+        q, k, v = qkv((1, 1000, MODEL_H, MODEL_HD), dtype)
+        got = designed(design, lambda: fo.flash_attention(q, k, v))
+        variants[design].append(check(
+            f"{design} through ops, B 1, S 1000, H {MODEL_H}, hd {MODEL_HD}",
+            dtype, got, fo.flash_attention(q, k, v, use_kernel=False)))
+    rows = {}
     for dtype in ("bfloat16", "float32"):
+        design = fk.design_for(getattr(torch, dtype), MODEL_HD)
         shape = (MODEL_B, MODEL_S, MODEL_H, MODEL_HD)
         q, k, v = qkv(shape, dtype)
 
@@ -665,9 +785,9 @@ def flash_phase(torch, dev, flush) -> dict:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-        got = call()
-        row = check(f"B {MODEL_B}, S {MODEL_S}, H {MODEL_H}, hd {MODEL_HD}",
-                    dtype, got, plain())
+        got = designed(design, call)
+        row = check(f"{design}, B {MODEL_B}, S {MODEL_S}, H {MODEL_H}, hd "
+                    f"{MODEL_HD}", dtype, got, plain())
         sdpa_err = _max_err(torch, got.float(),
                             library().transpose(1, 2).float())
         ms = _time_ms(torch, call, flush=flush)
@@ -680,20 +800,21 @@ def flash_phase(torch, dev, flush) -> dict:
         bound, by = _bound_ms(4 * bh * MODEL_S * MODEL_HD * elem, ops,
                               BF16_TC_OPS_PER_S if dtype == "bfloat16"
                               else FP32_OPS_PER_S)
-        print(f"    kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound:.4f} ms ({by}), library (SDPA) {library_ms:.4f} ms; "
-              f"max|kernel - SDPA| {sdpa_err:.3g} (reported)", flush=True)
+        print(f"    {design} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}), library (SDPA) {library_ms:.4f} "
+              f"ms; max|kernel - SDPA| {sdpa_err:.3g} (reported)", flush=True)
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    library_ms=library_ms, max_abs_err_vs_library=sdpa_err)
-        variants.append(row)
-        if dtype == "bfloat16":
-            main_row = row
-    return dict(main_row, name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:79",
-                launches=0,
-                max_abs_err=max(v["max_abs_err"] for v in variants),
-                variants=variants)
+        variants[design].append(row)
+        rows[design] = row
+    sources = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+               "simt": "src/repro_torch/csrc/flash_attention.cu"}
+    replaces = "src/repro/kernels/flash_attention/kernel.py:79"
+    return tuple(dict(rows[d], name=f"flash_attention ({d})", route="cuda",
+                      source=sources[d], replaces=replaces, launches=0,
+                      max_abs_err=max(v["max_abs_err"] for v in variants[d]),
+                      variants=variants[d])
+                 for d in ("wgmma", "simt"))
 
 
 def _param_count(params) -> int:
@@ -704,13 +825,16 @@ def _param_count(params) -> int:
     return params.numel()
 
 
-def model_phase(torch, dev) -> None:
+def model_phase(torch, dev) -> int:
     """internlm2-1.8b at full width: the prefill with the kernel against
-    the naive attention (bf16), then the serve invariant in fp32."""
+    the naive attention (bf16, every launch on the wgmma kernel), then the
+    serve invariant in fp32 (on the SIMT kernel). Returns the SIMT
+    kernel's launches in the invariant's run."""
     import numpy as np
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import transformer
 
     config = get_config(ARCH)
@@ -730,9 +854,10 @@ def model_phase(torch, dev) -> None:
         0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
     naive = config.replace(attention_impl="naive")
     with torch.inference_mode():
-        before = kernels.launch_counts()["flash_attention"]
+        kernels.reset_launch_counts()
         lk, _ = transformer.prefill(params, {"tokens": tokens}, config)
-        launched = kernels.launch_counts()["flash_attention"] - before
+        launched = kernels.launch_counts()["flash_attention"]
+        by_design = dict(fk.flash_attention.launches_by_design)
         ln, _ = transformer.prefill(params, {"tokens": tokens}, naive)
         ms_k = _time_ms(torch, lambda: transformer.prefill(
             params, {"tokens": tokens}, config), reps=3, warmup=1)
@@ -745,14 +870,15 @@ def model_phase(torch, dev) -> None:
     diff = _max_err(torch, lk.float(), ln.float())
     agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
     print(f"  bf16 prefill of {MODEL_B} x {MODEL_S} tokens: kernel "
-          f"({launched} launches) against naive attention: last-token "
+          f"({launched} launches, {by_design}) against naive attention: "
+          f"last-token "
           f"logits max|diff| {diff:.4g} (limit {MAX_PREFILL_LOGIT_DIFF}; "
           f"max|logit| {float(ln.float().abs().max()):.3g}), greedy tokens "
           f"agree {agree}/{MODEL_B}; prefill {ms_k:.2f} ms with the kernel, "
           f"{ms_n:.2f} ms naive", flush=True)
-    if launched != config.num_layers:
-        raise AssertionError(f"{launched} flash launches in a prefill of "
-                             f"{config.num_layers} layers")
+    if by_design != {"wgmma": config.num_layers, "simt": 0}:
+        raise AssertionError(f"flash launches {by_design} in a bf16 prefill "
+                             f"of {config.num_layers} layers")
     if not diff <= MAX_PREFILL_LOGIT_DIFF:
         raise AssertionError(f"kernel and naive prefill logits differ by "
                              f"{diff} > {MAX_PREFILL_LOGIT_DIFF}")
@@ -768,6 +894,7 @@ def model_phase(torch, dev) -> None:
     B, S, G = 2, 256, 4
     tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
                                            (B, S))).to(dev)
+    kernels.reset_launch_counts()
     with torch.inference_mode():
         logits, cache = transformer.prefill(params, {"tokens": tokens},
                                             config, max_len=S + G)
@@ -785,11 +912,17 @@ def model_phase(torch, dev) -> None:
                 raise AssertionError(f"serve invariant broken at step {g}: "
                                      f"{nxt.tolist()} != {serve[g].tolist()}")
             full = torch.cat([full, nxt[:, None]], dim=1)
+    simt = fk.flash_attention.launches_by_design
     print(f"  fp32 serve invariant at full width (B {B}, S {S}, {G} tokens, "
-          f"the kernel on): greedy prefill + decode == teacher-forced "
-          f"prefills, tokens {torch.stack(serve, 1).tolist()}", flush=True)
+          f"the kernel on, launches {simt}): greedy prefill + decode == "
+          f"teacher-forced prefills, tokens {torch.stack(serve, 1).tolist()}",
+          flush=True)
+    if simt["wgmma"] or simt["simt"] != (1 + G) * config.num_layers:
+        raise AssertionError(f"flash launches {simt} in {1 + G} fp32 "
+                             f"prefills of {config.num_layers} layers")
     del params, cache
     torch.cuda.empty_cache()
+    return simt["simt"]
 
 
 def _greedy(torch, params, config, prompts, gen: int):
@@ -810,24 +943,30 @@ def _greedy(torch, params, config, prompts, gen: int):
     return torch.stack([s.argmax(-1) for s in steps], 1).cpu(), steps
 
 
-def serve_phase(torch, dev) -> int:
-    """The serve stream at full width; returns its flash launches."""
+def serve_phase(torch, dev) -> dict:
+    """The serve stream at full width; returns its flash launches by
+    design, every one of them on the wgmma kernel."""
     from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import parse_args, run_serve
 
     args = parse_args(SERVE_ARGS)
     kernels.reset_launch_counts()
     res = run_serve(args, device=dev)
     counts = kernels.launch_counts()
+    by_design = dict(fk.flash_attention.launches_by_design)
     n_layers = res["config"].num_layers
     batches = -(-args.requests // args.batch)
     want = batches * n_layers
-    print(f"  launches {counts} (run_serve reports {res['launches']}), "
-          f"expected flash_attention {batches} batches x {n_layers} layers "
-          f"= {want}")
+    print(f"  launches {counts} (run_serve reports {res['launches']}), by "
+          f"design {by_design}; expected flash_attention {batches} batches x "
+          f"{n_layers} layers = {want}, all wgmma")
     if counts["flash_attention"] != want or res["launches"] != counts:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"!= {want}")
+    if by_design != {"wgmma": want, "simt": 0}:
+        raise AssertionError(f"flash launches by design {by_design}, not "
+                             f"all {want} on the wgmma kernel")
     if any(n for name, n in counts.items() if name != "flash_attention"):
         raise AssertionError(f"other kernels launched: {counts}")
     results = res["results"]
@@ -845,7 +984,7 @@ def serve_phase(torch, dev) -> int:
           f"(s) {[round(x, 4) for x in res['ttft_s']]}")
     print(f"  realtime report {res['report']}; request 0 -> "
           f"{results[0][:8]}", flush=True)
-    return counts["flash_attention"]
+    return by_design
 
 
 def serve_profile_phase(torch, dev) -> None:
@@ -904,7 +1043,7 @@ def serve_profile_phase(torch, dev) -> None:
         launched = kernels.launch_counts()["flash_attention"] - before
         seen = sum(1 for ev in prof.events()
                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and "flash_attention_kernel" in ev.name)
+                   and any(k in ev.name for k in FLASH_KERNELS))
         if seen == launched:
             break
         print(f"  profile {attempt}: the profiler saw {seen} of the "
@@ -916,9 +1055,9 @@ def serve_profile_phase(torch, dev) -> None:
     by_kernel = _device_us(torch, prof)
     busy_ms = sum(by_kernel.values()) / 1e3
     flash_ms = sum(us for name, us in by_kernel.items()
-                   if "flash_attention_kernel" in name) / 1e3
+                   if any(k in name for k in FLASH_KERNELS)) / 1e3
     gemm_ms = sum(us for name, us in by_kernel.items()
-                  if "flash_attention_kernel" not in name
+                  if not any(k in name for k in FLASH_KERNELS)
                   and any(m in name.lower() for m in GEMM_MARKERS)) / 1e3
     print(f"  one batch (4 x {args.prompt_len} tokens, {args.gen} out): "
           f"wall {wall_ms:.3f} ms unprofiled (prefill "
@@ -995,18 +1134,22 @@ def main() -> int:
     clear_system_cache()            # the 4.75 GiB system off the card
     torch.cuda.empty_cache()
 
-    print("[9] the flash-attention kernel against its plain version (fp32 "
+    print("[9] the flash-attention kernels against their plain version (fp32 "
           "tol 1e-5, bf16 2e-2):", flush=True)
     l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    flash_row = flash_phase(torch, dev, l2_flush.zero_)
+    wgmma_row, simt_row = flash_phase(torch, dev, l2_flush.zero_)
     del l2_flush
-    rows.append(flash_row)
+    rows += [wgmma_row, simt_row]
 
     print(f"[10] {ARCH} at full width:", flush=True)
-    model_phase(torch, dev)
+    # the fp32 invariant's direct prefill/decode_step loop, not the served
+    # path: under a name of its own
+    simt_row["launches_fp32_invariant"] = model_phase(torch, dev)
 
     print("[11] the serve stream at full width:", flush=True)
-    flash_row["launches"] = serve_phase(torch, dev)
+    by_design = serve_phase(torch, dev)
+    wgmma_row["launches"] = by_design["wgmma"]
+    simt_row["launches"] = by_design["simt"]
     serve_profile_phase(torch, dev)
 
     print(json.dumps({"kernels": rows}))

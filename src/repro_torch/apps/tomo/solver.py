@@ -3,9 +3,10 @@
 The counterpart of ``repro/apps/tomo/solver.py``. The tilt series is
 slicewise independent: the stream's partitions each hand a batch of slices
 to :func:`reconstruct_slices`, which runs the ART row-action sweep on all of
-them in one call (the CUDA kernel ``csrc/art.cu`` on the card, its plain
-PyTorch version on the CPU). The batch axis stands where the reference
-``jax.vmap``-s one slice's sweep (``tomo/solver.py:67-73``).
+them in one call (the CUDA kernel ``csrc/art.cu`` over the system's
+non-zeros on the card, its plain dense PyTorch version on the CPU). The
+batch axis stands where the reference ``jax.vmap``-s one slice's sweep
+(``tomo/solver.py:67-73``).
 
 No state or weights cross from one slice to another. The inputs are made
 from the seed by numpy copies of the reference's functions (``make_phantom``
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,6 +26,7 @@ import torch
 from repro_torch.apps.tomo.projector import (make_system, parallel_ray_matrix,
                                              project)
 from repro_torch.kernels.art import ops as art_ops
+from repro_torch.kernels.art.kernel import CSR
 from repro_torch.utils import resolve_device
 
 
@@ -54,17 +57,23 @@ def make_phantom(nslice: int, nray: int, seed: int = 0) -> np.ndarray:
     return vol.astype(np.float32)
 
 
+class DeviceSystem(NamedTuple):
+    A: torch.Tensor                 # dense, for the projection
+    inv_rip: torch.Tensor           # 1/‖A_j‖²
+    csr: CSR                        # A's non-zeros, for the ART kernel
+
+
 @functools.lru_cache(maxsize=2)
 def _device_system(nray: int, angles: tuple, device: torch.device
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   ) -> DeviceSystem:
     A = torch.from_numpy(make_system(nray, np.asarray(angles))).to(device)
-    return A, art_ops.inverse_row_norms(A)
+    return DeviceSystem(A, art_ops.inverse_row_norms(A), art_ops.csr_rows(A))
 
 
 def system_on_device(config: TomoConfig, device: torch.device
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(A, inv_rip)`` on ``device``, built and copied once per geometry
-    and device (the counterpart of the reference's per-config
+                     ) -> DeviceSystem:
+    """``(A, inv_rip, csr)`` on ``device``, built and copied once per
+    geometry and device (the counterpart of the reference's per-config
     ``_slice_reconstructor`` cache). ``clear_system_cache`` drops them."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
@@ -87,8 +96,7 @@ def simulate_tilt_series(config: TomoConfig, nslice: int, seed: int = 0,
     sinogram for the source)."""
     vol = torch.from_numpy(make_phantom(nslice, config.nray, seed)).to(
         resolve_device(device))
-    A, _ = system_on_device(config, vol.device)
-    sino = project(A, vol)
+    sino = project(system_on_device(config, vol.device).A, vol)
     return vol, sino, sino.cpu().numpy()
 
 
@@ -99,12 +107,12 @@ def reconstruct_slices(sino_slices: torch.Tensor, config: TomoConfig
 
     sino_slices: (k, Nrow) -> (k, Nray, Nray)."""
     n = config.nray
-    A, inv_rip = system_on_device(config, sino_slices.device)
+    A, inv_rip, csr = system_on_device(config, sino_slices.device)
     f0 = torch.zeros((sino_slices.shape[0], n * n), dtype=torch.float32,
                      device=sino_slices.device)
     f = art_ops.art_reconstruct(A, sino_slices.contiguous(), f0,
                                 beta=config.beta, iters=config.iterations,
-                                inv_rip=inv_rip)
+                                inv_rip=inv_rip, csr=csr)
     return f.reshape(-1, n, n)
 
 
@@ -112,8 +120,7 @@ def residual(volume: torch.Tensor, sino: torch.Tensor, config: TomoConfig,
              per_slice: bool = False) -> float | np.ndarray:
     """``|A f - b| / |b|`` over the volume, or for each slice with
     ``per_slice=True``, on the tensors' device."""
-    A, _ = system_on_device(config, volume.device)
-    diff = project(A, volume) - sino
+    diff = project(system_on_device(config, volume.device).A, volume) - sino
     if per_slice:
         return (torch.linalg.vector_norm(diff, dim=1)
                 / (torch.linalg.vector_norm(sino, dim=1) + 1e-12)

@@ -6,47 +6,46 @@
 // Replaces the TPU kernel repro/kernels/art/kernel.py:art_sweep (body
 // _make_kernel), which takes one slice per call (the solver vmaps it), keeps
 // f resident in VMEM as an output block with a constant index map across the
-// sequential grid (iters, nrow), and fixes beta at compile time. Here beta
-// and iters are runtime arguments and the slices are the grid: the rows run
-// in order inside each block, the slices in parallel, one block each. The
-// system matrix A is shared by every slice of a launch.
+// sequential grid (iters, nrow), streams A's dense rows, and fixes beta at
+// compile time. Here beta and iters are runtime arguments, the slices are
+// the grid, and A is read as CSR: only its non-zeros. A parallel-ray row
+// holds 541 non-zeros of 65,536 on average at nray 256, and skipping the
+// zeros changes no update (f + c * 0 = f); only the dot's summation order
+// differs from the dense sweep.
 //
-// Bound: the dependent chain of row steps, not device memory. Reckoned from
-// the shapes: A is shared by the blocks through the L2 but is far larger
-// than it, so each sweep reads it from device memory again. At nrow x ncol
-// = 19,456 x 65,536 (4.75 GiB) a sweep moves at least 5.1 GB, 1.52 ms at
-// 3.35 TB/s, and a launch of iters sweeps iters times that (3.05 ms for a
-// stream launch's two); the dot and axpy are 4 operations an element of A,
-// a slice and a sweep, 2.44 ms for 16 slices and two sweeps at 67 TFLOP/s,
-// so the bytes set the bound. But each row step waits
-// for a block-wide reduction before its update, and a block streams its
-// slice's f (ncol floats) and A_j from the L2 through one SM, so a launch
-// takes nrow x iters steps of about (3 x ncol x 4 bytes) / (one SM's L2
-// rate) each. A slice's f at ncol = 65,536 is 256 KB, more than the 227 KB
-// of shared memory a block may use, so f lives in the output buffer in
-// device memory, with the L2 behind it; the TPU's VMEM-resident block is not
-// carried over.
+// Bound: the dependent chain of row steps, not device memory. The bytes
+// these inputs need: the CSR's column indices and values once a sweep (at
+// nray 256 and 76 angles, 10.5 M non-zeros, 84 MB, more than the 50 MB L2),
+// its row pointers, b, and f in and out once: 178 MB for a stream launch of
+// 16 slices and two sweeps, 0.053 ms at 3.35 TB/s. But row j + 1's dot
+// reads what row j wrote, so a launch is nrow x iters steps in a chain, each
+// a gather of f from the L2, a warp-shuffle sum and a scatter: some hundreds
+// of cycles of latency a step, whatever the bytes.
 //
-// Design: each thread owns a fixed strided set of f's elements (float4
-// chunks when ncol % 4 == 0 and the buffers are 16-byte aligned, floats
-// otherwise) and reads A_j at the same positions, so the axpy needs no
-// barrier. A row's dot is a per-thread partial sum, a warp-shuffle sum, and
-// a cross-warp sum through shared memory behind one barrier; every warp
-// sums the per-warp partials itself in the same order, so all threads get
-// the same coefficient. The partials are double-buffered by row parity, so
-// the next row's writes need no second barrier.
-//
-// __fmul_rn/__fadd_rn/__fsub_rn keep nvcc from contracting the residual and
-// the axpy into fused multiply-adds, so they round as the plain PyTorch
-// version does; only the dot's summation order differs from it.
+// Design: one warp owns a slice and is a block of its own, so a row step
+// needs no block barrier (four slices a block, sharing the row's pairs
+// through the L1, measured slower on the H100). For each row in order, each
+// lane holds up to kPer of the row's pairs in registers (lane, lane + 32,
+// ...; loaded, coalesced, while the previous row finished), gathers f at
+// those columns, and sums its
+// products; a butterfly shuffle sum gives every lane the same dot (IEEE
+// addition commutes). The coefficient c = beta * ((b_j - dot) * inv_rip_j)
+// is formed with __fmul_rn/__fsub_rn and the update f[col] = f[col] + c *
+// val with __fadd_rn/__fmul_rn, so nvcc contracts neither into a fused
+// multiply-add and they round as the plain PyTorch version does. Each lane
+// writes back the f values it gathered (a row's columns are distinct, so no
+// other lane touches them within the row); __syncwarp() then orders these
+// stores before the next row's gathers, which read what other lanes wrote.
+// A row with more than 32 x kPer non-zeros takes its tail in a plain loop.
+// f stays in the output buffer (a slice's f is 256 KB at nray 256, more than
+// a block's shared memory); 16 slices' f, 4 MB, stay in the L2.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 24;  // pairs a lane holds: rows of up to 768 in one pass
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -55,100 +54,99 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 x, float acc) {
-  acc = fmaf(a.x, x.x, acc);
-  acc = fmaf(a.y, x.y, acc);
-  acc = fmaf(a.z, x.z, acc);
-  return fmaf(a.w, x.w, acc);
+// Row j's bounds, and the (col, val) pairs lane, lane + 32, ... of its
+// first 32 x kPer into registers (0 past the row's end).
+__device__ __forceinline__ void fetch_row(const int64_t* __restrict__ row_ptr,
+                                          const int* __restrict__ col,
+                                          const float* __restrict__ val,
+                                          int64_t j, int lane, int64_t& start,
+                                          int64_t& end, int (&nc)[kPer],
+                                          float (&nv)[kPer]) {
+  start = __ldg(row_ptr + j);
+  end = __ldg(row_ptr + j + 1);
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int64_t k = start + lane + 32 * u;
+    nc[u] = k < end ? __ldg(col + k) : 0;
+    nv[u] = k < end ? __ldg(val + k) : 0.0f;
+  }
 }
 
-__device__ __forceinline__ float axpy(float f, float c, float a) {
-  return __fadd_rn(f, __fmul_rn(c, a));
-}
+__global__ void __launch_bounds__(32)
+    art_csr_kernel(const int64_t* __restrict__ row_ptr,
+                   const int* __restrict__ col, const float* __restrict__ val,
+                   const float* __restrict__ b,
+                   const float* __restrict__ inv_rip, float* f, int64_t nrow,
+                   int64_t ncol, int64_t nslice, int64_t iters, float beta) {
+  const int lane = threadIdx.x;
+  const int64_t slice = blockIdx.x;
+  float* fs = f + slice * ncol;
+  const float* bs = b + slice * nrow;
 
-// kVec: read A and f as float4 (ncol % 4 == 0, 16-byte aligned buffers).
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    art_sweep_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                     const float* __restrict__ inv_rip, float* __restrict__ f,
-                     int64_t nrow, int64_t ncol, int64_t iters, float beta) {
-  __shared__ float partial[2][kWarps];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* fs = f + static_cast<int64_t>(blockIdx.x) * ncol;
-  const float* bs = b + static_cast<int64_t>(blockIdx.x) * nrow;
-  const int64_t n = kVec ? ncol / 4 : ncol;
-  int parity = 0;
+  // the pairs of the next row, prefetched one row ahead
+  int nc[kPer];
+  float nv[kPer];
+  int64_t start, end;
+  fetch_row(row_ptr, col, val, 0, lane, start, end, nc, nv);
   for (int64_t it = 0; it < iters; ++it) {
-    for (int64_t j = 0; j < nrow; ++j, parity ^= 1) {
-      const float* row = A + j * ncol;
+    for (int64_t j = 0; j < nrow; ++j) {
+      int c_[kPer];
+      float v_[kPer], x[kPer];
+      const int64_t s = start, e = end;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        c_[u] = nc[u];
+        v_[u] = nv[u];
+      }
+      const float bj = bs[j], rj = __ldg(inv_rip + j);
+      // gather, then the next row's pairs while the gathers are in flight
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        x[u] = s + lane + 32 * u < e ? fs[c_[u]] : 0.0f;
+      const int64_t jn = j + 1 < nrow ? j + 1 : 0;
+      if (j + 1 < nrow || it + 1 < iters)
+        fetch_row(row_ptr, col, val, jn, lane, start, end, nc, nv);
       float dot = 0.0f;
-      if (kVec) {
-        const float4* row4 = reinterpret_cast<const float4*>(row);
-        const float4* f4 = reinterpret_cast<const float4*>(fs);
-#pragma unroll 4
-        for (int64_t i = tid; i < n; i += kThreads)
-          dot = dot4(__ldg(row4 + i), f4[i], dot);
-      } else {
-#pragma unroll 4
-        for (int64_t i = tid; i < n; i += kThreads)
-          dot = fmaf(__ldg(row + i), fs[i], dot);
-      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) dot = fmaf(v_[u], x[u], dot);
+      for (int64_t k = s + 32 * kPer + lane; k < e; k += 32)
+        dot = fmaf(__ldg(val + k), fs[__ldg(col + k)], dot);
       dot = warp_sum(dot);
-      if (lane == 0) partial[parity][warp] = dot;
-      __syncthreads();
-      dot = warp_sum(lane < kWarps ? partial[parity][lane] : 0.0f);
-      const float c =
-          __fmul_rn(beta, __fmul_rn(__fsub_rn(bs[j], dot), inv_rip[j]));
-      if (kVec) {
-        const float4* row4 = reinterpret_cast<const float4*>(row);
-        float4* f4 = reinterpret_cast<float4*>(fs);
-#pragma unroll 4
-        for (int64_t i = tid; i < n; i += kThreads) {
-          const float4 a = __ldg(row4 + i);
-          float4 x = f4[i];
-          x.x = axpy(x.x, c, a.x);
-          x.y = axpy(x.y, c, a.y);
-          x.z = axpy(x.z, c, a.z);
-          x.w = axpy(x.w, c, a.w);
-          f4[i] = x;
-        }
-      } else {
-#pragma unroll 4
-        for (int64_t i = tid; i < n; i += kThreads)
-          fs[i] = axpy(fs[i], c, __ldg(row + i));
+      const float c = __fmul_rn(beta, __fmul_rn(__fsub_rn(bj, dot), rj));
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        if (s + lane + 32 * u < e)
+          fs[c_[u]] = __fadd_rn(x[u], __fmul_rn(c, v_[u]));
+      for (int64_t k = s + 32 * kPer + lane; k < e; k += 32) {
+        const int ck = __ldg(col + k);
+        fs[ck] = __fadd_rn(fs[ck], __fmul_rn(c, __ldg(val + k)));
       }
+      __syncwarp();  // this row's stores before the next row's gathers
     }
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
-}
-
 }  // namespace
 
-// A: nrow x ncol fp32, shared by every slice; b: nslice x nrow; inv_rip:
-// nrow; f: nslice x ncol, holding f0 on entry and the result on return. All
-// contiguous on the current device; f aliases none of the inputs. Launches
-// one block per slice on `stream` and returns cudaGetLastError().
-extern "C" int art_sweep_launch(const void* A, const void* b,
-                                const void* inv_rip, void* f, int64_t nrow,
-                                int64_t ncol, int64_t nslice, int64_t iters,
-                                float beta, void* stream) {
+// The system as CSR: row_ptr (nrow + 1, int64), col (nnz, int32, ascending
+// within a row, each < ncol), val (nnz, fp32); shared by every slice. b:
+// nslice x nrow; inv_rip: nrow; f: nslice x ncol, holding f0 on entry and
+// the result on return. All contiguous on the current device; f aliases
+// none of the inputs. One warp a block, one block a slice; launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int art_sweep_csr_launch(const void* row_ptr, const void* col,
+                                    const void* val, const void* b,
+                                    const void* inv_rip, void* f,
+                                    int64_t nrow, int64_t ncol,
+                                    int64_t nslice, int64_t iters, float beta,
+                                    void* stream) {
   if (nslice <= 0 || nrow <= 0 || ncol <= 0 || iters <= 0) return 0;
   if (nslice > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* a = static_cast<const float*>(A);
-  const auto* bb = static_cast<const float*>(b);
-  const auto* ir = static_cast<const float*>(inv_rip);
-  auto* ff = static_cast<float*>(f);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>(nslice);
-  if (ncol % 4 == 0 && aligned16(A) && aligned16(f)) {
-    art_sweep_kernel<true><<<grid, kThreads, 0, s>>>(a, bb, ir, ff, nrow,
-                                                     ncol, iters, beta);
-  } else {
-    art_sweep_kernel<false><<<grid, kThreads, 0, s>>>(a, bb, ir, ff, nrow,
-                                                      ncol, iters, beta);
-  }
+  art_csr_kernel<<<static_cast<unsigned>(nslice), 32, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(row_ptr), static_cast<const int*>(col),
+      static_cast<const float*>(val), static_cast<const float*>(b),
+      static_cast<const float*>(inv_rip), static_cast<float*>(f), nrow, ncol,
+      nslice, iters, beta);
   return static_cast<int>(cudaGetLastError());
 }

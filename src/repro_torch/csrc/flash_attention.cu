@@ -20,13 +20,14 @@
 // zeros and never enter the max or the sum, and Q rows past S are not
 // written.
 //
-// Bound: operations, at the fp32 FMA rate. The function's least time at the
-// model's prefill (B*H = 64, S = 1,024, hd 128, bf16) is set by its bytes:
-// q, k, v and o once, 67.1 MB, 0.020 ms at 3.35 TB/s, above the 17.2 GFLOP
-// of the causal half at 989 TFLOP/s on the tensor cores (0.017 ms). This
-// kernel scores with fp32 FMAs outside the tensor cores, so its own floor is
-// those operations at 67 TFLOP/s, 0.257 ms; wgmma on bf16 tiles is a later
-// PR's work.
+// This kernel takes fp32 (where TF32 products would break the fp32 serve
+// invariant) and hd 8, 16 and 32; every bf16 call at hd 128, the model's
+// prefill, goes to csrc/flash_attention_wgmma.cu on the tensor cores.
+//
+// Bound: operations, at the fp32 FMA rate. At the model's prefill shape
+// (B*H = 64, S = 1,024, hd 128) in fp32, q, k, v and o once are 134 MB,
+// 0.040 ms at 3.35 TB/s, and the 17.2 GFLOP of the causal half take 0.257
+// ms at 67 TFLOP/s outside the tensor cores: the operations set the bound.
 //
 // Design: 256 threads as a 16 x 16 grid. Thread (ty, tx) holds the scores of
 // rows ty + 16 r and columns tx + 16 c (r, c < 4) of each 64 x 64 tile, and

@@ -5,7 +5,9 @@ the CUDA kernel in ``repro_torch/csrc`` (built by ``_build``), ``ref.py``
 is the plain PyTorch version of the same function, and ``ops.py``
 dispatches: the kernel for a CUDA tensor, the plain version for a CPU one.
 Each wrapper counts its launches in a ``launches`` attribute, so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel; the flash wrapper, which
+picks one of two kernels, also counts them by design in
+``launches_by_design``.
 """
 from __future__ import annotations
 
@@ -31,3 +33,5 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_design"):
+            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)

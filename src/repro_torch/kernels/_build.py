@@ -6,7 +6,9 @@ root of the checkout, at first use, and the library is loaded with
 ``ctypes``. The sources have a plain C interface and include no PyTorch
 header, so the build takes seconds; pointers and the stream cross as
 ``c_void_p``, counts and sizes as ``c_int64`` and beta as ``c_float``. The
-library is rebuilt when the hash of the sources and flags changes. A failed
+library is rebuilt when the hash of the sources and flags changes. nvcc's
+stderr, with ptxas's registers, shared memory and spills of every kernel
+(``-Xptxas -v``), is kept beside the library as ``nvcc.log``. A failed
 build raises with nvcc's stderr: there is no fallback to the plain PyTorch
 versions.
 
@@ -33,9 +35,10 @@ log = get_logger(__name__)
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"
 # no --use_fast_math: the kernels must round as the plain versions do
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 # C entry point -> argument types; every entry returns a cudaError_t as int
@@ -45,11 +48,14 @@ SIGNATURES = {
                                 ctypes.c_int64, _P),
     "raar_combine_launch": (_P, _P, _P, _P, _P, ctypes.c_int64,
                             ctypes.c_float, _P),
-    "art_sweep_launch": (_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64,
-                         ctypes.c_int64, ctypes.c_int64, ctypes.c_float, _P),
+    "art_sweep_csr_launch": (_P, _P, _P, _P, _P, _P, ctypes.c_int64,
+                             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                             ctypes.c_float, _P),
     "flash_attention_launch": (_P, _P, _P, _P, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_int64, _P),
+    "flash_attention_wgmma_launch": (_P, _P, _P, _P, ctypes.c_int64,
+                                     ctypes.c_int64, ctypes.c_int64, _P),
 }
 
 
@@ -108,6 +114,7 @@ def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
                            f"{' '.join(cmd)}\n{proc.stderr}")
     _replace_durably(tmp, lib)
+    (build_dir / LOG_NAME).write_text(proc.stderr)
     stamp_tmp = build_dir / f"{stamp.name}.{os.getpid()}.tmp"
     stamp_tmp.write_text(digest)
     _replace_durably(stamp_tmp, stamp)

@@ -1,6 +1,7 @@
-"""Dispatch for the ART sweep (row-norm precompute, then the CUDA kernel for
-a CUDA tensor, the plain PyTorch version for a CPU tensor). A kernel that
-fails to build or launch raises; nothing falls back to the plain version."""
+"""Dispatch for the ART sweep (row-norm precompute, then the CUDA kernel over
+the system's non-zeros for a CUDA tensor, the plain dense PyTorch version
+for a CPU tensor). A kernel that fails to build or launch raises; nothing
+falls back to the plain version."""
 from __future__ import annotations
 
 import torch
@@ -16,17 +17,38 @@ def inverse_row_norms(A: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(rip))
 
 
+def csr_rows(A: torch.Tensor) -> kernel.CSR:
+    """The non-zeros of a dense fp32 (nrow, ncol) ``A`` as CSR on ``A``'s
+    device, in row-major order (columns ascending within a row): int64 row
+    pointers, int32 columns, fp32 values. Built once per geometry; an empty
+    row has no entries."""
+    if A.dim() != 2 or A.dtype != torch.float32:
+        raise ValueError(f"csr_rows: A must be a 2-D float32 matrix, got "
+                         f"{A.dtype} {tuple(A.shape)}")
+    nrow, ncol = A.shape
+    if ncol >= 2**31:
+        raise ValueError(f"csr_rows: {ncol} columns do not fit int32")
+    nz = A != 0
+    row_ptr = torch.zeros(nrow + 1, dtype=torch.int64, device=A.device)
+    row_ptr[1:] = nz.sum(dim=1).cumsum(dim=0)
+    col = nz.nonzero()[:, 1].to(torch.int32)
+    return kernel.CSR(row_ptr, col, A[nz], (nrow, ncol))
+
+
 def art_reconstruct(A: torch.Tensor, b: torch.Tensor, f0: torch.Tensor,
                     beta: float = 1.0, iters: int = 1,
                     use_kernel: bool | None = None,
-                    inv_rip: torch.Tensor | None = None) -> torch.Tensor:
+                    inv_rip: torch.Tensor | None = None,
+                    csr: kernel.CSR | None = None) -> torch.Tensor:
     """A batch of tilt-series slices: A (nrow, ncol), b (S, nrow), f0
-    (S, ncol) -> (S, ncol). ``inv_rip`` is computed from ``A`` unless the
-    caller passes it (the solver caches it with ``A``). ``use_kernel=None``
-    means the kernel iff ``A`` is on CUDA; ``False`` asks for the plain
-    version on either device."""
+    (S, ncol) -> (S, ncol). ``inv_rip`` and, for the kernel, ``csr`` are
+    computed from ``A`` unless the caller passes them (the solver caches
+    both with ``A``). ``use_kernel=None`` means the kernel iff ``A`` is on
+    CUDA; ``False`` asks for the plain version on either device."""
     if inv_rip is None:
         inv_rip = inverse_row_norms(A)
     if A.is_cuda if use_kernel is None else use_kernel:
-        return kernel.art_sweep(A, b, inv_rip, f0, beta, iters)
+        if csr is None:
+            csr = csr_rows(A)
+        return kernel.art_sweep(csr, b, inv_rip, f0, beta, iters)
     return ref.art_sweep_ref(A, b, inv_rip, f0, beta, iters)

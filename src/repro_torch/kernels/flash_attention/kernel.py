@@ -1,14 +1,24 @@
-"""Launch wrapper of the CUDA flash-attention kernel
-(csrc/flash_attention.cu), the counterpart of
-``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``."""
+"""Launch wrapper of the two CUDA flash-attention kernels, the counterparts
+of ``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``:
+``csrc/flash_attention_wgmma.cu`` (Hopper's tensor cores) takes every bf16
+call at head dim 128, the model's prefill; ``csrc/flash_attention.cu``
+(fp32 FMAs) takes fp32, where TF32 would break the fp32 serve invariant,
+and the small head dims."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (8, 16, 32, 128)           # the kernel's instantiations
+HEAD_DIMS = (8, 16, 32, 128)           # the kernels' instantiations
 _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DESIGNS = ("wgmma", "simt")
+
+
+def design_for(dtype: torch.dtype, hd: int) -> str:
+    """The kernel that takes a call: "wgmma" for bf16 at hd 128, else
+    "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and hd == 128 else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -28,17 +38,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check_tensor(op, "v", v, q.dtype, q.shape, q.device)
     B, S, H, hd = q.shape
     if hd not in HEAD_DIMS:
-        raise ValueError(f"{op}: head_dim {hd} not built; the kernel takes "
+        raise ValueError(f"{op}: head_dim {hd} not built; the kernels take "
                          f"{HEAD_DIMS}")
     o = torch.empty_like(q)
+    design = design_for(q.dtype, hd)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
-            hd, _TYPE_CODES[q.dtype], _build.current_stream(q.device))
-    _build.check_launch(op, rc)
+        stream = _build.current_stream(q.device)
+        if design == "wgmma":
+            rc = lib.flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+                H, stream)
+        else:
+            rc = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+                H, hd, _TYPE_CODES[q.dtype], stream)
+    _build.check_launch(f"{op} ({design})", rc)
     flash_attention.launches += 1
+    flash_attention.launches_by_design[design] += 1
     return o
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)

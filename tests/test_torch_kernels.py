@@ -10,6 +10,7 @@ never falls back, the build raises with nvcc's output, and the port
 imports nothing of JAX or the reference package.
 """
 import ast
+import math
 import pathlib
 import zlib
 
@@ -223,6 +224,82 @@ def test_torch_flash_attention_ref_keeps_the_bottom_right_mask():
                                rtol=1e-5, atol=1e-5)
 
 
+def _wgmma_model(q, k, v):
+    """The arithmetic of csrc/flash_attention_wgmma.cu on (BH, S, 128)
+    tensors: 128-row q tiles, 128-row kv tiles up to causal reach, scores
+    in fp32 scaled and masked (top-left, and the tail past S), the online
+    max and sum in fp32, P rounded to bf16 before P.V (fp32 products and
+    sums), the sum clamped at 1e-30, the output rounded once to bf16."""
+    BH, S, hd = q.shape
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    out = torch.empty_like(qf)
+    scale = 1.0 / math.sqrt(hd)
+    for q0 in range(0, S, 128):
+        qt = qf[:, q0:q0 + 128]
+        rows = torch.arange(q0, q0 + qt.shape[1])[:, None]
+        m = torch.full((BH, qt.shape[1]), -1e30)
+        l = torch.zeros((BH, qt.shape[1]))
+        acc = torch.zeros((BH, qt.shape[1], hd))
+        for k0 in range(0, min(q0 + 128, S), 128):
+            s = qt @ kf[:, k0:k0 + 128].transpose(1, 2) * scale
+            cols = torch.arange(k0, k0 + s.shape[2])[None, :]
+            s = s.masked_fill(~(cols <= rows), -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(s == -1e30, 0.0, torch.exp(s - m_new[..., None]))
+            l = l * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + 128])
+            m = m_new
+        out[:, q0:q0 + 128] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("S,block", [(64, 64), (130, None), (256, 128)])
+def test_torch_flash_wgmma_numerics_match_the_reference(S, block):
+    """The wgmma kernel's numerics (P in bf16 before P.V), modelled here,
+    against the JAX ``attention_ref`` and, where S tiles evenly, the Pallas
+    kernel in interpret mode, within the bf16 tolerance of
+    tests/test_kernels.py:136 (2e-2); S 130 runs a ragged second tile."""
+    q, k, v = _planes(_seed("flash-wgmma", S), (2, S, 128), 3)
+    tq, tk, tv = (_to_torch(x, torch.bfloat16) for x in (q, k, v))
+    got = _wgmma_model(tq, tk, tv)
+    jq, jk, jv = (_to_jax(x, jnp.bfloat16) for x in (q, k, v))
+    wants = [fa_ref.attention_ref(jq, jk, jv, causal=True)]
+    if block is not None:
+        wants.append(fa_kernel.flash_attention_bhsd(
+            jq, jk, jv, block_q=block, block_kv=block, causal=True,
+            interpret=True))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, S, 128)
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,hd,design", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 8, "simt")])
+def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
+        dtype, hd, design):
+    """bf16 at hd 128 (the prefill) goes to the wgmma kernel, the rest to
+    the SIMT one; on a CPU tensor either raises before counting."""
+    assert t_fa_kernel.design_for(dtype, hd) == design
+    t_kernels.reset_launch_counts()
+    x = torch.ones((1, 4, 2, hd), dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        t_fa_kernel.flash_attention(x, x, x)
+    assert t_fa_kernel.flash_attention.launches_by_design == {
+        "wgmma": 0, "simt": 0}
+
+
+def test_torch_reset_launch_counts_resets_the_designs():
+    t_fa_kernel.flash_attention.launches_by_design["wgmma"] = 3
+    t_kernels.reset_launch_counts()
+    assert t_fa_kernel.flash_attention.launches_by_design == {
+        "wgmma": 0, "simt": 0}
+
+
 # -- dispatch ------------------------------------------------------------------
 def _cpu_calls():
     z = torch.ones((2, 4, 4), dtype=torch.complex64)
@@ -238,7 +315,8 @@ def _cpu_calls():
                          t_raar_kernel.raar_combine, (z, z, z, z)),
         "art_sweep": (t_art_ops.art_reconstruct,
                       lambda A, b, f0: t_art_kernel.art_sweep(
-                          A, b, torch.ones(6), f0), (A, b, f0)),
+                          t_art_ops.csr_rows(A), b, torch.ones(6), f0),
+                      (A, b, f0)),
         "flash_attention": (t_fa_ops.flash_attention,
                             t_fa_kernel.flash_attention, (qkv, qkv, qkv)),
     }
@@ -320,11 +398,15 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     ("overlap", "Bound: device memory"),
     ("raar", "Bound: device memory"),
     ("art", "Bound: the dependent chain of row steps"),
+    ("art", "the CSR's column indices and values once a sweep"),
     ("flash_attention", "Bound: operations, at the fp32 FMA rate"),
+    ("flash_attention_wgmma", "Bound: device memory"),
+    ("flash_attention_wgmma", "wgmma.m64n128k16"),
 ])
 def test_torch_kernel_sources_name_the_tpu_kernel_they_replace(name, bound):
     text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
-    assert f"repro/kernels/{name}/kernel.py" in text
+    replaced = name.removesuffix("_wgmma")
+    assert f"repro/kernels/{replaced}/kernel.py" in text
     assert bound in text
     assert 'extern "C"' in text
 

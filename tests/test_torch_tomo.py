@@ -8,7 +8,10 @@ the projector, the phantom, the slice solver and the streaming entry point
 against ``repro.apps.tomo``; and the host pieces the path adds (the
 projection source, ``parallelize``/``map_partitions``) against the
 reference's. The CUDA kernel itself needs the card: ``chip_smoke.py`` holds
-it against the plain version there.
+it against the plain version there. The kernel reads the system as CSR:
+``csr_rows`` is held to the dense A it comes from, and a model of the
+kernel's sweep written here (lane-strided partial dots over the non-zeros
+and a butterfly sum) to the JAX sweep.
 """
 import pathlib
 import zlib
@@ -124,6 +127,99 @@ def test_torch_art_reconstruct_matches_jax_with_an_empty_row(use_pallas):
         np.testing.assert_allclose(got[s].numpy(), np.asarray(want), **TOL)
 
 
+# -- the system as CSR, and the kernel's sweep over it --------------------------
+def _dense(csr):
+    """The dense matrix a CSR stands for, rebuilt entry by entry."""
+    nrow, ncol = csr.shape
+    rp = csr.row_ptr.numpy()
+    A = np.zeros((nrow, ncol), np.float32)
+    for j in range(nrow):
+        A[j, csr.col[rp[j]:rp[j + 1]].numpy()] = csr.val[rp[j]:rp[j + 1]]
+    return A
+
+
+def _ray_system(nray, nangles):
+    return tproj.parallel_ray_matrix(nray, _angles(nangles))
+
+
+@pytest.mark.parametrize("nangles", [9, 19])
+def test_torch_csr_rows_round_trips_the_ray_system(nangles):
+    A = _ray_system(16, nangles)
+    csr = tart_ops.csr_rows(torch.from_numpy(A))
+    assert csr.shape == A.shape
+    assert csr.row_ptr.dtype == torch.int64 and csr.col.dtype == torch.int32
+    assert csr.val.dtype == torch.float32
+    assert int(csr.row_ptr[-1]) == csr.col.numel() == np.count_nonzero(A)
+    assert bool((csr.val != 0).all())
+    rp = csr.row_ptr.numpy()
+    for j in range(A.shape[0]):        # columns ascending within each row
+        assert np.all(np.diff(csr.col[rp[j]:rp[j + 1]].numpy()) > 0)
+    np.testing.assert_array_equal(_dense(csr), A)
+
+
+def test_torch_csr_rows_keeps_an_empty_row():
+    A, _, _ = _system(_rng("csr-empty"), 12, 8, 1)
+    A[5] = 0.0
+    A[0, ::2] = 0.0
+    csr = tart_ops.csr_rows(torch.from_numpy(A))
+    assert int(csr.row_ptr[5]) == int(csr.row_ptr[6])
+    np.testing.assert_array_equal(_dense(csr), A)
+    with pytest.raises(ValueError, match="float32"):
+        tart_ops.csr_rows(torch.from_numpy(A).double())
+
+
+def _csr_sweep_model(csr, b, inv_rip, f0, beta, iters):
+    """The CUDA kernel's arithmetic, one slice a warp of 32 lanes: for each
+    row in order, lane l sums val * f over the row's non-zeros l, l + 32,
+    ... with fused multiply-adds (exact products, one rounding), a butterfly
+    shuffle sum combines the lanes, c = beta * ((b_j - dot) * inv_rip_j)
+    and f[col] = f[col] + c * val, each op rounded to fp32."""
+    f32 = np.float32
+    rp, col, val = (x.numpy() for x in (csr.row_ptr, csr.col, csr.val))
+    f = f0.copy()
+    for s in range(f.shape[0]):
+        fs = f[s]
+        for _ in range(iters):
+            for j in range(len(rp) - 1):
+                cj, vj = col[rp[j]:rp[j + 1]], val[rp[j]:rp[j + 1]]
+                part = np.zeros(32, f32)
+                for k in range(len(cj)):
+                    lane = k % 32
+                    part[lane] = f32(np.float64(vj[k]) * np.float64(fs[cj[k]])
+                                     + np.float64(part[lane]))
+                for off in (16, 8, 4, 2, 1):
+                    part = part + part[np.arange(32) ^ off]
+                c = f32(beta) * ((f32(b[s, j]) - part[0]) * f32(inv_rip[j]))
+                fs[cj] = fs[cj] + c * vj
+    return f
+
+
+@pytest.mark.parametrize("case", ["ray-16x9", "dense-32x64", "dense-20x12"])
+@pytest.mark.parametrize("iters", [1, 3])
+def test_torch_csr_sweep_model_matches_jax(case, iters):
+    """The kernel's order of operations over the non-zeros gives the JAX
+    dense sweep (``art_sweep_ref``) and the Pallas kernel in interpret mode
+    at 1e-4: skipping zeros changes no update, only the dot's order."""
+    rng = _rng("csr-sweep", case, iters)
+    if case.startswith("ray"):
+        A = _ray_system(16, 9)
+        vol = rng.standard_normal((1, A.shape[1])).astype(np.float32)
+        b = (vol @ A.T).astype(np.float32)
+        inv_rip = tart_ops.inverse_row_norms(torch.from_numpy(A)).numpy()
+    else:
+        nrow, ncol = (int(x) for x in case.split("-")[1].split("x"))
+        A, b, inv_rip = _system(rng, nrow, ncol, 1)
+    f0 = np.zeros((1, A.shape[1]), np.float32)
+    got = _csr_sweep_model(tart_ops.csr_rows(torch.from_numpy(A)), b,
+                           inv_rip, f0, 1.0, iters)
+    ja = [jnp.asarray(x) for x in (A, b[0], inv_rip, f0[0])]
+    pallas = jart_kernel.art_sweep(*ja, beta=1.0, iters=iters,
+                                   interpret=True)
+    ref = jart_ref.art_sweep_ref(*ja, beta=1.0, iters=iters)
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got[0], np.asarray(want), **TOL)
+
+
 # -- projector and phantom ----------------------------------------------------
 @pytest.mark.parametrize("nray", [16, 32])
 def test_torch_parallel_ray_matrix_equals_reference(nray):
@@ -179,12 +275,13 @@ def test_torch_reconstruct_slices_asked_for_the_kernel_does_not_fall_back():
     nothing counts as launched."""
     from repro_torch import kernels
     cfg = tsolver.TomoConfig(nray=16, angles=_angles(9))
-    A, inv_rip = tsolver.system_on_device(cfg, "cpu")
+    A, inv_rip, csr = tsolver.system_on_device(cfg, "cpu")
     kernels.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA tensor"):
         tart_ops.art_reconstruct(A, torch.zeros((2, A.shape[0])),
                                  torch.zeros((2, A.shape[1])), beta=1.0,
-                                 iters=2, use_kernel=True, inv_rip=inv_rip)
+                                 iters=2, use_kernel=True, inv_rip=inv_rip,
+                                 csr=csr)
     assert kernels.launch_counts()["art_sweep"] == 0
 
 
