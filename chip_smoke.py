@@ -5,7 +5,10 @@ Run from the root of a checkout:   python3 chip_smoke.py
 
 Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi) and torch's version;
-  2. the nvcc build of src/repro_torch/csrc/*.cu, with its seconds;
+  2. the nvcc build of src/repro_torch/csrc/*.cu, with its seconds; then
+     the kernels PyTorch's ``scaled_dot_product_attention`` runs at the
+     model's prefill shape in bf16 and fp32, by the profiler, before any
+     other trace;
   3. each CUDA kernel against its plain PyTorch version on the card, at the
      main path's shapes (512 frames of 64x64), timed with CUDA events beside
      the least time the card could take (bytes over 3.35 TB/s);
@@ -28,22 +31,24 @@ Phases, each fatal on failure:
      residual and volume error held to the JAX reference's, the ART
      launches against the partitions processed, and the sink's keys; then
      a profile of one of its batches: device time and idle share;
-  9. ptxas's registers, shared memory and spills of the two kernels new in
-     this slice and the HGMMA count of the wgmma kernel's SASS; then both
-     flash-attention kernels against their plain version on the card: the
-     SIMT kernel at the shapes of tests/test_kernels.py (fp32 and small-hd
-     bf16), at S = 1,000 through ``ops`` and at the model's prefill (B 4,
-     S 1,024, H 16, hd 128) in fp32; the wgmma kernel at every bf16 hd-128
-     shape: S 64 and 130 (one 128-row tile, a ragged second), 1,000 and
-     the model's prefill; at the model shape each timed beside its bound
-     and beside PyTorch's ``scaled_dot_product_attention`` (timed for the
-     table only);
+  9. ptxas's registers, shared memory and spills of the ART kernel and
+     the two tensor-core flash kernels, the HGMMA count of the wgmma
+     kernel's SASS and the TF32 HMMA count of the tf32x3 kernel's; then
+     the three flash-attention kernels against their plain version on the
+     card: at the shapes of tests/test_kernels.py the tf32x3 kernel (fp32)
+     and the SIMT kernel (bf16); at hd 128 the tf32x3 kernel (every fp32
+     call) and the wgmma kernel (every bf16 call) at S 64 and 130 (one
+     tile, a ragged last one), 1,000 through ``ops`` and the model's
+     prefill (B 4, S 1,024, H 16, hd 128), each timed there beside its
+     bound and PyTorch's ``scaled_dot_product_attention`` (timed for the
+     table only); the SIMT kernel timed at the model's batch and sequence
+     in bf16 at hd 32;
  10. internlm2-1.8b at full width on the card from the seed: a 4 x 1,024
      prompt batch prefilled with the kernel (every launch on the wgmma
      kernel) and with the naive attention, logits and greedy tokens
      compared; then the serve invariant (greedy prefill + decode equals the
      argmax of teacher-forced prefills) in fp32, B 2, S 256, 4 tokens, with
-     the kernel on (the SIMT kernel);
+     the kernel on (every launch on the tf32x3 kernel);
  11. the serve stream at full width through ``run_serve``: 16 requests of
      1,024 tokens in batches of 4, 32 tokens out each, in bf16, its
      flash launches counted (4 batches x 24 layers, all on the wgmma
@@ -75,18 +80,20 @@ F, H, W = 512, 64, 64               # the main path's largest batch
 PAPER_ARGS = ["--frames", "512", "--obj-size", "256", "--probe-size", "64",
               "--scan-step", "8"]
 # H100 SXM (NVIDIA data sheet): device memory rate, the fp32 rate outside
-# the tensor cores, the dense bf16 rate of the tensor cores, and the L2's
-# size
+# the tensor cores, the dense bf16 and TF32 rates of the tensor cores, and
+# the L2's size
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_TC_OPS_PER_S = 989e12
+TF32_TC_OPS_PER_S = 495e12
 L2_BYTES = 50 * 2**20
 MAX_FINAL_ERROR = 0.10              # the JAX reference reaches 0.0865 here
 MIN_QUALITY = 0.92                  # ... and 0.943
 OWN_KERNELS = ("modulus_project_kernel", "overlap_products_kernel",
                "raar_combine_kernel")
 ART_KERNEL = "art_csr_kernel"
-FLASH_KERNELS = ("flash_attention_kernel", "flash_attention_wgmma_kernel")
+FLASH_KERNELS = ("flash_attention_kernel", "flash_attention_wgmma_kernel",
+                 "flash_attention_tf32x3_kernel")
 GEMM_MARKERS = ("gemm", "nvjet", "xmma", "cutlass")    # cuBLAS's kernels
 ART_SHAPES = ((8, 16), (20, 12), (32, 64))      # tests/test_kernels.py:93
 ART_ODD_SHAPE = (24, 37)        # kept from the dense kernel's checks
@@ -663,8 +670,9 @@ def tomo_profile_phase(torch, dev) -> None:
 
 def build_report(kernels: tuple[str, ...]) -> None:
     """ptxas's registers, shared memory and spills of ``kernels`` (from the
-    build's log), and the HGMMA instructions in the wgmma kernel's SASS
-    (cuobjdump, next to nvcc); raises if there are none."""
+    build's log), and the tensor-core instructions in the SASS of the two
+    flash kernels that use them (cuobjdump, next to nvcc): HGMMA in the
+    wgmma kernel, TF32 HMMA in the tf32x3 one; raises if either has none."""
     import re
 
     from repro_torch.kernels import _build
@@ -682,7 +690,7 @@ def build_report(kernels: tuple[str, ...]) -> None:
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     if not cuobjdump.exists():
         print(f"  cuobjdump not found next to nvcc ({cuobjdump}): the HGMMA "
-              f"count is not measured")
+              f"and HMMA counts are not measured")
         return
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build.BUILD_DIR / _build.LIB_NAME)],
@@ -694,22 +702,59 @@ def build_report(kernels: tuple[str, ...]) -> None:
         if m:
             fn = m.group(1)
         elif fn and "HGMMA" in line:
-            counts[fn] = counts.get(fn, 0) + 1
-    n = sum(c for f, c in counts.items() if "flash_attention_wgmma" in f)
-    print(f"  HGMMA instructions in flash_attention_wgmma_kernel's SASS: {n}"
-          f" (all functions: {sum(counts.values())})")
-    if n == 0:
-        raise AssertionError("no HGMMA in the wgmma kernel's SASS")
+            counts[fn, "HGMMA"] = counts.get((fn, "HGMMA"), 0) + 1
+        elif fn and "HMMA" in line and "TF32" in line:
+            counts[fn, "HMMA"] = counts.get((fn, "HMMA"), 0) + 1
+    for kernel, op, what in (
+            ("flash_attention_wgmma", "HGMMA", "HGMMA"),
+            ("flash_attention_tf32x3", "HMMA", "TF32 HMMA")):
+        n = sum(c for (f, o), c in counts.items() if kernel in f and o == op)
+        total = sum(c for (_, o), c in counts.items() if o == op)
+        print(f"  {what} instructions in {kernel}_kernel's SASS: {n} (all "
+              f"functions: {total})")
+        if n == 0:
+            raise AssertionError(f"no {what} in {kernel}_kernel's SASS")
 
 
-def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
-    """Both flash kernels against their plain version (held to FLASH_TOL):
-    the SIMT kernel at the test shapes (fp32 and small-hd bf16) and at the
-    model shape in fp32; the wgmma kernel at every bf16 hd-128 shape, S
-    64 and 130 (one tile, a ragged second), 1,000 through ``ops`` and the
-    model's prefill. At the model shape each timed beside its bound and
-    PyTorch's ``scaled_dot_product_attention`` (timed for the table only).
-    Returns the wgmma row and the SIMT row."""
+def sdpa_kernels(torch, dev) -> dict[str, str]:
+    """The device kernels of ``scaled_dot_product_attention`` at the model
+    shape, by dtype, by the profiler, with each one's time a call. Taken
+    before any other trace in the process: a short trace after earlier
+    ones came back empty on the card."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    names, calls = {}, 3
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = (torch.randn(MODEL_B, MODEL_H, MODEL_S, MODEL_HD,
+                               device=dev, dtype=getattr(torch, dtype))
+                   for _ in range(3))
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+        seen = sorted(_device_us(torch, prof).items(), key=lambda kv: -kv[1])
+        names[dtype] = "; ".join(f"{name} ({us / calls:.1f} us a call)"
+                                 for name, us in seen) or "none seen"
+        print(f"  SDPA's kernels in {dtype} at B {MODEL_B}, S {MODEL_S}, H "
+              f"{MODEL_H}, hd {MODEL_HD} (profiler): {names[dtype]}",
+              flush=True)
+    return names
+
+
+def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
+    """The three flash kernels against their plain version (held to
+    FLASH_TOL): at the test shapes (fp32 on the tf32x3 kernel, bf16 on the
+    SIMT one); at hd 128 the wgmma kernel (bf16) and the tf32x3 kernel
+    (fp32) at S 64 and 130 (one tile, a ragged last one), 1,000 through
+    ``ops`` and the model's prefill. At the model shape each is timed
+    beside its bound and PyTorch's ``scaled_dot_product_attention`` (timed
+    for the table only), the tf32x3 kernel also beside the fp32-FMA bound;
+    the SIMT kernel is timed at the model's batch and sequence in bf16 at
+    hd 32. Returns the wgmma, tf32x3 and SIMT rows."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -717,7 +762,8 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.flash_attention import ref as fr
 
-    build_report(("flash_attention_wgmma_kernel", "art_csr_kernel"))
+    build_report(("flash_attention_wgmma_kernel",
+                  "flash_attention_tf32x3_kernel", "art_csr_kernel"))
     rng = np.random.default_rng(SEED)
 
     def qkv(shape, dtype):
@@ -746,21 +792,24 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
                                  f"{after}")
         return out
 
-    variants = {"wgmma": [], "simt": []}
+    variants = {d: [] for d in fk.DESIGNS}
     for S, hd in FLASH_SHAPES:
         for dtype in FLASH_TOL:
+            design = fk.design_for(getattr(torch, dtype), hd)
             q, k, v = qkv((4, S, hd), dtype)
-            got = designed("simt", lambda: fk.flash_attention(
+            got = designed(design, lambda: fk.flash_attention(
                 q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0])
-            variants["simt"].append(check(f"simt, BH 4, S {S}, hd {hd}",
+            variants[design].append(check(f"{design}, BH 4, S {S}, hd {hd}",
                                           dtype, got,
                                           fr.attention_ref(q, k, v)))
     for B, S, H in ((2, 64, 4), (2, 130, 4)):
-        q, k, v = qkv((B, S, H, MODEL_HD), "bfloat16")
-        got = designed("wgmma", lambda: fk.flash_attention(q, k, v))
-        variants["wgmma"].append(check(
-            f"wgmma, B {B}, S {S}, H {H}, hd {MODEL_HD}", "bfloat16", got,
-            fo.flash_attention(q, k, v, use_kernel=False)))
+        for dtype in FLASH_TOL:
+            design = fk.design_for(getattr(torch, dtype), MODEL_HD)
+            q, k, v = qkv((B, S, H, MODEL_HD), dtype)
+            got = designed(design, lambda: fk.flash_attention(q, k, v))
+            variants[design].append(check(
+                f"{design}, B {B}, S {S}, H {H}, hd {MODEL_HD}", dtype, got,
+                fo.flash_attention(q, k, v, use_kernel=False)))
     for dtype in FLASH_TOL:         # the tail: 1,000 = 7 x 128 + 104
         design = fk.design_for(getattr(torch, dtype), MODEL_HD)
         q, k, v = qkv((1, 1000, MODEL_H, MODEL_HD), dtype)
@@ -769,9 +818,12 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
             f"{design} through ops, B 1, S 1000, H {MODEL_H}, hd {MODEL_HD}",
             dtype, got, fo.flash_attention(q, k, v, use_kernel=False)))
     rows = {}
-    for dtype in ("bfloat16", "float32"):
-        design = fk.design_for(getattr(torch, dtype), MODEL_HD)
-        shape = (MODEL_B, MODEL_S, MODEL_H, MODEL_HD)
+    # the SIMT kernel's largest head dim at the model's batch and sequence
+    timed = (("bfloat16", MODEL_HD), ("float32", MODEL_HD),
+             ("bfloat16", max(hd for _, hd in FLASH_SHAPES)))
+    for dtype, hd in timed:
+        design = fk.design_for(getattr(torch, dtype), hd)
+        shape = (MODEL_B, MODEL_S, MODEL_H, hd)
         q, k, v = qkv(shape, dtype)
 
         def call():
@@ -787,34 +839,49 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict]:
 
         got = designed(design, call)
         row = check(f"{design}, B {MODEL_B}, S {MODEL_S}, H {MODEL_H}, hd "
-                    f"{MODEL_HD}", dtype, got, plain())
+                    f"{hd}", dtype, got, plain())
         sdpa_err = _max_err(torch, got.float(),
                             library().transpose(1, 2).float())
         ms = _time_ms(torch, call, flush=flush)
         plain_ms = _time_ms(torch, plain, flush=flush)
         library_ms = _time_ms(torch, library, flush=flush)
         # q, k, v read once and o written once; QK^T and PV over the causal
-        # half, 2 operations a multiply-add, at the card's rate for the type
+        # half, 2 operations a multiply-add, at the card's rate for the
+        # type: bf16 on the tensor cores, fp32 as three TF32 products on
+        # them (the tf32x3 kernel's work), the fp32 FMA rate beside it
         bh, elem = MODEL_B * MODEL_H, q.element_size()
-        ops = 2 * 2 * bh * (MODEL_S * (MODEL_S + 1) / 2) * MODEL_HD
-        bound, by = _bound_ms(4 * bh * MODEL_S * MODEL_HD * elem, ops,
-                              BF16_TC_OPS_PER_S if dtype == "bfloat16"
-                              else FP32_OPS_PER_S)
+        nbytes = 4 * bh * MODEL_S * hd * elem
+        ops = 2 * 2 * bh * (MODEL_S * (MODEL_S + 1) / 2) * hd
+        if dtype == "bfloat16":
+            bound, by = _bound_ms(nbytes, ops, BF16_TC_OPS_PER_S)
+            extra = ""
+        else:
+            bound, by = _bound_ms(nbytes, 3 * ops, TF32_TC_OPS_PER_S)
+            fma_ms, fma_by = _bound_ms(nbytes, ops, FP32_OPS_PER_S)
+            row.update(bound_fp32_fma_ms=fma_ms)
+            extra = (f" (3 x {ops / 1e9:.2f} GFLOP of TF32 at "
+                     f"{TF32_TC_OPS_PER_S / 1e12:.0f} TFLOP/s; fp32 FMA bound "
+                     f"{fma_ms:.4f} ms ({fma_by}))")
         print(f"    {design} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}), library (SDPA) {library_ms:.4f} "
-              f"ms; max|kernel - SDPA| {sdpa_err:.3g} (reported)", flush=True)
+              f"bound {bound:.4f} ms ({by}){extra}, library (SDPA) "
+              f"{library_ms:.4f} ms; max|kernel - SDPA| {sdpa_err:.3g} "
+              f"(reported)", flush=True)
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    library_ms=library_ms, max_abs_err_vs_library=sdpa_err)
         variants[design].append(row)
         rows[design] = row
     sources = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+               "tf32x3": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
                "simt": "src/repro_torch/csrc/flash_attention.cu"}
+    names = {"wgmma": "wgmma, bf16 hd 128", "tf32x3": "tf32x3, fp32",
+             "simt": "simt, bf16 hd 8/16/32 only"}
     replaces = "src/repro/kernels/flash_attention/kernel.py:79"
-    return tuple(dict(rows[d], name=f"flash_attention ({d})", route="cuda",
-                      source=sources[d], replaces=replaces, launches=0,
+    return tuple(dict(rows[d], name=f"flash_attention ({names[d]})",
+                      route="cuda", source=sources[d], replaces=replaces,
+                      launches=0,
                       max_abs_err=max(v["max_abs_err"] for v in variants[d]),
                       variants=variants[d])
-                 for d in ("wgmma", "simt"))
+                 for d in ("wgmma", "tf32x3", "simt"))
 
 
 def _param_count(params) -> int:
@@ -828,7 +895,7 @@ def _param_count(params) -> int:
 def model_phase(torch, dev) -> int:
     """internlm2-1.8b at full width: the prefill with the kernel against
     the naive attention (bf16, every launch on the wgmma kernel), then the
-    serve invariant in fp32 (on the SIMT kernel). Returns the SIMT
+    serve invariant in fp32 (on the tf32x3 kernel). Returns the tf32x3
     kernel's launches in the invariant's run."""
     import numpy as np
 
@@ -876,7 +943,7 @@ def model_phase(torch, dev) -> int:
           f"max|logit| {float(ln.float().abs().max()):.3g}), greedy tokens "
           f"agree {agree}/{MODEL_B}; prefill {ms_k:.2f} ms with the kernel, "
           f"{ms_n:.2f} ms naive", flush=True)
-    if by_design != {"wgmma": config.num_layers, "simt": 0}:
+    if by_design != {"wgmma": config.num_layers, "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"flash launches {by_design} in a bf16 prefill "
                              f"of {config.num_layers} layers")
     if not diff <= MAX_PREFILL_LOGIT_DIFF:
@@ -912,17 +979,19 @@ def model_phase(torch, dev) -> int:
                 raise AssertionError(f"serve invariant broken at step {g}: "
                                      f"{nxt.tolist()} != {serve[g].tolist()}")
             full = torch.cat([full, nxt[:, None]], dim=1)
-    simt = fk.flash_attention.launches_by_design
+    by_design = dict(fk.flash_attention.launches_by_design)
     print(f"  fp32 serve invariant at full width (B {B}, S {S}, {G} tokens, "
-          f"the kernel on, launches {simt}): greedy prefill + decode == "
+          f"the kernel on, launches {by_design}): greedy prefill + decode == "
           f"teacher-forced prefills, tokens {torch.stack(serve, 1).tolist()}",
           flush=True)
-    if simt["wgmma"] or simt["simt"] != (1 + G) * config.num_layers:
-        raise AssertionError(f"flash launches {simt} in {1 + G} fp32 "
-                             f"prefills of {config.num_layers} layers")
+    want = {"wgmma": 0, "tf32x3": (1 + G) * config.num_layers, "simt": 0}
+    if by_design != want:
+        raise AssertionError(f"flash launches {by_design} in {1 + G} fp32 "
+                             f"prefills of {config.num_layers} layers, "
+                             f"expected {want}")
     del params, cache
     torch.cuda.empty_cache()
-    return simt["simt"]
+    return by_design["tf32x3"]
 
 
 def _greedy(torch, params, config, prompts, gen: int):
@@ -964,7 +1033,7 @@ def serve_phase(torch, dev) -> dict:
     if counts["flash_attention"] != want or res["launches"] != counts:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"!= {want}")
-    if by_design != {"wgmma": want, "simt": 0}:
+    if by_design != {"wgmma": want, "tf32x3": 0, "simt": 0}:
         raise AssertionError(f"flash launches by design {by_design}, not "
                              f"all {want} on the wgmma kernel")
     if any(n for name, n in counts.items() if name != "flash_attention"):
@@ -1097,6 +1166,7 @@ def main() -> int:
     print(f"[2] {lib.relative_to(ROOT)} loaded in "
           f"{time.perf_counter() - t0:.2f} s, nvcc's build included when "
           f"the log line above says it built", flush=True)
+    library_kernels = sdpa_kernels(torch, dev)
 
     # a 256 MB buffer zeroed between timed calls empties the 50 MB L2, and
     # keeps the device busy while the host enqueues the next call
@@ -1137,18 +1207,22 @@ def main() -> int:
     print("[9] the flash-attention kernels against their plain version (fp32 "
           "tol 1e-5, bf16 2e-2):", flush=True)
     l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    wgmma_row, simt_row = flash_phase(torch, dev, l2_flush.zero_)
+    wgmma_row, tf32x3_row, simt_row = flash_phase(torch, dev,
+                                                  l2_flush.zero_)
     del l2_flush
-    rows += [wgmma_row, simt_row]
+    rows += [wgmma_row, tf32x3_row, simt_row]
+    wgmma_row["library_kernels"] = library_kernels["bfloat16"]
+    tf32x3_row["library_kernels"] = library_kernels["float32"]
 
     print(f"[10] {ARCH} at full width:", flush=True)
     # the fp32 invariant's direct prefill/decode_step loop, not the served
     # path: under a name of its own
-    simt_row["launches_fp32_invariant"] = model_phase(torch, dev)
+    tf32x3_row["launches_fp32_invariant"] = model_phase(torch, dev)
 
     print("[11] the serve stream at full width:", flush=True)
     by_design = serve_phase(torch, dev)
     wgmma_row["launches"] = by_design["wgmma"]
+    tf32x3_row["launches"] = by_design["tf32x3"]
     simt_row["launches"] = by_design["simt"]
     serve_profile_phase(torch, dev)
 

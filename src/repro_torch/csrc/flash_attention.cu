@@ -1,10 +1,11 @@
-// Causal flash attention, the prefill of the serving path:
+// Causal flash attention in bf16 at head dims 8, 16 and 32:
 //
 //     o[b, s, h] = sum over t <= s of softmax_t(q[b,s,h] . k[b,t,h] * scale)
 //                  * v[b, t, h],                  scale = 1 / sqrt(hd)
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
-// flash_attention_bhsd (body _make_kernel), which walks a sequential grid
+// flash_attention_bhsd (body _make_kernel) for bf16 at the small head
+// dims. The TPU kernel walks a sequential grid
 // (B*H, n_q, n_kv) with (256, 512) blocks sized for VMEM and carries the
 // running max, denominator and accumulator in VMEM scratch from one kv step
 // to the next. Here a block owns one (b, h, tile of 64 query rows) and walks
@@ -12,7 +13,7 @@
 // what the TPU kernel computes: scores in fp32, the top-left causal mask
 // kpos <= qpos with NEG_INF = -1e30, an online softmax with a running max,
 // denominator and fp32 accumulator, the denominator clamped at 1e-30, the
-// output cast once to the input type, and kv tiles beyond causal reach
+// output rounded once to bf16, and kv tiles beyond causal reach
 // skipped (the loop stops at the block's last row). It reads q, k, v and
 // writes o in the model layout (B, S, H, hd) in place, so the caller makes
 // no (B*H, S, hd) transpose; the (B*H, S, hd) layout is the case H = 1.
@@ -20,14 +21,17 @@
 // zeros and never enter the max or the sum, and Q rows past S are not
 // written.
 //
-// This kernel takes fp32 (where TF32 products would break the fp32 serve
-// invariant) and hd 8, 16 and 32; every bf16 call at hd 128, the model's
-// prefill, goes to csrc/flash_attention_wgmma.cu on the tensor cores.
+// This kernel takes bf16 at hd 8, 16 and 32, the small head dims of the
+// kernel tests; every fp32 call goes to csrc/flash_attention_tf32x3.cu and
+// every bf16 call at hd 128, the model's prefill, to
+// csrc/flash_attention_wgmma.cu, both on the tensor cores.
 //
-// Bound: operations, at the fp32 FMA rate. At the model's prefill shape
-// (B*H = 64, S = 1,024, hd 128) in fp32, q, k, v and o once are 134 MB,
-// 0.040 ms at 3.35 TB/s, and the 17.2 GFLOP of the causal half take 0.257
-// ms at 67 TFLOP/s outside the tensor cores: the operations set the bound.
+// Bound: operations, at the fp32 FMA rate, the pipe its products run on
+// (bf16 is widened to fp32 as it is staged): at B*H = 64, S = 1,024 and hd
+// 32 the 4.3 GFLOP of the causal half take 0.064 ms at 67 TFLOP/s. The
+// same work in bf16 on the tensor cores would be bound by its bytes, q, k,
+// v and o once, 16.8 MB, 0.005 ms at 3.35 TB/s (the bound chip_smoke.py
+// reports for it).
 //
 // Design: 256 threads as a 16 x 16 grid. Thread (ty, tx) holds the scores of
 // rows ty + 16 r and columns tx + 16 c (r, c < 4) of each 64 x 64 tile, and
@@ -55,22 +59,6 @@ constexpr int kThreads = 256;   // 16 x 16
 constexpr int kPP = kBKV + 16;  // P's row pitch: two rows of a warp 16 banks apart
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as PyTorch casts
-}
-
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1)
@@ -86,23 +74,28 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 }
 
 // Rows [row0, row0 + 64) of one head, x pointing at (b, 0, h, 0) of a
-// (B, S, H, HD) tensor, into dst (64 x PITCH fp32); rows past S as zeros.
-template <typename T, int HD, int PITCH>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ x,
+// (B, S, H, HD) bf16 tensor, into dst (64 x PITCH fp32); rows past S as
+// zeros.
+template <int HD, int PITCH>
+__device__ __forceinline__ void stage(float* dst,
+                                      const __nv_bfloat16* __restrict__ x,
                                       int64_t row0, int64_t S,
                                       int64_t row_stride) {
   for (int i = threadIdx.x; i < kBKV * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     const int64_t row = row0 + r;
-    dst[r * PITCH + d] = row < S ? widen(x[row * row_stride + d]) : 0.0f;
+    dst[r * PITCH + d] =
+        row < S ? __bfloat162float(x[row * row_stride + d]) : 0.0f;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           int64_t S, int64_t H, float scale) {
+    flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           __nv_bfloat16* __restrict__ o, int64_t S,
+                           int64_t H, float scale) {
   constexpr int PITCH = HD + 4;
   constexpr int NO = (HD + 15) / 16;  // output columns a thread
   extern __shared__ float4 smem4[];
@@ -116,7 +109,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t row_stride = H * HD;
   const int64_t head = static_cast<int64_t>(blockIdx.z) * S * row_stride +
                        static_cast<int64_t>(blockIdx.y) * HD;
-  stage<T, HD, PITCH>(qs, q + head, q0, S, row_stride);
+  stage<HD, PITCH>(qs, q + head, q0, S, row_stride);
 
   float m[4], l[4], acc[4][NO];
 #pragma unroll
@@ -133,7 +126,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int64_t kt = 0; kt < n_kv; ++kt) {
     const int64_t k0 = kt * kBKV;
     __syncthreads();  // Q staged; the last tile's reads of kv and ps done
-    stage<T, HD, PITCH>(kv, k + head, k0, S, row_stride);
+    stage<HD, PITCH>(kv, k + head, k0, S, row_stride);
     __syncthreads();
 
     float s[4][4];
@@ -190,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int i = 0; i < NO; ++i) acc[r][i] *= alpha;
     }
     __syncthreads();  // every read of K done, P written
-    stage<T, HD, PITCH>(kv, v + head, k0, S, row_stride);
+    stage<HD, PITCH>(kv, v + head, k0, S, row_stride);
     __syncthreads();
 
 #pragma unroll 2
@@ -223,63 +216,56 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float denom = fmaxf(half_warp_sum(l[r]), 1e-30f);
     const int64_t row = q0 + ty + 16 * r;
     if (row < S) {
-      T* orow = o + head + row * row_stride;
+      __nv_bfloat16* orow = o + head + row * row_stride;
 #pragma unroll
       for (int i = 0; i < NO; ++i) {
         const int col = tx + 16 * i;
-        if (col < HD) orow[col] = narrow<T>(acc[r][i] / denom);
+        // round to nearest even, as PyTorch casts
+        if (col < HD) orow[col] = __float2bfloat16(acc[r][i] / denom);
       }
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int64_t S, int64_t H, cudaStream_t stream) {
   constexpr int PITCH = HD + 4;
   const int smem =
       static_cast<int>(sizeof(float)) * ((kBQ + kBKV) * PITCH + kBQ * kPP);
-  // above 48 KB (hd 128: 86 KB) only after this opt-in
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD)));
-  flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, scale);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      S, H, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o,
-              int64_t B, int64_t S, int64_t H, int64_t hd,
-              cudaStream_t stream) {
-  switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, o, B, S, H, stream);
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, H, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
-// q, k, v, o: (B, S, H, hd) contiguous on the current device, all of one
-// type: fp32 (bf16 == 0) or bf16 (bf16 == 1); o aliases none of the inputs.
-// hd is 8, 16, 32 or 128. Launches one block per (tile of 64 query rows,
-// head, batch) on `stream` and returns cudaGetLastError().
+// q, k, v, o: (B, S, H, hd) bf16, contiguous on the current device; o
+// aliases none of the inputs. hd is 8, 16 or 32. Launches one block per
+// (tile of 64 query rows, head, batch) on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t B,
                                       int64_t S, int64_t H, int64_t hd,
-                                      int64_t bf16, void* stream) {
+                                      void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (B > 65535 || H > 65535 || (S + kBQ - 1) / kBQ > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, hd, s)
-              : launch_hd<float>(q, k, v, o, B, S, H, hd, s);
+  switch (hd) {
+    case 8: return launch<8>(q, k, v, o, B, S, H, s);
+    case 16: return launch<16>(q, k, v, o, B, S, H, s);
+    case 32: return launch<32>(q, k, v, o, B, S, H, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -6,7 +6,7 @@ is the plain PyTorch version of the same function, and ``ops.py``
 dispatches: the kernel for a CUDA tensor, the plain version for a CPU one.
 Each wrapper counts its launches in a ``launches`` attribute, so a run can
 show that its main path went through the kernel; the flash wrapper, which
-picks one of two kernels, also counts them by design in
+picks one of three kernels, also counts them by design in
 ``launches_by_design``.
 """
 from __future__ import annotations

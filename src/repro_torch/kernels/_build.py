@@ -1,16 +1,17 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by one ``nvcc`` call for Hopper
-(``sm_90a``) into ``build/repro_torch/librepro_torch_kernels.so`` at the
-root of the checkout, at first use, and the library is loaded with
-``ctypes``. The sources have a plain C interface and include no PyTorch
-header, so the build takes seconds; pointers and the stream cross as
-``c_void_p``, counts and sizes as ``c_int64`` and beta as ``c_float``. The
-library is rebuilt when the hash of the sources and flags changes. nvcc's
-stderr, with ptxas's registers, shared memory and spills of every kernel
-(``-Xptxas -v``), is kept beside the library as ``nvcc.log``. A failed
-build raises with nvcc's stderr: there is no fallback to the plain PyTorch
-versions.
+Every ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``) by an
+``nvcc`` of its own, all started together, and the objects are linked into
+``build/repro_torch/librepro_torch_kernels.so`` at the root of the
+checkout, at first use; the library is loaded with ``ctypes``. The sources
+have a plain C interface and include no PyTorch header, so the build takes
+seconds; pointers and the stream cross as ``c_void_p``, counts and sizes
+as ``c_int64`` and beta as ``c_float``. The library is rebuilt when the
+hash of the sources and flags changes. nvcc's stderr, with ptxas's
+registers, shared memory and spills of every kernel (``-Xptxas -v``), is
+kept beside the library as ``nvcc.log``, the sources' in their order. A
+failed build raises with nvcc's stderr: there is no fallback to the plain
+PyTorch versions.
 
 Nothing here runs at import time, so the CPU tests import every module
 without nvcc or a GPU.
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -37,8 +39,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 LOG_NAME = "nvcc.log"
 # no --use_fast_math: the kernels must round as the plain versions do
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 # C entry point -> argument types; every entry returns a cudaError_t as int
@@ -53,7 +56,10 @@ SIGNATURES = {
                              ctypes.c_float, _P),
     "flash_attention_launch": (_P, _P, _P, _P, ctypes.c_int64,
                                ctypes.c_int64, ctypes.c_int64,
-                               ctypes.c_int64, ctypes.c_int64, _P),
+                               ctypes.c_int64, _P),
+    "flash_attention_tf32x3_launch": (_P, _P, _P, _P, ctypes.c_int64,
+                                      ctypes.c_int64, ctypes.c_int64,
+                                      ctypes.c_int64, _P),
     "flash_attention_wgmma_launch": (_P, _P, _P, _P, ctypes.c_int64,
                                      ctypes.c_int64, ctypes.c_int64, _P),
 }
@@ -87,6 +93,29 @@ def _replace_durably(tmp: Path, path: Path) -> None:
     os.replace(tmp, path)
 
 
+def _compile_all(nvcc: str, sources: list[Path], obj_dir: Path) -> list[Path]:
+    """One ``nvcc -c`` a source, all running at once; returns the objects
+    and writes each one's stderr beside it. Raises with the stderr of every
+    compile that failed."""
+    objs = [obj_dir / f"{src.stem}.o" for src in sources]
+    procs = []
+    for src, obj in zip(sources, objs):
+        with open(obj.with_suffix(".log"), "w") as err:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.DEVNULL, stderr=err, text=True))
+    done = [(src, obj, proc.wait()) for src, obj, proc
+            in zip(sources, objs, procs)]
+    failed = [(src, obj, rc) for src, obj, rc in done
+              if rc != 0 or not obj.exists()]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(
+            f"{src.name} (exit code {rc}):\n"
+            f"{obj.with_suffix('.log').read_text()}"
+            for src, obj, rc in failed))
+    return objs
+
+
 def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
           nvcc: str | None = None) -> Path:
     """Compile ``src_dir/*.cu`` into ``build_dir/LIB_NAME`` unless a library
@@ -105,16 +134,22 @@ def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
     # per-process temp names: two processes building at once each finish
     # with a whole library, and the last os.replace wins
     tmp = build_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources)]
+    nvcc = nvcc or find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0 or not tmp.exists():
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=build_dir) as obj_dir:
+        objs = _compile_all(nvcc, sources, Path(obj_dir))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0 or not tmp.exists():
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed to link with exit code "
+                               f"{proc.returncode}: {' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        log_text = "".join(o.with_suffix(".log").read_text() for o in objs)
     _replace_durably(tmp, lib)
-    (build_dir / LOG_NAME).write_text(proc.stderr)
+    (build_dir / LOG_NAME).write_text(log_text + proc.stderr)
     stamp_tmp = build_dir / f"{stamp.name}.{os.getpid()}.tmp"
     stamp_tmp.write_text(digest)
     _replace_durably(stamp_tmp, stamp)

@@ -1,9 +1,10 @@
-"""Launch wrapper of the two CUDA flash-attention kernels, the counterparts
-of ``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``:
-``csrc/flash_attention_wgmma.cu`` (Hopper's tensor cores) takes every bf16
-call at head dim 128, the model's prefill; ``csrc/flash_attention.cu``
-(fp32 FMAs) takes fp32, where TF32 would break the fp32 serve invariant,
-and the small head dims."""
+"""Launch wrapper of the three CUDA flash-attention kernels, the
+counterparts of ``repro/kernels/flash_attention/kernel.py:
+flash_attention_bhsd``: ``csrc/flash_attention_wgmma.cu`` (``wgmma`` on
+Hopper's tensor cores) takes every bf16 call at head dim 128, the model's
+prefill; ``csrc/flash_attention_tf32x3.cu`` (split TF32 on ``mma.sync``,
+as close to float64 as fp32 FMAs) takes every fp32 call; and
+``csrc/flash_attention.cu`` (fp32 FMAs) bf16 at the small head dims."""
 from __future__ import annotations
 
 import torch
@@ -11,14 +12,16 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (8, 16, 32, 128)           # the kernels' instantiations
-_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-DESIGNS = ("wgmma", "simt")
+_DTYPES = (torch.float32, torch.bfloat16)
+DESIGNS = ("wgmma", "tf32x3", "simt")
 
 
 def design_for(dtype: torch.dtype, hd: int) -> str:
-    """The kernel that takes a call: "wgmma" for bf16 at hd 128, else
-    "simt"."""
-    return "wgmma" if dtype == torch.bfloat16 and hd == 128 else "simt"
+    """The kernel that takes a call: "tf32x3" for every fp32 call, "wgmma"
+    for bf16 at hd 128, "simt" for bf16 at the small head dims."""
+    if dtype == torch.float32:
+        return "tf32x3"
+    return "wgmma" if hd == 128 else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -32,7 +35,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     if not isinstance(q, torch.Tensor) or q.dim() != 4:
         raise ValueError(f"{op}: q must be a (B, S, H, hd) tensor")
     _build.check_tensor(op, "q", q, q.dtype, q.shape)
-    if q.dtype not in _TYPE_CODES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"{op}: q must be float32 or bfloat16, got {q.dtype}")
     _build.check_tensor(op, "k", k, q.dtype, q.shape, q.device)
     _build.check_tensor(op, "v", v, q.dtype, q.shape, q.device)
@@ -45,14 +48,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = _build.current_stream(q.device)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
         if design == "wgmma":
-            rc = lib.flash_attention_wgmma_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
-                H, stream)
+            rc = lib.flash_attention_wgmma_launch(*ptrs, B, S, H, stream)
+        elif design == "tf32x3":
+            rc = lib.flash_attention_tf32x3_launch(*ptrs, B, S, H, hd, stream)
         else:
-            rc = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
-                H, hd, _TYPE_CODES[q.dtype], stream)
+            rc = lib.flash_attention_launch(*ptrs, B, S, H, hd, stream)
     _build.check_launch(f"{op} ({design})", rc)
     flash_attention.launches += 1
     flash_attention.launches_by_design[design] += 1

@@ -277,27 +277,132 @@ def test_torch_flash_wgmma_numerics_match_the_reference(S, block):
                                    rtol=2e-2, atol=2e-2)
 
 
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
+    with ties away from zero (the bits are sign and magnitude, so adding
+    half of the dropped 13 bits' range rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_products(a, b, products):
+    """a @ b as the tf32x3 kernel's mma.sync issues it: each operand split
+    as big + small (both TF32), then small.big, big.small and big.big
+    summed in that order into one fp32 accumulator; ``products=1`` is the
+    single big.big product of plain TF32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    acc = a_small @ b_big
+    acc = acc + a_big @ b_small
+    return acc + a_big @ b_big
+
+
+def _tf32x3_model(q, k, v, products=3):
+    """The arithmetic of csrc/flash_attention_tf32x3.cu on (BH, S, hd) fp32
+    tensors: 64-row q tiles, 64-row kv tiles up to causal reach, S = Q.K^T
+    and O += P.V in split TF32 (``_tf32_products``), scores scaled and
+    masked (top-left, and the tail past S), the online max and sum in
+    fp32, the sum clamped at 1e-30, the output divided once."""
+    BH, S, hd = q.shape
+    out = torch.empty_like(q)
+    scale = 1.0 / math.sqrt(hd)
+    for q0 in range(0, S, 64):
+        qt = q[:, q0:q0 + 64]
+        rows = torch.arange(q0, q0 + qt.shape[1])[:, None]
+        m = torch.full((BH, qt.shape[1]), -1e30)
+        l = torch.zeros((BH, qt.shape[1]))
+        acc = torch.zeros((BH, qt.shape[1], hd))
+        for k0 in range(0, min(q0 + 64, S), 64):
+            s = _tf32_products(qt, k[:, k0:k0 + 64].transpose(1, 2),
+                               products) * scale
+            cols = torch.arange(k0, k0 + s.shape[2])[None, :]
+            s = s.masked_fill(~(cols <= rows), -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(s == -1e30, 0.0, torch.exp(s - m_new[..., None]))
+            l = l * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + _tf32_products(p, v[:, k0:k0 + 64], products))
+            m = m_new
+        out[:, q0:q0 + 64] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("S,hd", [(64, 16), (128, 32), (32, 8), (130, 128)])
+def test_torch_flash_tf32x3_numerics_match_the_reference(S, hd):
+    """The tf32x3 kernel's numerics (split TF32 products), modelled here,
+    against the JAX ``attention_ref`` and the Pallas kernel in interpret
+    mode, within the fp32 tolerance of tests/test_kernels.py:136 (1e-5), at
+    ``chip_smoke.FLASH_SHAPES`` and a ragged S of 130 at hd 128 (a third q
+    and kv tile of 2 rows)."""
+    q, k, v = _planes(_seed("flash-tf32x3", S, hd), (4, S, hd), 3)
+    got = _tf32x3_model(*(torch.from_numpy(x) for x in (q, k, v)))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    pallas = fa_kernel.flash_attention_bhsd(jq, jk, jv, causal=True,
+                                            interpret=True)
+    ref = fa_ref.attention_ref(jq, jk, jv, causal=True)
+    assert got.dtype == torch.float32 and got.shape == (4, S, hd)
+    for want in (pallas, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_torch_flash_one_tf32_product_misses_the_fp32_tolerance():
+    """Why the kernel issues three products: a single TF32 product (11
+    bits of each operand) misses the fp32 tolerance of 1e-5 by two orders
+    of magnitude at S 130, hd 128, where split TF32 holds it (above)."""
+    q, k, v = _planes(_seed("flash-tf32x3", 130, 128), (4, 130, 128), 3)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    want = np.asarray(fa_ref.attention_ref(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=True))
+    one = _tf32x3_model(tq, tk, tv, products=1).numpy()
+    three = _tf32x3_model(tq, tk, tv).numpy()
+    assert np.abs(one - want).max() > 1e-4
+    assert np.abs(three - want).max() < 1e-5
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(one, want, rtol=1e-5, atol=1e-5)
+
+
+def test_torch_tf32_rounding_is_to_nearest_ties_away():
+    """The model's ``cvt.rna.tf32.f32``: 1 + 2^-11 (half a TF32 step) rounds
+    up, 1 + 2^-11 - 2^-23 down, and the negative of each by magnitude."""
+    x = torch.tensor([1 + 2.0**-11, 1 + 2.0**-11 - 2.0**-23, 1 + 2.0**-10,
+                      -(1 + 2.0**-11), 3.0], dtype=torch.float32)
+    assert _tf32(x).tolist() == [1 + 2.0**-10, 1.0, 1 + 2.0**-10,
+                                 -(1 + 2.0**-10), 3.0]
+
+
 @pytest.mark.parametrize("dtype,hd,design", [
-    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "simt"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 8, "simt")])
+    (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "tf32x3"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 8, "tf32x3")])
 def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
         dtype, hd, design):
-    """bf16 at hd 128 (the prefill) goes to the wgmma kernel, the rest to
-    the SIMT one; on a CPU tensor either raises before counting."""
+    """bf16 at hd 128 (the prefill) goes to the wgmma kernel, every fp32
+    call to the tf32x3 one, bf16 at the small head dims to the SIMT one; on
+    a CPU tensor each raises before counting."""
     assert t_fa_kernel.design_for(dtype, hd) == design
     t_kernels.reset_launch_counts()
     x = torch.ones((1, 4, 2, hd), dtype=dtype)
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_fa_kernel.flash_attention(x, x, x)
     assert t_fa_kernel.flash_attention.launches_by_design == {
-        "wgmma": 0, "simt": 0}
+        "wgmma": 0, "tf32x3": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("hd", t_fa_kernel.HEAD_DIMS)
+def test_torch_flash_every_fp32_call_goes_to_tf32x3(hd):
+    """No fp32 call reaches the SIMT kernel: one fp32 path."""
+    assert t_fa_kernel.design_for(torch.float32, hd) == "tf32x3"
 
 
 def test_torch_reset_launch_counts_resets_the_designs():
     t_fa_kernel.flash_attention.launches_by_design["wgmma"] = 3
+    t_fa_kernel.flash_attention.launches_by_design["tf32x3"] = 2
     t_kernels.reset_launch_counts()
     assert t_fa_kernel.flash_attention.launches_by_design == {
-        "wgmma": 0, "simt": 0}
+        "wgmma": 0, "tf32x3": 0, "simt": 0}
 
 
 # -- dispatch ------------------------------------------------------------------
@@ -383,14 +488,18 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     assert _build.LIB_NAME == "librepro_torch_kernels.so"
     assert lib.name == _build.LIB_NAME and lib.read_text() == "lib\n"
     first = calls.read_text().splitlines()
-    assert len(first) == 1                      # one nvcc call for all
-    assert "sm_90a" in first[0] and "a.cu" in first[0] and "b.cu" in first[0]
-    assert "--use_fast_math" not in first[0]
+    # one nvcc -c a source, then one link of the objects
+    compiles = sorted(c for c in first if " -c " in c)
+    links = [c for c in first if "-shared" in c]
+    assert len(first) == 3 and len(compiles) == 2 and len(links) == 1
+    assert "a.cu" in compiles[0] and "b.cu" in compiles[1]
+    assert all("sm_90a" in c and "--use_fast_math" not in c for c in first)
+    assert ".cu" not in links[0]
     _build.build(src, tmp_path / "build", nvcc=nvcc)
-    assert len(calls.read_text().splitlines()) == 1
+    assert len(calls.read_text().splitlines()) == 3
     (src / "b.cu").write_text("// b, edited")
     _build.build(src, tmp_path / "build", nvcc=nvcc)
-    assert len(calls.read_text().splitlines()) == 2
+    assert len(calls.read_text().splitlines()) == 6
 
 
 @pytest.mark.parametrize("name,bound", [
@@ -402,10 +511,12 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     ("flash_attention", "Bound: operations, at the fp32 FMA rate"),
     ("flash_attention_wgmma", "Bound: device memory"),
     ("flash_attention_wgmma", "wgmma.m64n128k16"),
+    ("flash_attention_tf32x3", "Bound: operations"),
+    ("flash_attention_tf32x3", "mma.sync.aligned.m16n8k8.row.col.f32.tf32"),
 ])
 def test_torch_kernel_sources_name_the_tpu_kernel_they_replace(name, bound):
     text = (ROOT / "src" / "repro_torch" / "csrc" / f"{name}.cu").read_text()
-    replaced = name.removesuffix("_wgmma")
+    replaced = name.removesuffix("_wgmma").removesuffix("_tf32x3")
     assert f"repro/kernels/{replaced}/kernel.py" in text
     assert bound in text
     assert 'extern "C"' in text
