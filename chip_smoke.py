@@ -15,7 +15,8 @@ Phases, each fatal on failure:
   4. one RAAR step at paper size with the kernels against the plain path;
   5. the §III stream at the paper's Table II size (512 frames, 256x256
      object, 64x64 probe, scan step 8) through ``run_stream``, with its
-     quality, the kernels' launch counts and the sink's contents checked;
+     quality, the kernels' launch counts, the sink's contents and its
+     artifact lane's report (every batch delivered, none failed) checked;
   6. a profile of RAAR steps at 512 frames: device time by kernel;
   7. the ART kernel over the system's non-zeros (CSR) against its plain
      dense PyTorch version on the card, at the shapes of
@@ -56,7 +57,16 @@ Phases, each fatal on failure:
      tokens against the model's own prefill/decode_step loop, the same loop
      with the naive attention (reported: the first differing token of each
      request and the top-2 logit gap there), and a profile: device time by
-     kernel and idle share.
+     kernel and idle share;
+ 12. the §III restart at Table II size through ``run_restart``: frame ids
+     into a durable log, a spawned consumer running windowed RAAR (windows
+     of 64 frames, 6 steps each) SIGKILLed mid-window, the resumed run
+     in-process; the window set held exactly (8 windows of 64 frames), each
+     window's Fourier error held to an uncrashed run of the same window on
+     the card (1e-5 relative), the resumed run's launches to the windows it
+     fired x 6, and the kill offset, the windows on disk at the crash and
+     the produce, reopen and resume times printed beside the card's name
+     and power limit.
 It then prints a JSON line of the kernels, the nvidia-smi line again, and
 as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -79,6 +89,10 @@ SEED = 0
 F, H, W = 512, 64, 64               # the main path's largest batch
 PAPER_ARGS = ["--frames", "512", "--obj-size", "256", "--probe-size", "64",
               "--scan-step", "8"]
+RESTART_ARGS = PAPER_ARGS + ["--restart", "--batch-frames", "64",
+                             "--iters-per-batch", "6"]
+RESTART_WINDOWS, RESTART_WINDOW, RESTART_ITERS = 8, 64, 6
+RESTART_RTOL = 1e-5
 # H100 SXM (NVIDIA data sheet): device memory rate, the fp32 rate outside
 # the tensor cores, the dense bf16 and TF32 rates of the tensor cores, and
 # the L2's size
@@ -382,6 +396,16 @@ def stream_phase(torch, dev) -> dict:
     if res["sink_keys"] != want_keys:
         raise AssertionError(f"sink holds {res['sink_keys']}, expected "
                              f"{want_keys}")
+    lane = res["lanes"].get("NpzDirectorySink")
+    if (lane is None or lane["delivered"] != batches or lane["failed"]
+            or lane["depth"]):
+        raise AssertionError(f"artifact lane report {res['lanes']}: expected "
+                             f"{batches} delivered, 0 failed, 0 queued")
+    print(f"  artifact lane: delivered {lane['delivered']}, failed "
+          f"{lane['failed']}, retries {lane['retries']}, max depth "
+          f"{lane['max_depth']}, mean latency "
+          f"{lane.get('mean_latency_s', 0.0):.6f} s, mean write "
+          f"{lane.get('mean_write_s', 0.0):.6f} s")
     in_batches = sum(res["batch_times"])
     print(f"  wall time: batches {in_batches:.3f} s (device work "
           f"included), rest of the stream {res['stream_time'] - in_batches:.3f}"
@@ -1141,6 +1165,64 @@ def serve_profile_phase(torch, dev) -> None:
               f"{name[:90]}")
 
 
+def restart_phase(torch, dev, smi: str) -> None:
+    """The restart-safe windowed path at Table II size: run_restart kills a
+    spawned consumer mid-window and resumes it; the windows are then held
+    to an uncrashed in-process run of each window on the card."""
+    from repro_torch import kernels
+    from repro_torch.apps.ptycho.sim import simulate
+    from repro_torch.apps.ptycho.solver import SolverConfig
+    from repro_torch.apps.ptycho.stream import (parse_args,
+                                                reconstruct_window,
+                                                run_restart)
+
+    args = parse_args(RESTART_ARGS + ["--out", str(OUT / "restart")])
+    kernels.reset_launch_counts()
+    res = run_restart(args, device=dev)
+    counts = kernels.launch_counts()
+    want = {f"win-{k:04d}": list(range(k * RESTART_WINDOW,
+                                       (k + 1) * RESTART_WINDOW))
+            for k in range(RESTART_WINDOWS)}
+    got = {k: w["frames"] for k, w in res["windows"].items()}
+    if got != want:
+        raise AssertionError(f"restart window set {sorted(got)} != "
+                             f"{sorted(want)}")
+    fired = res["fired_on_resume"]
+    if not set(want) - set(res["windows_at_crash"]) <= set(fired):
+        raise AssertionError(f"the resumed run fired {fired}, but "
+                             f"{res['windows_at_crash']} were on disk")
+    steps = len(fired) * RESTART_ITERS
+    expect = {"modulus_project": steps, "raar_combine": steps,
+              "overlap_products": len(fired) * (2 * RESTART_ITERS - 2),
+              "art_sweep": 0, "flash_attention": 0}
+    if counts != expect or res["launches"] != expect:
+        raise AssertionError(f"resumed launches {counts} (run_restart "
+                             f"reports {res['launches']}) != {expect}")
+    problem = simulate(args.obj_size, args.probe_size, args.scan_step,
+                       device=dev)
+    positions = torch.as_tensor(problem.positions, device=dev)
+    cfg = SolverConfig(beta=0.75, iterations=RESTART_ITERS)
+    worst = 0.0
+    for key, win in sorted(res["windows"].items()):
+        ref = reconstruct_window(problem, positions, win["frames"],
+                                 RESTART_ITERS, cfg)
+        rel = abs(win["fourier_err"] - ref) / abs(ref)
+        worst = max(worst, rel)
+        print(f"  {key}: fourier err {win['fourier_err']:.6f}, uncrashed "
+              f"{ref:.6f}, rel. diff {rel:.3g}")
+        if not (math.isfinite(ref) and rel <= RESTART_RTOL):
+            raise AssertionError(f"{key}: restart error {win['fourier_err']}"
+                                 f" vs uncrashed {ref} (rtol {RESTART_RTOL})")
+    print(f"  restart OK on {smi}: SIGKILL at offset {res['kill_offset']} "
+          f"({res['kill_offset'] % RESTART_WINDOW} frames in the open "
+          f"window), on disk at the crash {res['windows_at_crash']}; the "
+          f"resumed run fired {len(fired)} windows with launches {counts}; "
+          f"{len(got)} windows of {RESTART_WINDOW} frames, max rel. diff "
+          f"{worst:.3g} (tol {RESTART_RTOL}); produce {res['produce_s']:.4f}"
+          f" s, reopen (log, state, checkpoint) {res['reopen_s']:.4f} s, "
+          f"resumed run {res['resume_s']:.4f} s", flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print("chip_smoke: no src/repro_torch next to this script; run it "
@@ -1225,6 +1307,9 @@ def main() -> int:
     tf32x3_row["launches"] = by_design["tf32x3"]
     simt_row["launches"] = by_design["simt"]
     serve_profile_phase(torch, dev)
+
+    print("[12] the §III restart at Table II size:", flush=True)
+    restart_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -6,16 +6,27 @@ each partition an append-only, totally ordered log addressed by offsets,
 with no order across partitions; records are (key, value) pairs.
 :func:`create_rdd` is ``KafkaUtils.createRDD``: one RDD partition per
 explicit ``OffsetRange`` read. The broker also keeps the offsets its
-consumer committed. Durable logs, fencing, replication, consumer groups,
-codecs and the metrics registry of the reference are left out.
+consumer committed.
+
+Storage sits behind the :class:`PartitionLog` protocol
+(``append``/``read``/``end_offset``, plus an optional ``append_many`` for
+the batched :meth:`Broker.produce_many`): :class:`Broker` composes one log
+per (topic, partition) from its ``log_factory`` and never looks inside.
+:class:`InMemoryPartitionLog` is the default;
+:class:`~repro_torch.data.durable_log.DurablePartitionLog` keeps the log on
+disk across restarts, and ``DurableLogFactory.restore(broker)`` reopens
+every topic it finds. Locks come from :mod:`repro_torch.data.locktrace`.
+Fencing, replication, consumer groups, codecs and the metrics registry of
+the reference are left out (ROADMAP Queue 1 items 3.4, 3.6 and 3.7).
 """
 from __future__ import annotations
 
-import threading
+import inspect
 from dataclasses import dataclass
-from typing import Any, Sequence
+from typing import Any, Callable, Protocol, Sequence, runtime_checkable
 
 from repro_torch.core.rdd import RDD, Context
+from repro_torch.data.locktrace import new_lock
 
 
 @dataclass(frozen=True)
@@ -38,12 +49,27 @@ class OffsetRange:
         return max(0, self.until - self.start)
 
 
+@runtime_checkable
+class PartitionLog(Protocol):
+    """Append-only offset-addressed log: the storage unit behind one
+    (topic, partition). ``append`` returns the record's offset; ``read``
+    returns records in ``[start, min(until, end))``; offsets are dense from 0.
+    Implementations must be thread-safe (one broker serves many producer and
+    consumer threads)."""
+
+    def append(self, key: bytes | None, value: Any, timestamp: float) -> int: ...
+
+    def read(self, start: int, until: int) -> list[Record]: ...
+
+    def end_offset(self) -> int: ...
+
+
 class InMemoryPartitionLog:
-    """One (topic, partition): a locked Python list."""
+    """Default :class:`PartitionLog`: a locked Python list (single host)."""
 
     def __init__(self) -> None:
         self._records: list[Record] = []
-        self._lock = threading.Lock()
+        self._lock = new_lock("InMemoryPartitionLog._lock")
 
     def append(self, key: bytes | None, value: Any, timestamp: float) -> int:
         with self._lock:
@@ -60,14 +86,41 @@ class InMemoryPartitionLog:
             return len(self._records)
 
 
-class Broker:
-    """Topics → partitions → append-only logs, plus committed offsets.
-    Thread-safe."""
+def _factory_wants_location(factory: Callable) -> bool:
+    """Does ``factory`` accept ``(topic=, partition=)``? Durable logs need to
+    know *which* partition they store (their directory is derived from it);
+    zero-arg factories like :class:`InMemoryPartitionLog` don't."""
+    try:
+        inspect.signature(factory).bind(topic="", partition=0)
+        return True
+    except (TypeError, ValueError):
+        return False
 
-    def __init__(self) -> None:
-        self._topics: dict[str, list[InMemoryPartitionLog]] = {}
+
+class Broker:
+    """Topics → partitions → append-only :class:`PartitionLog` s, plus
+    committed offsets. Thread-safe.
+
+    ``log_factory`` picks the storage per partition
+    (:class:`InMemoryPartitionLog` unless told otherwise). A factory may be
+    zero-argument, or accept ``(topic, partition)`` keywords — the broker
+    passes the location to factories that want it, which is how
+    :class:`~repro_torch.data.durable_log.DurableLogFactory` maps partitions
+    onto stable directories that survive a restart."""
+
+    def __init__(self, log_factory: Callable[..., PartitionLog] | None = None
+                 ) -> None:
+        self._log_factory: Callable[..., PartitionLog] = (
+            log_factory or InMemoryPartitionLog)
+        self._locate_logs = _factory_wants_location(self._log_factory)
+        self._topics: dict[str, list[PartitionLog]] = {}
         self._committed: dict[str, list[int]] = {}
-        self._lock = threading.Lock()
+        self._lock = new_lock("Broker._lock")
+
+    def _new_log(self, topic: str, partition: int) -> PartitionLog:
+        if self._locate_logs:
+            return self._log_factory(topic=topic, partition=partition)
+        return self._log_factory()
 
     def create_topic(self, topic: str, partitions: int = 1) -> None:
         if partitions < 1:
@@ -75,8 +128,8 @@ class Broker:
         with self._lock:
             if topic in self._topics:
                 raise ValueError(f"topic {topic!r} exists")
-            self._topics[topic] = [InMemoryPartitionLog()
-                                   for _ in range(partitions)]
+            self._topics[topic] = [self._new_log(topic, p)
+                                   for p in range(partitions)]
             self._committed[topic] = [0] * partitions
 
     def topics(self) -> list[str]:
@@ -86,13 +139,13 @@ class Broker:
     def num_partitions(self, topic: str) -> int:
         return len(self._topic(topic))
 
-    def _topic(self, topic: str) -> list[InMemoryPartitionLog]:
+    def _topic(self, topic: str) -> list[PartitionLog]:
         with self._lock:
             if topic not in self._topics:
                 raise KeyError(f"unknown topic {topic!r}")
             return self._topics[topic]
 
-    def _partition(self, topic: str, partition: int) -> InMemoryPartitionLog:
+    def _partition(self, topic: str, partition: int) -> PartitionLog:
         logs = self._topic(topic)
         if not 0 <= partition < len(logs):
             raise ValueError(
@@ -110,7 +163,8 @@ class Broker:
                      ) -> list[int]:
         """Append ``(key, value)`` pairs to one partition; returns their
         offsets in input order. A malformed pair raises before any record
-        is appended."""
+        is appended. A log with ``append_many`` (the durable log) takes the
+        whole batch in one call: one write and at most one fsync."""
         plog = self._partition(topic, partition)
         batch = []
         for pair in pairs:
@@ -120,12 +174,18 @@ class Broker:
                 raise ValueError(
                     f"produce_many pair must be (key, value), got {pair!r}")
             batch.append((key, value))
+        append_many = getattr(plog, "append_many", None)
+        if append_many is not None:
+            return list(append_many(batch, timestamp))
         return [plog.append(k, v, timestamp) for k, v in batch]
 
     # -- consumer ---------------------------------------------------------
     def read(self, rng: OffsetRange) -> list[Record]:
         return self._partition(rng.topic, rng.partition).read(rng.start,
                                                               rng.until)
+
+    def end_offset(self, topic: str, partition: int = 0) -> int:
+        return self._partition(topic, partition).end_offset()
 
     def end_offsets(self, topic: str) -> list[int]:
         return [log.end_offset() for log in self._topic(topic)]

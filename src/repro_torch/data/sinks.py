@@ -1,19 +1,36 @@
-"""Sinks: where micro-batch results go, trimmed to the §III path.
+"""Sinks: where micro-batch results go (paper Fig. 7's right-hand side —
+visualization, storage, downstream topics).
 
 The counterpart of ``repro/data/sinks.py``. The stream gives at-least-once
 delivery: a batch whose sink failed is replayed at the same offsets. Keyed
 sinks are idempotent by key — an item written twice is skipped the second
-time — which upgrades that to exactly-once.
+time — which upgrades that to exactly-once. ``write_batch`` is the one entry
+point; a sink may be written serially in the batch thread or from its own
+delivery lane (:mod:`repro_torch.data.delivery`), so every counter a sink
+keeps is guarded by its lock.
 """
 from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Sequence
+from typing import (Any, Callable, Iterable, Protocol, Sequence,
+                    runtime_checkable)
 
 import numpy as np
 
+from repro_torch.core.broker import Broker
+
 KeyedItem = tuple[str, Any]
+
+
+@runtime_checkable
+class Sink(Protocol):
+    """Batch-oriented keyed sink. Returns the number of items actually
+    written (duplicates skipped — idempotence is part of the contract)."""
+
+    def write_batch(self, items: Sequence[KeyedItem]) -> int: ...
+
+    def close(self) -> None: ...
 
 
 def describe_result_items(result: Any, batch_index: int) -> list[KeyedItem]:
@@ -41,6 +58,8 @@ class KeyedSink:
     def __init__(self) -> None:
         self._seen: set[str] = set()
         self._lock = threading.Lock()
+        self.written = 0
+        self.skipped = 0
 
     def _write_one(self, key: str, value: Any) -> None:  # pragma: no cover
         raise NotImplementedError
@@ -58,13 +77,21 @@ class KeyedSink:
                 dup = (not overwrite
                        and (key in self._seen or self._already_stored(key)))
                 self._seen.add(key)
+                if dup:
+                    self.skipped += 1
             if dup:
                 continue
             # the write outside the lock: a slow _write_one must not
-            # serialise other writers
+            # serialise other writers; the counter under it, since lanes
+            # sharing a sink race on it
             self._write_one(key, value)
+            with self._lock:
+                self.written += 1
             n += 1
         return n
+
+    def close(self) -> None:
+        pass
 
 
 class NpzDirectorySink(KeyedSink):
@@ -107,6 +134,38 @@ class NpzDirectorySink(KeyedSink):
                       if f.endswith(".npz"))
 
 
+class TopicSink(KeyedSink):
+    """Pipe results into a downstream broker topic — the paper's multi-stage
+    pipelines: this topic is the next stage's input."""
+
+    def __init__(self, broker: Broker, topic: str, partitions: int = 1) -> None:
+        super().__init__()
+        self.broker = broker
+        self.topic = topic
+        if topic not in broker.topics():
+            broker.create_topic(topic, partitions)
+        self._rr = 0
+
+    def _write_one(self, key: str, value: Any) -> None:
+        n = self.broker.num_partitions(self.topic)
+        with self._lock:
+            partition = self._rr % n
+            self._rr += 1
+        self.broker.produce(self.topic, value, key=key.encode(),
+                            partition=partition)
+
+
+class CallbackSink(KeyedSink):
+    """Hand each new ``(key, value)`` to a callable (live plots, asserts)."""
+
+    def __init__(self, fn: Callable[[str, Any], None]) -> None:
+        super().__init__()
+        self._fn = fn
+
+    def _write_one(self, key: str, value: Any) -> None:
+        self._fn(key, value)
+
+
 class MetricsSink:
     """Latency/throughput aggregation over batches. ``observe(info)`` takes
     each :class:`~repro_torch.core.dstream.BatchInfo`; ``write_batch`` counts
@@ -132,6 +191,9 @@ class MetricsSink:
             self.items += len(items)
         return 0
 
+    def close(self) -> None:
+        pass
+
     def report(self) -> dict[str, float]:
         with self._lock:
             batches, records, items = self.batches, self.records, self.items
@@ -147,3 +209,13 @@ class MetricsSink:
             "max_latency_s": max(latencies),
             "throughput_rec_per_s": records / total,
         }
+
+
+def fan_out(sinks: Iterable[Sink]) -> Callable[[Sequence[KeyedItem]], int]:
+    """Write the same items to several sinks; returns total writes."""
+    sinks = list(sinks)
+
+    def write(items: Sequence[KeyedItem]) -> int:
+        return sum(s.write_batch(items) for s in sinks)
+
+    return write
