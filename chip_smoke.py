@@ -17,6 +17,10 @@ Phases, each fatal on failure:
      object, 64x64 probe, scan step 8) through ``run_stream``, with its
      quality, the kernels' launch counts, the sink's contents and its
      artifact lane's report (every batch delivered, none failed) checked;
+     with ``--obs-port 0``: the endpoint's ``/metrics.json`` and
+     ``/traces`` read over HTTP before ``close()``, one span per committed
+     batch, ``stream_records_total`` 512, and each stage's total time and
+     share of the spans' total printed;
   6. a profile of RAAR steps at 512 frames: device time by kernel;
   7. the ART kernel over the system's non-zeros (CSR) against its plain
      dense PyTorch version on the card, at the shapes of
@@ -30,8 +34,10 @@ Phases, each fatal on failure:
   8. the §IV tomography stream at full width (256 slices of 256x256, 76
      angles, 2 sweeps, 4 partitions) through ``run_stream``, with its
      residual and volume error held to the JAX reference's, the ART
-     launches against the partitions processed, and the sink's keys; then
-     a profile of one of its batches: device time and idle share;
+     launches against the partitions processed, and the sink's keys, with
+     ``--obs-port 0`` read back as in phase 5 (``stream_records_total``
+     256); then a profile of one of its batches: device time and idle
+     share;
   9. ptxas's registers, shared memory and spills of the ART kernel and
      the two tensor-core flash kernels, the HGMMA count of the wgmma
      kernel's SASS and the TF32 HMMA count of the tf32x3 kernel's; then
@@ -66,7 +72,17 @@ Phases, each fatal on failure:
      the card (1e-5 relative), the resumed run's launches to the windows it
      fired x 6, and the kill offset, the windows on disk at the crash and
      the produce, reopen and resume times printed beside the card's name
-     and power limit.
+     and power limit;
+ 13. the remote ingest at the §III frame shape through
+     ``run_remote_ingest`` (``--frames 512 --obj-size 448 --probe-size
+     64``: 512 of a 625-position scan of 64x64 fp32 frames), once over TCP
+     and once over a Unix socket: a spawned detector process on the host
+     pumps the frames through ``IngestRunner`` and ``RemoteBroker`` to a
+     ``BrokerServer`` here, whose micro-batches go to the card; every frame
+     consumed once, none rejected, every produce on a shared-memory frame,
+     the producer's lag within its bound, the photon count and peak
+     computed on the card held to numpy's over the same frames (1e-5
+     relative), and no shared-memory segment left.
 It then prints a JSON line of the kernels, the nvidia-smi line again, and
 as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -75,6 +91,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -93,6 +110,8 @@ RESTART_ARGS = PAPER_ARGS + ["--restart", "--batch-frames", "64",
                              "--iters-per-batch", "6"]
 RESTART_WINDOWS, RESTART_WINDOW, RESTART_ITERS = 8, 64, 6
 RESTART_RTOL = 1e-5
+REMOTE_ARGS = ["--frames", "512", "--obj-size", "448", "--probe-size", "64"]
+REMOTE_FRAMES, REMOTE_RTOL = 512, 1e-5
 # H100 SXM (NVIDIA data sheet): device memory rate, the fp32 rate outside
 # the tensor cores, the dense bf16 and TF32 rates of the tensor cores, and
 # the L2's size
@@ -370,7 +389,7 @@ def stream_phase(torch, dev) -> dict:
     from repro_torch.apps.ptycho.stream import parse_args, run_stream
 
     shutil.rmtree(OUT, ignore_errors=True)
-    args = parse_args(PAPER_ARGS + ["--out", str(OUT)])
+    args = parse_args(PAPER_ARGS + ["--out", str(OUT), "--obs-port", "0"])
     kernels.reset_launch_counts()
     res = run_stream(args, device=dev)
     counts = kernels.launch_counts()
@@ -406,6 +425,7 @@ def stream_phase(torch, dev) -> dict:
           f"{lane['max_depth']}, mean latency "
           f"{lane.get('mean_latency_s', 0.0):.6f} s, mean write "
           f"{lane.get('mean_write_s', 0.0):.6f} s")
+    obs_report(res, batches, F, STREAM_STAGES | {"delivery_submit"})
     in_batches = sum(res["batch_times"])
     print(f"  wall time: batches {in_batches:.3f} s (device work "
           f"included), rest of the stream {res['stream_time'] - in_batches:.3f}"
@@ -420,6 +440,123 @@ def stream_phase(torch, dev) -> dict:
           f"(<= {MAX_FINAL_ERROR}), quality {res['quality']:.4f} "
           f"(>= {MIN_QUALITY})")
     return counts
+
+
+# the span stages of a stream without checkpoint or window state
+STREAM_STAGES = {"pump", "batch_fn", "sinks", "broker_commit"}
+
+
+def obs_report(res: dict, batches: int, records: int,
+               stages: set[str]) -> None:
+    """The stream's endpoint as ``run_stream`` read it over HTTP before
+    ``close()``: one span per committed batch with epochs 1..batches, the
+    stream counters, the stages; each stage's total and share printed."""
+    scrape = res["obs"]
+    if scrape is None:
+        raise AssertionError("run_stream returned no observability scrape")
+    spans = scrape["spans"]
+    got = (len(spans), scrape["batches"], scrape["records"],
+           sum(s["num_records"] for s in spans))
+    print(f"  observability endpoint {scrape['url']}: {got[0]} spans "
+          f"(epochs {scrape['epochs']}), stream_batches_total {got[1]:.0f}, "
+          f"stream_records_total {got[2]:.0f}; read over HTTP and stopped in "
+          f"{res['obs_scrape_s'] * 1e3:.2f} ms, outside the stream time")
+    if got != (batches, batches, records, records):
+        raise AssertionError(f"(spans, batches, records, span records) "
+                             f"{got} != {(batches, batches, records, records)}")
+    if [s["epoch"] for s in spans] != list(range(1, batches + 1)):
+        raise AssertionError(f"span epochs {[s['epoch'] for s in spans]}")
+    if set(scrape["stages"]) != stages:
+        raise AssertionError(f"span stages {sorted(scrape['stages'])} != "
+                             f"{sorted(stages)}")
+    for name, st in scrape["stages"].items():
+        print(f"    {name:16s} {st['seconds']:10.6f} s  "
+              f"{100 * st['share']:6.2f} %")
+    pump = scrape["stages"]["pump"]["seconds"]
+    covered = scrape["span_total_s"] + pump
+    print(f"  per batch (s): "
+          f"{[round(s['total_s'] + s['stages']['pump'], 4) for s in spans]}"
+          f"; the spans and their pumps cover {covered:.4f} s of the "
+          f"stream's {res['stream_time']:.4f} s, the rest "
+          f"{res['stream_time'] - covered:.4f} s (idle polls, the drain "
+          f"wait, close)")
+
+
+def _shm_leftovers() -> list[str]:
+    prefix = f"reprotorchshm_{os.getpid()}_"
+    return [f for f in os.listdir("/dev/shm") if f.startswith(prefix)]
+
+
+def remote_phase(torch, dev, smi: str) -> None:
+    """The remote ingest at the §III frame shape, over TCP and over a Unix
+    socket: a spawned detector process on the host, the consumer's
+    reduction on the card, held to numpy over the same frames."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.apps.ptycho.remote_ingest import (parse_args,
+                                                       run_remote_ingest)
+    from repro_torch.apps.ptycho.sim import simulate
+
+    # the producer's frames: the same scan simulated on the host
+    base = parse_args(REMOTE_ARGS)
+    problem = simulate(base.obj_size, base.probe_size,
+                       step=max(8, base.probe_size // 4), device="cpu")
+    mags = problem.magnitudes_host[:REMOTE_FRAMES].astype(np.float64)
+    want = {"photons": float((mags ** 2).sum()), "peak": float(mags.max())}
+    print(f"  scan: {problem.num_frames} positions of {problem.frame_shape}"
+          f" fp32; {REMOTE_FRAMES} frames, "
+          f"{mags.size * 4 / 2**20:.1f} MiB, cross the socket", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for family, addr in (("tcp", "127.0.0.1:0"),
+                             ("unix", os.path.join(tmp, "broker.sock"))):
+            args = parse_args(REMOTE_ARGS + ["--addr", addr])
+            res = run_remote_ingest(args, device=dev)
+            prod, served, rt = res["producer"], res["server"], res["realtime"]
+            errs = {k: abs(res[k] - v) / abs(v) for k, v in want.items()}
+            leftovers = _shm_leftovers()
+            print(f"  {family} {res['address']}: {res['frames']} of "
+                  f"{res['appended']} frames consumed, the last after "
+                  f"{res['consume_s']:.4f} s: "
+                  f"{res['frames'] / res['consume_s']:.1f} frames/s "
+                  f"({res['wall_s']:.4f} s to the producer's exit); "
+                  f"{prod['produce_calls']} produce calls, "
+                  f"{prod['produced'] / prod['produce_calls']:.1f} frames a "
+                  f"round trip, {prod['shm_frames_sent']} on shm frames; "
+                  f"blocked {prod['blocked_s']:.4f} s, max lag "
+                  f"{prod['max_observed_lag']} (bound "
+                  f"{args.max_pending + 16}); {rt['batches']} batches, mean "
+                  f"processing {rt['mean_processing_s'] * 1e3:.3f} ms, max "
+                  f"{rt['max_processing_s'] * 1e3:.3f} ms, keeps_up "
+                  f"{rt['keeps_up']} against {res['batch_interval']} s; "
+                  f"server: {served['requests_served']} requests, "
+                  f"{served['frames_rejected']} rejected, "
+                  f"{served['shm_frames']} shm frames, "
+                  f"{served['shm_segments']} segments left, /dev/shm "
+                  f"{leftovers}; photons {res['photons']:.6e} (numpy "
+                  f"{want['photons']:.6e}), peak {res['peak']:.6f} (numpy "
+                  f"{want['peak']:.6f}), rel. diff "
+                  f"{max(errs.values()):.3g}", flush=True)
+            if not (res["frames"] == res["appended"] == REMOTE_FRAMES
+                    and res["frame_ids"] == list(range(REMOTE_FRAMES))):
+                raise AssertionError(f"{family}: consumed {res['frames']} "
+                                     f"of {res['appended']} appended")
+            if served["frames_rejected"]:
+                raise AssertionError(f"{family}: frames rejected {served}")
+            if not (prod["shm_frames_sent"] == prod["produce_calls"]
+                    == served["shm_frames"] > 0):
+                raise AssertionError(f"{family}: not every produce rode an "
+                                     f"shm frame: {prod}, {served}")
+            if prod["max_observed_lag"] > args.max_pending + 16:
+                raise AssertionError(f"{family}: lag {prod} over its bound")
+            if not max(errs.values()) <= REMOTE_RTOL:
+                raise AssertionError(f"{family}: card {res['photons']}, "
+                                     f"{res['peak']} vs numpy {want}")
+            if served["shm_segments"] or leftovers:
+                raise AssertionError(f"{family}: shm left: {served}, "
+                                     f"{leftovers}")
+    print(f"  remote ingest OK on {smi}", flush=True)
 
 
 def _csr_bound_ms(csr, nslice: int, iters: int) -> tuple[float, str]:
@@ -571,7 +708,7 @@ def tomo_phase(torch, dev, kernel_ms: float) -> int:
     torch.cuda.empty_cache()
     out = OUT / "tomo"
     shutil.rmtree(out, ignore_errors=True)
-    args = parse_args(TOMO_ARGS + ["--out", str(out)])
+    args = parse_args(TOMO_ARGS + ["--out", str(out), "--obs-port", "0"])
     kernels.reset_launch_counts()
     res = run_stream(args, device=dev)
     counts = kernels.launch_counts()
@@ -613,6 +750,7 @@ def tomo_phase(torch, dev, kernel_ms: float) -> int:
     if res["sink_keys"] != want_keys:
         raise AssertionError(f"sink holds {res['sink_keys']}, expected "
                              f"{want_keys}")
+    obs_report(res, len(res["batch_times"]), NSLICE, STREAM_STAGES)
     in_batches = sum(res["batch_times"])
     print(f"  set-up {res['setup_time']:.3f} s: system matrix host build "
           f"{res['matrix_build_time']:.3f} s, copy to the card with its "
@@ -1310,6 +1448,9 @@ def main() -> int:
 
     print("[12] the §III restart at Table II size:", flush=True)
     restart_phase(torch, dev, smi)
+
+    print("[13] the remote ingest at the §III frame shape:", flush=True)
+    remote_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

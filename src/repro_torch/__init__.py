@@ -9,5 +9,8 @@ hot spots run as hand-written CUDA kernels (``repro_torch/csrc``), and its
 §IV streaming tomography (``python -m repro_torch.apps.tomo.stream``),
 whose ART sweep is a hand-written CUDA kernel too, and the language-model
 serving loop (``python -m repro_torch.launch.serve``), whose prefill runs
-causal attention in a hand-written CUDA flash kernel.
+causal attention in a hand-written CUDA flash kernel. The remote-ingest
+topology (``python -m repro_torch.apps.ptycho.remote_ingest``) puts the
+detector in a process of its own, joined to the consumer on the card by
+the socket transport.
 """

@@ -14,7 +14,10 @@ reports whether reconstruction kept pace. Each batch's time is taken after
 its Fourier error reached the host, so it counts the device's work and not
 only the launches. The artifact store rides its own delivery lane (retry
 x2, bounded queue), so a slow disk cannot stall the batch loop; the lane's
-counters are printed next to the MetricsSink report.
+counters are printed next to the MetricsSink report. With ``--obs-port``
+the run serves its metrics registry and batch spans over HTTP while it
+streams, reads them back through the endpoint before ``close()``, and
+prints where each batch's time went, stage by stage.
 
 With ``--restart`` the run is the reference's restart-safe windowed path
 instead (:func:`run_restart`): the detector's frame ids land in a durable
@@ -51,6 +54,9 @@ from repro_torch.core.broker import Broker
 from repro_torch.core.pipeline import NearRealTimePipeline, PipelineConfig
 from repro_torch.data.delivery import SinkPolicy
 from repro_torch.data.durable_log import DurableLogFactory
+from repro_torch.data.metrics import (MetricsRegistry, get_registry,
+                                      set_registry)
+from repro_torch.data.obs_server import print_stream_scrape, scrape_stream
 from repro_torch.data.sinks import MetricsSink, NpzDirectorySink
 from repro_torch.data.sources import DetectorSource
 from repro_torch.data.state import DurableStateStore
@@ -74,6 +80,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--restart", action="store_true",
                     help="SIGKILL mid-window + resume: restart-safe windowed "
                          "state (durable log + DurableStateStore)")
+    ap.add_argument("--obs-port", type=int, default=None,
+                    help="serve the observability endpoint (/metrics, "
+                         "/metrics.json, /traces, /health) on this port "
+                         "while the pipeline runs (0 = ephemeral port)")
     ap.add_argument("--out", default="out")
     args = ap.parse_args(argv)
     if args.fast:
@@ -90,7 +100,10 @@ def run_stream(args: argparse.Namespace,
     Returns the per-batch Fourier errors, frames seen and times, the final
     error, the phase correlation against the truth, the pipeline report,
     the near-real-time verdict, the sink's keys and the kernel launches this
-    run made."""
+    run made; with ``--obs-port``, also ``obs``: the endpoint's roll-up
+    (:func:`~repro_torch.data.obs_server.scrape_stream`), read over HTTP
+    into a registry of this run's own, and the seconds that read and the
+    endpoint's stop took, which the stream and total times leave out."""
     dev = resolve_device(device)
     launches_before = launch_counts()
     t_setup = time.perf_counter()
@@ -147,21 +160,43 @@ def run_stream(args: argparse.Namespace,
                  {"fourier_err": np.float32(err),
                   "frames_seen": np.int32(n_new)})]
 
-    pipeline = NearRealTimePipeline(
-        Broker(),
-        PipelineConfig(batch_interval=0.05,
-                       max_records_per_partition=args.batch_frames // 2,
-                       source_partitions=2),
-        process, bridge=TorchBridge(device=dev),
-        # the artifact store on its own delivery lane: a slow disk cannot
-        # stall the batch loop, and transient write errors retry twice
-        sinks=[metrics, (artifact_sink, SinkPolicy.retry(2, queue_depth=32))])
-    pipeline.subscribe_source(source, topic="frames")
+    # with the endpoint on, the run's components register into a registry
+    # of its own, so its counters count this run alone
+    prev_registry = set_registry(MetricsRegistry()
+                                 if args.obs_port is not None
+                                 else get_registry())
+    try:
+        pipeline = NearRealTimePipeline(
+            Broker(),
+            PipelineConfig(batch_interval=0.05,
+                           max_records_per_partition=args.batch_frames // 2,
+                           source_partitions=2),
+            process, bridge=TorchBridge(device=dev),
+            # the artifact store on its own delivery lane: a slow disk
+            # cannot stall the batch loop, and transient write errors retry
+            # twice
+            sinks=[metrics,
+                   (artifact_sink, SinkPolicy.retry(2, queue_depth=32))])
+        pipeline.subscribe_source(source, topic="frames")
+    finally:
+        set_registry(prev_registry)
+    obs = None
+    if args.obs_port is not None:
+        obs = pipeline.serve_observability(("127.0.0.1", args.obs_port))
+        print(f"observability endpoint: {obs.url}")
 
     t0 = time.perf_counter()
     report = pipeline.run_until_drained()
+    scrape, scrape_s = None, 0.0
+    if obs is not None:        # read THROUGH the endpoint, then stop it
+        t_scrape = time.perf_counter()
+        scrape = scrape_stream(obs.url)
+        # stopped here rather than in close(): its serve loop polls every
+        # 0.5 s, which the stream time must not count
+        obs.stop()
+        scrape_s = time.perf_counter() - t_scrape
     pipeline.close()           # drain the artifact lane: all batches on disk
-    stream_time = time.perf_counter() - t0
+    stream_time = time.perf_counter() - t0 - scrape_s
 
     # refinement to convergence (the offline tail, paper Table II setup)
     psi, probe, obj = state["psi"], state["probe"], state["obj"]
@@ -172,7 +207,7 @@ def run_stream(args: argparse.Namespace,
                                          cfg, state["iteration"] + it)
         final_err = err
     final_err = float(final_err)
-    total = time.perf_counter() - t0
+    total = time.perf_counter() - t0 - scrape_s
     obj_host = obj.cpu().numpy()
     q = reconstruction_quality(obj_host, problem.object_true,
                                margin=args.probe_size // 2)
@@ -195,6 +230,9 @@ def run_stream(args: argparse.Namespace,
               f"failed {lane['failed']}, retries {lane['retries']}, "
               f"max depth {lane['max_depth']}, "
               f"mean latency {lane.get('mean_latency_s', 0.0):.4f}s")
+    if scrape is not None:
+        # the spans answer "which stage took the time", per batch epoch
+        print_stream_scrape(scrape)
     print(f"final fourier error {final_err:.4f}, "
           f"phase correlation vs truth {q:.3f}")
     keys = artifact_sink.keys_on_disk()
@@ -207,7 +245,7 @@ def run_stream(args: argparse.Namespace,
             "setup_time": setup_time, "stream_time": stream_time,
             "total_time": total, "acquisition_window": acq,
             "near_real_time": total < acq, "sink_keys": keys,
-            "lanes": lanes,
+            "lanes": lanes, "obs": scrape, "obs_scrape_s": scrape_s,
             "iterations": state["iteration"] + args.final_iters,
             "launches": {k: after[k] - launches_before[k] for k in after}}
 

@@ -12,7 +12,10 @@ The port's counterpart of ``examples/tomo_pipeline.py``:
 Sub-volumes are keyed ``slices-%04d-%04d`` in a directory named after the
 run's shape, so a rerun with the same shape finds its keys on disk and
 writes nothing new. Each batch's time is taken after its sub-volumes
-reached the host, so it counts the device's work.
+reached the host, so it counts the device's work. With ``--obs-port`` the
+run serves its metrics registry and batch spans over HTTP while it
+streams, reads them back through the endpoint before ``close()``, and
+prints where each batch's time went, stage by stage.
 
 Run:  PYTHONPATH=src python -m repro_torch.apps.tomo.stream \\
           --nray 256 --angles 76 --nslice 256
@@ -37,6 +40,9 @@ from repro_torch.core.bridge import TorchBridge
 from repro_torch.core.broker import Broker
 from repro_torch.core.pipeline import NearRealTimePipeline, PipelineConfig
 from repro_torch.core.rdd import Context
+from repro_torch.data.metrics import (MetricsRegistry, get_registry,
+                                      set_registry)
+from repro_torch.data.obs_server import print_stream_scrape, scrape_stream
 from repro_torch.data.sinks import MetricsSink, NpzDirectorySink
 from repro_torch.data.sources import ProjectionSource
 from repro_torch.kernels import launch_counts
@@ -52,6 +58,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--partitions", type=int, default=4)
     ap.add_argument("--slice-interval", type=float, default=0.0,
                     help="seconds between streamed slices (acquisition rate)")
+    ap.add_argument("--obs-port", type=int, default=None,
+                    help="serve the observability endpoint on this port "
+                         "while the pipeline runs (0 = ephemeral port)")
     ap.add_argument("--out", default="out")
     return ap.parse_args(argv)
 
@@ -74,7 +83,11 @@ def run_stream(args: argparse.Namespace,
     and of each slice, the gathered volume, the batch times, the set-up time
     with the system matrix's host build and its copy to the device apart,
     the stream time, the RDD partitions processed, the sink's keys and the
-    ART launches this run made."""
+    ART launches this run made; with ``--obs-port``, also ``obs``: the
+    endpoint's roll-up (:func:`~repro_torch.data.obs_server.scrape_stream`),
+    read over HTTP into a registry of this run's own, and the seconds that
+    read and the endpoint's stop took, which the stream time leaves
+    out."""
     dev = resolve_device(device)
     launches_before = launch_counts()["art_sweep"]
     cfg = TomoConfig(nray=args.nray,
@@ -129,17 +142,38 @@ def run_stream(args: argparse.Namespace,
                  {"idx": np.asarray(idx, np.int64), "block": block})
                 for idx, block in parts]
 
-    pipeline = NearRealTimePipeline(
-        Broker(),
-        PipelineConfig(batch_interval=0.02,
-                       max_records_per_partition=batch_slices),
-        process, bridge=TorchBridge(device=dev), context=ctx,
-        sinks=[sink, metrics])
-    pipeline.subscribe_source(source, topic="tilt-series")
+    # with the endpoint on, the run's components register into a registry
+    # of its own, so its counters count this run alone
+    prev_registry = set_registry(MetricsRegistry()
+                                 if args.obs_port is not None
+                                 else get_registry())
+    try:
+        pipeline = NearRealTimePipeline(
+            Broker(),
+            PipelineConfig(batch_interval=0.02,
+                           max_records_per_partition=batch_slices),
+            process, bridge=TorchBridge(device=dev), context=ctx,
+            sinks=[sink, metrics])
+        pipeline.subscribe_source(source, topic="tilt-series")
+    finally:
+        set_registry(prev_registry)
+    obs = None
+    if args.obs_port is not None:
+        obs = pipeline.serve_observability(("127.0.0.1", args.obs_port))
+        print(f"observability endpoint: {obs.url}")
 
     t0 = time.perf_counter()
     report = pipeline.run_until_drained()
     stream_time = time.perf_counter() - t0
+    scrape, scrape_s = None, 0.0
+    if obs is not None:        # read THROUGH the endpoint, then stop it
+        t_scrape = time.perf_counter()
+        scrape = scrape_stream(obs.url)
+        # stopped here rather than in close(): its serve loop polls every
+        # 0.5 s, which the stream time must not count
+        obs.stop()
+        scrape_s = time.perf_counter() - t_scrape
+    pipeline.close()
 
     # step 4: gather sub-volumes from the checkpoint store, score, render
     recon = np.zeros((args.nslice, args.nray, args.nray), np.float32)
@@ -162,6 +196,8 @@ def run_stream(args: argparse.Namespace,
           f"{stream_time:.3f}s ({rep['batches']} micro-batches, "
           f"{args.nslice / stream_time:.1f} slices/s)")
     print(f"sinogram residual {r:.4f}; volume rel. error {err:.4f}")
+    if scrape is not None:
+        print_stream_scrape(scrape)
     keys = sink.keys_on_disk()
     print(f"sub-volume artifacts: {len(keys)} npz files in {sink.directory}")
     paths = render_volume(recon, args.out)
@@ -172,6 +208,7 @@ def run_stream(args: argparse.Namespace,
             "matrix_build_time": build_time, "matrix_copy_time": copy_time,
             "stream_time": stream_time, "report": report, "metrics": rep,
             "partitions": n_partitions, "sink_keys": keys,
+            "obs": scrape, "obs_scrape_s": scrape_s,
             "launches": launch_counts()["art_sweep"] - launches_before}
 
 

@@ -17,24 +17,49 @@ offsets go to an epoch-stamped :class:`StreamProgress` file after every
 batch, *atomically with attached window state* (one ``os.replace``; see
 ``repro_torch/data/state.py``), so an open window's accumulated records
 survive a crash together with the offsets that consumed them. Without one,
-progress lives in memory and broker-side. Consumer groups, trace spans and
-the observability server of the reference are left out (ROADMAP Queue 1
-items 3.4 and 3.6).
+progress lives in memory and broker-side.
+
+The ``broker`` may equally be a :class:`~repro_torch.data.transport
+.RemoteBroker`, which puts the consumer on the other side of a socket from
+the detector (the paper's Fig. 7 split); after each committed batch the
+context pushes its progress to the broker, so a *remote* producer's
+backpressure measures lag against what was processed, not just appended.
+Values read from a codec'd topic are decoded (:mod:`repro_torch.data.codec`)
+before the subscriber's own ``value_decoder``.
+
+Each committed batch leaves one trace span (:class:`~repro_torch.data
+.metrics.BatchSpan`) in :attr:`StreamingContext.traces` — stages ``pump``,
+``batch_fn``, ``sinks``, ``state_commit``, ``checkpoint``,
+``broker_commit`` and ``delivery_submit``, tagged with the checkpoint epoch —
+and moves the reference's ``stream_*`` instruments;
+:meth:`StreamingContext.serve_observability` serves both over HTTP. The
+reference's consumer groups (``join_group``, ROADMAP Queue 1 item 3.6) and
+its failover rebase (item 3.7) are left out.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 from repro_torch.core.broker import Broker, OffsetRange, create_rdd
 from repro_torch.core.rdd import RDD, Context
+from repro_torch.data.codec import compose_decoder
 from repro_torch.data.delivery import DeliveryRuntime
+from repro_torch.data.metrics import TraceLog, get_registry
+from repro_torch.data.obs_server import ObservabilityServer, lag_health
 from repro_torch.utils import get_logger
 
 log = get_logger(__name__)
+
+
+def _stage(rec: Any, name: str):
+    """A span-stage timer when a recorder is present, else a no-op — so
+    ``_commit`` reads the same with and without tracing."""
+    return rec.stage(name) if rec is not None else nullcontext()
 
 
 @dataclass
@@ -111,6 +136,7 @@ class StreamingContext:
         self._clock = clock or time.monotonic
         self._delivery: DeliveryRuntime | None = None   # lazy (lanes)
         self._topics: list[str] = []
+        self._decoder: Callable[[Any], Any] | None = None
         self._batch_fn: Callable[[RDD, BatchInfo], Any] | None = None
         self._sinks: list[Callable[[BatchInfo], None]] = []
         # pull-model sources pumped before each micro-batch:
@@ -125,10 +151,35 @@ class StreamingContext:
                           if checkpoint_path else StreamProgress())
         self._history: list[BatchInfo] = []
         self._batch_index = 0
+        self.traces = TraceLog()
+        self._obs_server: ObservabilityServer | None = None
+        reg = self._registry = get_registry()
+        self._m_batches = reg.counter(
+            "stream_batches_total", help="micro-batches committed")
+        self._m_records = reg.counter(
+            "stream_records_total",
+            help="records processed by committed batches")
+        self._m_batch_s = reg.histogram(
+            "stream_batch_seconds", help="end-to-end micro-batch duration")
+        reg.gauge("stream_epoch",
+                  help="checkpoint epoch of the last committed batch",
+                  callback=lambda: self._progress.epoch)
 
     # -- wiring -------------------------------------------------------------
-    def subscribe(self, topics: Sequence[str]) -> None:
-        self._topics.extend(t for t in topics if t not in self._topics)
+    def subscribe(self, topics: Sequence[str],
+                  value_decoder: Callable[[Any], Any] | None = None) -> None:
+        """Consume ``topics``; ``value_decoder`` runs on every value read,
+        after the codec decode."""
+        new = [t for t in topics if t not in self._topics]
+        self._topics.extend(new)
+        if value_decoder is not None:
+            self._decoder = value_decoder
+        for t in new:
+            # evaluated per scrape, not per batch (a round trip on a remote
+            # broker — priced where it is read, never on the hot path)
+            self._registry.gauge(
+                "stream_lag", help="produced-but-unprocessed records",
+                labels={"topic": t}, callback=lambda t=t: self.lag(t))
 
     def subscribe_source(self, source: Any, topic: str | None = None,
                          partitions: int = 1) -> str:
@@ -270,17 +321,26 @@ class StreamingContext:
 
     def run_one_batch(self) -> BatchInfo | None:
         """Paper Fig. 8 ``run_batch``: per-topic RDDs, union, process."""
+        t_pump = time.perf_counter()
         self._pump_sources()
         ranges = self._pending_ranges()
+        pump_s = time.perf_counter() - t_pump
         if not ranges:
+            # no span for idle probes: the trace log holds batches, and an
+            # idle poll loop would otherwise drown them
             return None
         info = BatchInfo(index=self._batch_index, ranges=ranges,
                          num_records=sum(r.count() for r in ranges),
                          scheduled_at=self._clock())
+        rec = self.traces.begin(self._batch_index, info.num_records)
+        rec.add("pump", pump_s)
         per_topic: dict[str, list[OffsetRange]] = {}
         for r in ranges:
             per_topic.setdefault(r.topic, []).append(r)
-        topic_rdds = [create_rdd(self.context, self.broker, rs)
+        # codec decode first (payload codecs are self-describing), then the
+        # subscriber's own value_decoder
+        decoder = compose_decoder(self._decoder)
+        topic_rdds = [create_rdd(self.context, self.broker, rs, decoder)
                       for rs in per_topic.values()]
         union = topic_rdds[0].union(*topic_rdds[1:])
         # snapshot attached window state so a failed batch fn / serial sink
@@ -288,29 +348,37 @@ class StreamingContext:
         rollback = [(w, w.state()) for _, w in self._window_states]
         t0 = time.perf_counter()
         try:
-            if self._batch_fn is not None:
-                info.result = self._batch_fn(union, info)
+            with rec.stage("batch_fn"):
+                if self._batch_fn is not None:
+                    info.result = self._batch_fn(union, info)
             info.processing_time = time.perf_counter() - t0
             # Serial sinks run BEFORE the commit: a raising sink aborts it
             # and the batch (windower pushes included, via the rollback
             # above) replays at the same offsets.
-            for sink in self._sinks:
-                sink(info)
+            with rec.stage("sinks"):
+                for sink in self._sinks:
+                    sink(info)
         except BaseException:
             for w, st in rollback:
                 w.restore_state(st)
-            raise
-        self._commit(ranges)
+            raise                      # failed batches never enter the trace
+        self._commit(ranges, rec=rec)
         self._batch_index += 1
         self._history.append(info)
         if self._delivery is not None:
             # parallel lanes: enqueue only; check() surfaces a fail_pipeline
             # lane's verdict (possibly from an earlier batch) and aborts here
-            self._delivery.submit(info)
+            with rec.stage("delivery_submit"):
+                self._delivery.submit(info)
             self._delivery.check()
+        span = rec.finish(self._progress.epoch)
+        self._m_batches.inc()
+        self._m_records.inc(info.num_records)
+        self._m_batch_s.observe(span.total_s)
         return info
 
-    def _commit(self, ranges: Sequence[OffsetRange]) -> None:
+    def _commit(self, ranges: Sequence[OffsetRange],
+                rec: Any = None) -> None:
         """Advance consumed offsets + attached window state as one epoch.
 
         Window stores persist first (each returns the ref for this epoch);
@@ -322,18 +390,21 @@ class StreamingContext:
         both-or-neither. Progress is also pushed broker-side."""
         epoch = self._progress.epoch + 1
         if self.checkpoint_path:
-            for name, windower in self._window_states:
-                store = getattr(windower, "store", None)
-                if store is not None:
-                    self._progress.window_refs[name] = \
-                        store.commit(epoch, windower.state())
+            with _stage(rec, "state_commit"):
+                for name, windower in self._window_states:
+                    store = getattr(windower, "store", None)
+                    if store is not None:
+                        self._progress.window_refs[name] = \
+                            store.commit(epoch, windower.state())
         for r in ranges:
             self._progress.offsets[r.topic][r.partition] = r.until
         self._progress.epoch = epoch
         if self.checkpoint_path:
-            self._progress.save(self.checkpoint_path)
-        for r in ranges:
-            self.broker.commit(r.topic, r.partition, r.until)
+            with _stage(rec, "checkpoint"):
+                self._progress.save(self.checkpoint_path)
+        with _stage(rec, "broker_commit"):
+            for r in ranges:
+                self.broker.commit(r.topic, r.partition, r.until)
 
     def checkpoint_now(self) -> None:
         """Checkpoint current progress + window state outside the batch loop
@@ -341,13 +412,42 @@ class StreamingContext:
         does not re-fire the final partial window."""
         self._commit([])
 
+    def run_batches(self, max_batches: int) -> list[BatchInfo]:
+        """Inline scheduler: up to ``max_batches`` micro-batches, stopping
+        at the first poll with no data."""
+        out = []
+        while len(out) < max_batches:
+            info = self.run_one_batch()
+            if info is None:
+                break
+            out.append(info)
+        return out
+
+    def serve_observability(self, address: tuple[str, int] = ("127.0.0.1", 0),
+                            lag_policy: Any = None) -> ObservabilityServer:
+        """Start (or return) this context's HTTP observability endpoint:
+        ``/metrics`` + ``/metrics.json`` over the registry the context's
+        layers registered into, ``/traces`` over :attr:`traces`, and
+        ``/health`` judging per-topic lag against ``lag_policy``'s
+        ``scale_up_lag`` watermark (see ``repro_torch/data/obs_server.py``).
+        Stopped by :meth:`close`; port 0 binds an ephemeral port — read the
+        bound address from the returned server's ``.url``."""
+        if self._obs_server is not None:
+            return self._obs_server
+        health = lag_health(
+            lambda: {t: self.lag(t) for t in self._topics}, lag_policy)
+        self._obs_server = ObservabilityServer(
+            registry=self._registry, traces=self.traces,
+            health_fn=health, address=address).start()
+        return self._obs_server
+
     def close(self, drain: bool = True) -> None:
         """Shut down the delivery lanes. With ``drain=True`` (default) every
         queued batch is written before the lanes exit; ``drain=False``
         discards queued work. Raises a pending
         :class:`~repro_torch.data.delivery.DeliveryFailed`. Attached window
-        state stores are closed (their last committed state stays on
-        disk)."""
+        state stores are closed (their last committed state stays on disk),
+        and the observability endpoint (if served) is stopped."""
         try:
             if self._delivery is not None:
                 self._delivery.close(drain=drain)
@@ -356,6 +456,9 @@ class StreamingContext:
                 store = getattr(windower, "store", None)
                 if store is not None:
                     store.close()
+            if self._obs_server is not None:
+                self._obs_server.stop()
+                self._obs_server = None
 
     # -- near-real-time accounting ------------------------------------------
     def realtime_report(self) -> dict[str, float]:

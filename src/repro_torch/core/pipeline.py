@@ -9,8 +9,9 @@ consume the results. Plain sinks take the ``BatchInfo``, keyed sinks
 runs serially before each batch's commit, or on its own delivery lane when
 added with a :class:`~repro_torch.data.delivery.SinkPolicy`. With
 ``config.checkpoint_path`` the consumed offsets, and the open window's
-state, survive a restart. The observability server of the reference is
-left out (ROADMAP Queue 1 item 3.4).
+state, survive a restart. :meth:`NearRealTimePipeline.serve_observability`
+serves the metrics registry, the batch spans and a lag-based health verdict
+over HTTP.
 """
 from __future__ import annotations
 
@@ -204,6 +205,16 @@ class NearRealTimePipeline:
                 break
             time.sleep(max(self.config.batch_interval / 10, 0.001))
         return self.report
+
+    # -- observability ---------------------------------------------------------
+    def serve_observability(self, address: tuple[str, int] = ("127.0.0.1", 0),
+                            lag_policy: Any = None):
+        """Start the pipeline's HTTP observability endpoint (``/metrics``,
+        ``/metrics.json``, ``/traces``, ``/health``) — delegates to
+        :meth:`repro_torch.core.dstream.StreamingContext.serve_observability`;
+        stopped by :meth:`close`."""
+        return self.streaming.serve_observability(address=address,
+                                                  lag_policy=lag_policy)
 
     # -- parallel sink delivery ----------------------------------------------
     def close(self, drain: bool = True) -> None:

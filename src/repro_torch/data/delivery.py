@@ -36,8 +36,9 @@ Wiring: :meth:`repro_torch.core.dstream.StreamingContext.add_sink` and
 :meth:`repro_torch.core.pipeline.NearRealTimePipeline.add_sink` take an
 optional ``policy=``; with one, the sink moves onto a lane of the context's
 :class:`DeliveryRuntime`. Per-lane counters are in
-:meth:`DeliveryRuntime.report`. The reference's metrics-registry
-instruments are left out until ROADMAP Queue 1 item 3.4.
+:meth:`DeliveryRuntime.report`, and each lane registers the reference's
+nine ``delivery_*`` instruments, labelled with its name, in the metrics
+registry (:mod:`repro_torch.data.metrics`).
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Sequence
 
 from repro_torch.data.locktrace import new_lock
+from repro_torch.data.metrics import get_registry
 from repro_torch.data.sinks import describe_result_items
 from repro_torch.utils import get_logger
 
@@ -225,6 +227,36 @@ class SinkLane:
         self._runtime = runtime
         self._queue: queue.Queue = queue.Queue(maxsize=policy.queue_depth)
         self._discard = False
+        # lane names label the instruments, so every lane shows up in
+        # /metrics
+        reg = get_registry()
+        labels = {"lane": name}
+        self._m_enqueued = reg.counter(
+            "delivery_enqueued_total", help="batches accepted by the lane",
+            labels=labels)
+        self._m_delivered = reg.counter(
+            "delivery_delivered_total", help="batches written successfully",
+            labels=labels)
+        self._m_failed = reg.counter(
+            "delivery_failed_total", help="batches that exhausted retries",
+            labels=labels)
+        self._m_retries = reg.counter(
+            "delivery_retries_total", help="individual write re-attempts",
+            labels=labels)
+        self._m_dropped = reg.counter(
+            "delivery_dropped_full_total",
+            help='batches refused by on_full="drop"', labels=labels)
+        self._m_dead = reg.counter(
+            "delivery_dead_lettered_total",
+            help="batches routed to the dead-letter topic", labels=labels)
+        self._m_write = reg.histogram(
+            "delivery_write_seconds", help="sink write call duration",
+            labels=labels)
+        self._m_latency = reg.histogram(
+            "delivery_latency_seconds", help="submit-to-written latency",
+            labels=labels)
+        reg.gauge("delivery_queue_depth", help="batches queued on the lane",
+                  labels=labels, callback=self._queue.qsize)
         self._executor = (_TimedExecutor(write, name)
                           if policy.timeout is not None else None)
         self.thread = threading.Thread(target=self._run, daemon=True,
@@ -244,6 +276,7 @@ class SinkLane:
                 self._queue.put_nowait(item)
             except queue.Full:
                 self.metrics.dropped_full += 1
+                self._m_dropped.inc()
                 return False
         else:
             # block in short slices, re-checking for a fail_pipeline verdict
@@ -256,6 +289,7 @@ class SinkLane:
                 except queue.Full:
                     self._runtime.check()
         self.metrics.enqueued += 1
+        self._m_enqueued.inc()
         self.metrics.max_depth = max(self.metrics.max_depth, self.depth)
         return True
 
@@ -281,24 +315,30 @@ class SinkLane:
             else:
                 self._write(payload)
         finally:
-            self.metrics.write_s.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.metrics.write_s.append(dt)
+            self._m_write.observe(dt)
 
     def _deliver(self, enqueued_at: float, payload: Any) -> None:
         error: BaseException | None = None
         for attempt in range(self.policy.retries + 1):
             if attempt:
                 self.metrics.retries += 1
+                self._m_retries.inc()
                 if self.policy.retry_backoff:
                     time.sleep(self.policy.retry_backoff)
             try:
                 self._write_once(payload)
                 self.metrics.delivered += 1
-                self.metrics.latencies.append(
-                    time.perf_counter() - enqueued_at)
+                self._m_delivered.inc()
+                lat = time.perf_counter() - enqueued_at
+                self.metrics.latencies.append(lat)
+                self._m_latency.observe(lat)
                 return
             except BaseException as e:   # noqa: BLE001 - policy decides
                 error = e
         self.metrics.failed += 1
+        self._m_failed.inc()
         self.metrics.last_error = repr(error)
         log.warning("sink lane %s: batch failed after %d attempt(s): %r",
                     self.name, self.policy.retries + 1, error)
@@ -308,6 +348,7 @@ class SinkLane:
                     self.name, self.policy.dead_letter_topic,
                     self._index_of(payload), self._items_of(payload), error)
                 self.metrics.dead_lettered += 1
+                self._m_dead.inc()
             except Exception as e:       # broker gone: isolate, don't crash
                 log.error("sink lane %s: dead-letter write failed: %r",
                           self.name, e)

@@ -44,8 +44,7 @@ The reference's replication cursor over these frames (``read_frames``,
 broker passes ``(topic, partition)`` to factories that accept them, and the
 factory maps each onto a stable directory under its root, so a restarted
 broker that calls :meth:`DurableLogFactory.restore` reopens the same logs
-and replays every committed record to fresh subscribers. The reference's
-metrics-registry instruments are left out until ROADMAP Queue 1 item 3.4.
+and replays every committed record to fresh subscribers.
 """
 from __future__ import annotations
 

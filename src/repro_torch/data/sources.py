@@ -1,17 +1,56 @@
-"""Data sources, trimmed to the §III detector and the §IV tilt series.
+"""Data sources, the counterpart of ``repro/data/sources.py``.
 
-The counterpart of ``repro/data/sources.py``: a source is polled for
-``(key, value)`` records; a replayable one also ``seek``s, so a restarted
-pipeline can resume where its broker topic ends.
+A :class:`Source` is anything that can be polled for ``(key, value)``
+records. Replayable sources also ``seek(offset)``, so a restarted pipeline
+can resume where its broker topic ends.
+
+- :class:`DetectorSource` — the paper §III ptychography detector, fronting
+  the frame simulator in ``apps/ptycho/sim.py``.
+- :class:`ProjectionSource` — the paper §IV TEM tilt series, one sinogram
+  slice per record.
+- :class:`FileReplaySource` — deterministic replay of an NPZ or JSONL
+  capture (DELTA's generator-from-disk idiom).
+- :class:`SyntheticRateSource` — a clocked record generator for load tests
+  and backpressure experiments.
+- :class:`TopicSource` — re-ingest an existing broker topic, which is how
+  multi-stage pipelines chain.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
-from typing import Any
+from typing import Any, Callable, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 
+from repro_torch.core.broker import Broker, OffsetRange
+from repro_torch.data.codec import maybe_decode
+
 RecordKV = tuple[bytes | None, Any]
+
+
+@runtime_checkable
+class Source(Protocol):
+    """Pollable record source. ``poll`` returns at most ``max_records``
+    ``(key, value)`` pairs; an empty list means "nothing available *now*",
+    which is final only once ``exhausted`` is true."""
+
+    def poll(self, max_records: int) -> list[RecordKV]: ...
+
+    @property
+    def exhausted(self) -> bool: ...
+
+
+@runtime_checkable
+class ReplayableSource(Source, Protocol):
+    """A source whose records are a deterministic indexed sequence, so
+    ``seek(n)`` repositions to the n-th record (restart/resume support)."""
+
+    def seek(self, offset: int) -> None: ...
+
+    @property
+    def position(self) -> int: ...
 
 
 class SequenceSource:
@@ -52,6 +91,10 @@ class SequenceSource:
     @property
     def exhausted(self) -> bool:
         return self._cursor >= len(self)
+
+    @property
+    def position(self) -> int:
+        return self._cursor
 
     def seek(self, offset: int) -> None:
         if offset < 0 or offset > len(self):
@@ -98,3 +141,127 @@ class ProjectionSource(SequenceSource):
 
     def record_at(self, i: int) -> RecordKV:
         return f"slice-{i:06d}".encode(), (i, self._sino[i])
+
+
+class FileReplaySource(SequenceSource):
+    """Replay a capture from disk with deterministic ordering.
+
+    ``.npz``: one record per array, ordered by sorted key name.
+    ``.jsonl``: one record per line, file order, value = parsed object.
+
+    This is DELTA's generator-from-disk idiom: the instrument is replaced by
+    a file, everything downstream is unchanged.
+    """
+
+    def __init__(self, path: str, interval: float = 0.0) -> None:
+        super().__init__(interval=interval)
+        self.path = path
+        if path.endswith(".npz"):
+            with np.load(path) as z:
+                self._keys = sorted(z.files)
+                self._values = [np.asarray(z[k]) for k in self._keys]
+        elif path.endswith(".jsonl"):
+            with open(path) as f:
+                lines = [ln for ln in f if ln.strip()]
+            self._keys = [f"line-{i:06d}" for i in range(len(lines))]
+            self._values = [json.loads(ln) for ln in lines]
+        else:
+            raise ValueError(f"unsupported replay format: {path!r} "
+                             "(want .npz or .jsonl)")
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def record_at(self, i: int) -> RecordKV:
+        return self._keys[i].encode(), self._values[i]
+
+
+class SyntheticRateSource(SequenceSource):
+    """Clocked generator: emits ``value_fn(i)`` at ``rate`` records/second,
+    ``total`` records in all (``None`` = unbounded). The load-test knob for
+    the ingest runtime: crank ``rate`` past what the pipeline sustains and
+    watch the backpressure policy engage."""
+
+    UNPACED_RATE = 1e6     # rates at/above this skip the pacing clock
+
+    def __init__(self, rate: float, total: int | None = None,
+                 value_fn: Callable[[int], Any] | None = None) -> None:
+        if rate <= 0:
+            raise ValueError("rate must be > 0")
+        super().__init__(
+            interval=0.0 if rate >= self.UNPACED_RATE else 1.0 / rate)
+        self._total = total
+        self._value_fn = value_fn or (lambda i: i)
+
+    def __len__(self) -> int:
+        return self._total if self._total is not None else (1 << 62)
+
+    def record_at(self, i: int) -> RecordKV:
+        return f"rec-{i:09d}".encode(), self._value_fn(i)
+
+
+class TopicSource:
+    """Re-ingest an existing broker topic: the chaining primitive for
+    multi-stage pipelines (stage 1's :class:`~repro_torch.data.sinks.TopicSink`
+    becomes stage 2's source).
+
+    Polls partitions in order from per-partition offsets; codec'd values
+    are decoded here, at the consume boundary. ``exhausted`` is
+    never true for a live topic unless ``stop_at_end`` is set, in which case
+    the source drains the topic as of each poll. ``seek(n)`` takes a *total*
+    record position (the same contract ``position`` reports), distributed
+    over partitions in drain order against current end offsets — exact for
+    bulk polls over a quiescent topic, approximate if the log grew since.
+    """
+
+    def __init__(self, broker: Broker, topic: str,
+                 stop_at_end: bool = False) -> None:
+        self.broker = broker
+        self.topic = topic
+        self.stop_at_end = stop_at_end
+        self._offsets = [0] * broker.num_partitions(topic)
+
+    def poll(self, max_records: int) -> list[RecordKV]:
+        # codec'd topics decode here, at the consume boundary, so re-ingest
+        # stages see the same values a subscriber would — and a chained
+        # stage's own codec re-encodes on its flush
+        out: list[RecordKV] = []
+        for p, start in enumerate(self._offsets):
+            if len(out) >= max_records:
+                break
+            until = min(self.broker.end_offset(self.topic, p),
+                        start + max_records - len(out))
+            if until <= start:
+                continue
+            recs = self.broker.read(OffsetRange(self.topic, p, start, until))
+            out.extend((r.key, maybe_decode(r.value)) for r in recs)
+            self._offsets[p] = until
+        return out
+
+    @property
+    def exhausted(self) -> bool:
+        if not self.stop_at_end:
+            return False
+        return all(off >= self.broker.end_offset(self.topic, p)
+                   for p, off in enumerate(self._offsets))
+
+    @property
+    def position(self) -> int:
+        return sum(self._offsets)
+
+    def seek(self, offset: int) -> None:
+        remaining = offset
+        for p in range(len(self._offsets)):
+            take = min(remaining, self.broker.end_offset(self.topic, p))
+            self._offsets[p] = take
+            remaining -= take
+
+
+def save_npz_capture(path: str, records: Sequence[tuple[str, np.ndarray]]) -> str:
+    """Write an NPZ capture that :class:`FileReplaySource` replays in the
+    given order (keys are prefixed with their index to pin the sort)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {f"{i:06d}-{name}": np.asarray(v)
+              for i, (name, v) in enumerate(records)}
+    np.savez(path, **arrays)
+    return path

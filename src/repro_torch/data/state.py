@@ -32,8 +32,9 @@ Time-kind caveat: ``Windower`` buckets records relative to its first
 batch's clock reading (``t0``). Restoring it across processes is only
 meaningful under a clock comparable across restarts (wall clock, or an
 injected domain clock); count windows (the paper's "every 512 frames")
-restore exactly under any clock. The reference's metrics-registry
-instruments are left out until ROADMAP Queue 1 item 3.4.
+restore exactly under any clock. The durable store registers the
+reference's seven ``state_*`` instruments in the metrics registry
+(:mod:`repro_torch.data.metrics`).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from typing import Any, Protocol, runtime_checkable
 from repro_torch.data.durable_log import (FSYNC_POLICIES, _REC_HEADER,
                                           frame_bytes, scan_frames)
 from repro_torch.data.locktrace import new_lock
+from repro_torch.data.metrics import get_registry
 from repro_torch.data.transport import decode_message, encode_message
 from repro_torch.utils import get_logger
 
@@ -177,6 +179,23 @@ class DurableStateStore:
         self.deltas = 0                  # delta frames written
         self.recovered_frames = 0        # valid frames found on open
         self.truncated_bytes = 0         # torn/corrupt tail cut on open
+        # unlabeled on purpose: the store path is a tmpdir in tests and
+        # would explode label cardinality, so stores aggregate per process
+        reg = get_registry()
+        self._m_commits = reg.counter(
+            "state_commits_total", help="window-state commits persisted")
+        self._m_deltas = reg.counter(
+            "state_delta_frames_total", help="delta frames appended")
+        self._m_snapshots = reg.counter(
+            "state_snapshots_total", help="snapshot compaction rewrites")
+        self._m_restores = reg.counter(
+            "state_restores_total", help="restore() replays")
+        self._m_commit_s = reg.histogram(
+            "state_commit_seconds", help="durable commit latency")
+        self._m_restore_s = reg.histogram(
+            "state_restore_seconds", help="restore replay latency")
+        reg.gauge("state_log_bytes", help="window-state log size on disk",
+                  callback=lambda: os.path.getsize(self._file))
         os.makedirs(self.path, exist_ok=True)
         self._file = os.path.join(self.path, _STATE_FILE)
         if os.path.exists(self._file):
@@ -225,6 +244,7 @@ class DurableStateStore:
 
     # -- protocol ----------------------------------------------------------
     def commit(self, epoch: int, state: WindowState) -> int:
+        t0 = time.perf_counter()
         with self._lock:
             delta = self._delta_against_prev(epoch, state)
             if delta == ():              # unchanged: keep the previous ref
@@ -235,9 +255,12 @@ class DurableStateStore:
                 self._maybe_fsync()
                 self._deltas_since_snap += 1
                 self.deltas += 1
+                self._m_deltas.inc()
             else:
                 self._compact(epoch, state)
             self._prev = (epoch, state.copy())
+            self._m_commits.inc()
+            self._m_commit_s.observe(time.perf_counter() - t0)
             return epoch
 
     def restore(self, ref: int | None) -> WindowState | None:
@@ -245,6 +268,8 @@ class DurableStateStore:
         but never published by the offset checkpoint — the crash window this
         store exists to close). ``ref=None`` (no/fresh checkpoint) resets the
         log entirely."""
+        # not t0: the replay loop below unpacks window-state t0 over it
+        t_start = time.perf_counter()
         with self._lock:
             state: WindowState | None = None
             last: tuple[int, int] | None = None      # (end_pos, epoch)
@@ -287,6 +312,8 @@ class DurableStateStore:
                 self._open_writer()
             self._deltas_since_snap = deltas_since if good else 0
             self._prev = (last[1], state.copy()) if good else None
+            self._m_restores.inc()
+            self._m_restore_s.observe(time.perf_counter() - t_start)
             return state.copy() if good else None
 
     def close(self) -> None:
@@ -353,3 +380,4 @@ class DurableStateStore:
         self._open_writer()
         self._deltas_since_snap = 0
         self.snapshots += 1
+        self._m_snapshots.inc()
