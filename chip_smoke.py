@@ -82,9 +82,35 @@ Phases, each fatal on failure:
      consumed once, none rejected, every produce on a shared-memory frame,
      the producer's lag within its bound, the photon count and peak
      computed on the card held to numpy's over the same frames (1e-5
-     relative), and no shared-memory segment left.
-It then prints a JSON line of the kernels, the nvidia-smi line again, and
-as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
+     relative), and no shared-memory segment left;
+ 14. (run right after phase 8, while its system is still on the card) a
+     §IV consumer-group handoff at full width: phase 8's 256 sinogram rows
+     keyed by slice index on a 4-partition topic, two streaming contexts in
+     threads of one process in group "tomo" (heartbeat 0.05 s, session
+     timeout 0.4 s), each range of a batch reconstructed by the ART kernel
+     into a sink keyed by slice; one consumer goes silent after its second
+     committed batch, the survivor takes its partitions over, and the
+     silent one's late commit is fenced; every slice in the sink, group lag
+     0, the volume held to phase 8's slice by slice (1e-6 relative) and to
+     the JAX reference's residual and error (1e-3), ART launches only, one
+     a range; the handoff gap, the slices processed twice, the generations
+     and the stream time printed;
+ 15. broker HA under the card's consumer through ``run_ha_failover``
+     (``--frames 512 --obj-size 448 --probe-size 64``, 2 partitions):
+     a durable primary in its own process, its
+     follower as the standby, a spawned producer through a
+     ``FailoverBroker``, the primary SIGKILLed after frame 256, a consumer
+     on its own ``FailoverBroker`` reducing each batch on the card; every
+     frame id in the sink, every frame read back from the promoted broker
+     equal to the producer's (CRC-32), photons and peak over the
+     deduplicated frames held to numpy's over the frames read back (1e-6
+     relative), both clients at one failover or more and epoch 1, the
+     restarted zombie fenced, no shared-memory segment left, no kernel
+     launched; the time from the kill to the next frame produced, the
+     resend window's duplicates, the cursors rewound and frames/s printed.
+It then prints a JSON line of the kernels (the ART row's
+``launches_group_handoff`` is phase 14's count), the nvidia-smi line again,
+and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -696,8 +722,9 @@ def art_phase(torch, dev, flush) -> dict:
                 variants=variants)
 
 
-def tomo_phase(torch, dev, kernel_ms: float) -> int:
-    """The §IV stream at full width; returns the ART launches it made."""
+def tomo_phase(torch, dev, kernel_ms: float) -> tuple[int, "np.ndarray"]:
+    """The §IV stream at full width; returns the ART launches it made and
+    the gathered volume."""
     import numpy as np
 
     from repro_torch import kernels
@@ -762,7 +789,7 @@ def tomo_phase(torch, dev, kernel_ms: float) -> int:
           f"x {kernel_ms:.1f} ms (phase 7, stream-launch shape) = "
           f"{launches * kernel_ms / 1e3 / res['stream_time']:.3f} of the "
           f"stream's wall time; {len(res['sink_keys'])} sink keys")
-    return launches
+    return launches, res["volume"]
 
 
 def tomo_profile_phase(torch, dev) -> None:
@@ -828,6 +855,192 @@ def tomo_profile_phase(torch, dev) -> None:
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:10.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
               f"{name[:90]}")
+
+
+GROUP, GROUP_TOPIC, GROUP_PARTITIONS = "tomo", "slices", 4
+GROUP_HEARTBEAT, GROUP_SESSION = 0.05, 0.4
+GROUP_VOLUME_RTOL = 1e-6
+GROUP_DEADLINE_S = 120.0
+
+
+def group_phase(torch, dev, tomo_volume, smi: str) -> int:
+    """The §IV slices through a consumer group of two streaming contexts in
+    threads of one process, each batch's ranges reconstructed by the ART
+    kernel: one consumer goes silent after its second committed batch (no
+    leave, no heartbeat), the survivor takes its partitions over, and the
+    silent one's late commit is fenced. The volume is held to phase 8's,
+    slice by slice; returns the ART launches."""
+    import functools
+    import threading
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.apps.tomo.solver import (TomoConfig, residual,
+                                              simulate_tilt_series)
+    from repro_torch.apps.tomo.stream import reconstruct_partition
+    from repro_torch.core.broker import Broker
+    from repro_torch.core.dstream import StreamingContext
+    from repro_torch.core.rdd import Context
+    from repro_torch.data.groups import StaleGenerationError
+    from repro_torch.data.sinks import KeyedSink
+
+    cfg = TomoConfig(nray=NRAY, iterations=2, angles=tuple(
+        np.linspace(-75, 75, NANGLES).tolist()))      # as run_stream's
+    vol_true, sino, sino_host = simulate_tilt_series(cfg, NSLICE, device=dev)
+    broker = Broker()
+    broker.create_topic(GROUP_TOPIC, GROUP_PARTITIONS)
+    broker.produce_many(GROUP_TOPIC, [(f"slice-{i:06d}".encode(),
+                                       (i, sino_host[i]))
+                                      for i in range(NSLICE)])
+    per_part = broker.end_offsets(GROUP_TOPIC)
+
+    class VolumeSink(KeyedSink):
+        def __init__(self):
+            super().__init__()
+            self.rows = {}
+
+        def _write_one(self, key, value):
+            self.rows[key] = value
+
+    sink = VolumeSink()
+    part = functools.partial(reconstruct_partition, config=cfg, device=dev)
+
+    def process(rdd, info):
+        # one RDD partition a range: one ART launch a range
+        parts = rdd.map_partitions(part).collect_partitions()
+        sink.write_batch([(f"slice-{i:04d}", block[j])
+                          for idx, block in parts
+                          for j, i in enumerate(idx)])
+
+    ctxs = []
+    for cid in ("survivor", "victim"):
+        sc = StreamingContext(Context(), broker,
+                              max_records_per_partition=NSLICE
+                              // PARTITIONS // PARTITIONS)
+        sc.subscribe([GROUP_TOPIC])
+        sc.foreach_batch(process)
+        sc.join_group(GROUP, consumer_id=cid,
+                      heartbeat_interval=GROUP_HEARTBEAT,
+                      session_timeout=GROUP_SESSION)
+        ctxs.append(sc)
+    survivor, victim = ctxs
+    survivor.group_member.maintain(force=True)    # the settled split first
+    gen_split = broker.describe_group(GROUP)["generation"]
+    split = {c: list(a.get(GROUP_TOPIC, [])) for c, a in
+             broker.describe_group(GROUP)["assignments"].items()}
+    silent = {"at": None, "member": None}
+    errors = []
+    deadline = time.perf_counter() + GROUP_DEADLINE_S
+
+    def run(sc, is_victim):
+        try:
+            while broker.lag(GROUP_TOPIC, group=GROUP) > 0:
+                if time.perf_counter() > deadline:
+                    raise AssertionError(
+                        f"group lag {broker.lag(GROUP_TOPIC, group=GROUP)} "
+                        f"after {GROUP_DEADLINE_S} s; sink "
+                        f"{len(sink.rows)} of {NSLICE} slices")
+                if sc.run_one_batch() is None:
+                    time.sleep(0.0005)
+                elif is_victim and len(sc.history) == 2:
+                    # silent from here: no leave, no heartbeat
+                    silent["member"] = (sc.group_member.consumer_id,
+                                        sc.group_member.generation,
+                                        sc.history[-1].ranges[0])
+                    silent["at"] = time.perf_counter()
+                    return
+        except BaseException as e:                  # re-raised below
+            errors.append(e)
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run, args=(sc, sc is victim))
+               for sc in ctxs]
+    for th in threads:
+        th.start()
+    gap = None
+    while any(th.is_alive() for th in threads):
+        if gap is None and silent["at"] is not None and sum(
+                len(ps) for ps in
+                survivor.group_member.assignment.values()) == \
+                GROUP_PARTITIONS:
+            gap = time.perf_counter() - silent["at"]
+        time.sleep(0.001)
+    for th in threads:
+        th.join()
+    stream_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if errors:
+        raise errors[0]
+    if silent["at"] is None:
+        raise AssertionError("the victim never committed two batches")
+    if gap is None:     # the handoff landed between the last two polls
+        gap = float("nan")
+    ranges_run = sum(len(b.ranges) for sc in ctxs for b in sc.history)
+    owned = sorted(p for ps in survivor.group_member.assignment.values()
+                   for p in ps)
+    d = broker.describe_group(GROUP)
+    # the victim wakes once and commits what it had consumed
+    vid, vgen, vrange = silent["member"]
+    try:
+        broker.commit(vrange.topic, vrange.partition, vrange.until,
+                      group=GROUP, consumer=vid, generation=vgen)
+        fenced = None
+    except StaleGenerationError as e:
+        fenced = str(e)
+    lag = broker.lag(GROUP_TOPIC, group=GROUP)
+    victim.group_member = None          # it died: no leave on close
+    victim.close()
+    survivor.close()
+
+    recon = np.zeros((NSLICE, NRAY, NRAY), np.float32)
+    for key, row in sink.rows.items():
+        recon[int(key.split("-")[1])] = row
+    rec = torch.from_numpy(recon).to(dev)
+    res = residual(rec, sino, cfg)
+    err = float(torch.linalg.vector_norm(rec - vol_true)
+                / torch.linalg.vector_norm(vol_true))
+    diff = np.linalg.norm((recon - tomo_volume).reshape(NSLICE, -1), axis=1)
+    ref = np.linalg.norm(tomo_volume.reshape(NSLICE, -1), axis=1)
+    rel = diff / np.maximum(ref, 1e-30)
+    print(f"  {GROUP_TOPIC}: {NSLICE} slices keyed by slice index on "
+          f"{GROUP_PARTITIONS} partitions {per_part}; split at generation "
+          f"{gen_split} {split}; the victim silent after its 2nd batch "
+          f"(generation {vgen}); the survivor owned {owned} at generation "
+          f"{d['generation']} after {gap:.4f} s (session timeout "
+          f"{GROUP_SESSION} s, heartbeat {GROUP_HEARTBEAT} s); batches: "
+          f"survivor {len(survivor.history)}, victim {len(victim.history)}; "
+          f"{ranges_run} ranges, launches {counts}; stream "
+          f"{stream_s:.3f} s; sink {len(sink.rows)} slices, "
+          f"{sink.skipped} processed twice; group lag {lag}; the victim's "
+          f"late commit: {fenced}", flush=True)
+    print(f"  group handoff OK on {smi}: residual {res:.6f} (JAX "
+          f"{REF_RESIDUAL:.6f}), volume error {err:.6f} (JAX "
+          f"{REF_ERROR:.6f}); max relative difference to phase 8's volume, "
+          f"slice by slice, {rel.max():.3g} (tol {GROUP_VOLUME_RTOL}), "
+          f"{int((diff == 0).sum())} of {NSLICE} slices bit-equal",
+          flush=True)
+    if len(sink.rows) != NSLICE:
+        raise AssertionError(f"sink holds {len(sink.rows)} of {NSLICE}")
+    if owned != list(range(GROUP_PARTITIONS)) or list(d["members"]) != \
+            ["survivor"]:
+        raise AssertionError(f"survivor owns {owned}; group {d}")
+    if fenced is None:
+        raise AssertionError("the victim's late commit was not fenced")
+    if lag != 0:
+        raise AssertionError(f"group lag {lag}")
+    if not rel.max() <= GROUP_VOLUME_RTOL:
+        raise AssertionError(f"volume off phase 8's by {rel.max()}")
+    if not (abs(res - REF_RESIDUAL) <= REF_TOL
+            and abs(err - REF_ERROR) <= REF_TOL):
+        raise AssertionError(f"residual {res}, error {err} off the JAX "
+                             f"reference by more than {REF_TOL}")
+    launches = counts["art_sweep"]
+    if not launches == ranges_run > 0 or any(
+            n for name, n in counts.items() if name != "art_sweep"):
+        raise AssertionError(f"launches {counts} for {ranges_run} ranges")
+    return launches
 
 
 def build_report(kernels: tuple[str, ...]) -> None:
@@ -1361,6 +1574,79 @@ def restart_phase(torch, dev, smi: str) -> None:
           f"resumed run {res['resume_s']:.4f} s", flush=True)
 
 
+HA_ARGS = ["--frames", "512", "--obj-size", "448", "--probe-size", "64"]
+HA_FRAMES, HA_RTOL = 512, 1e-6
+
+
+def ha_phase(torch, dev, smi: str) -> None:
+    """Broker HA under the card's consumer: a durable primary in its own
+    process SIGKILLed after 256 of 512 §III frames, its follower promoted,
+    the producer and the consumer each failing over through their own
+    ``FailoverBroker``; every frame held to the simulated one and the
+    card's reductions to numpy's, the zombie fenced, no segment left."""
+    from repro_torch import kernels
+    from repro_torch.apps.ptycho.ha_failover import (PARTITIONS, parse_args,
+                                                     run_ha_failover)
+
+    args = parse_args(HA_ARGS)
+    kernels.reset_launch_counts()
+    res = run_ha_failover(args, device=dev)
+    counts = kernels.launch_counts()
+    # numpy over the frames read back from the promoted broker, each held
+    # bit for bit to the producer's by its CRC-32
+    want = {"photons": res["readback_photons"], "peak": res["readback_peak"]}
+    errs = {k: abs(res[k] - v) / abs(v) for k, v in want.items()}
+    prod, cons = res["producer"], res["consumer"]
+    side = args.probe_size
+    print(f"  {res['frames']} frames of ({side}, {side}) fp32 "
+          f"({res['frames'] * side * side * 4 / 2**20:.1f} MiB) on "
+          f"{PARTITIONS} partitions, the primary SIGKILLed after "
+          f"{res['kill_after']}: "
+          f"{len(res['frame_ids'])} frame ids in the sink, the last "
+          f"{res['last_frame_s']:.4f} s after the topic appeared "
+          f"({res['frames'] / res['last_frame_s']:.1f} frames/s); kill to "
+          f"the producer's next frame {res['kill_to_first_produce_s']:.4f} "
+          f"s; {prod['produce_calls']} produce calls in "
+          f"{prod['produce_s']:.4f} s ({prod['before_kill_s']:.4f} s "
+          f"before the kill), flushed {prod['flushed']}; "
+          f"{res['stored']} records on the promoted broker, "
+          f"{res['duplicates']} duplicates from the resend window, read "
+          f"back equal {res['readback_equal']}; failovers: producer "
+          f"{prod['failovers']} (epoch {prod['epoch']}), consumer "
+          f"{cons['failovers']} (epoch {cons['epoch']}), "
+          f"{cons['cursors_rewound']} cursors rewound, {cons['records']} "
+          f"records consumed; {res['realtime']['batches']} batches, mean "
+          f"processing {res['realtime']['mean_processing_s'] * 1e3:.3f} "
+          f"ms; launches {counts}", flush=True)
+    print(f"  ha failover OK on {smi}: zombie fenced ({res['fenced']}: "
+          f"{res['zombie_error']}); photons {res['photons']:.6e} (numpy "
+          f"{want['photons']:.6e}), peak {res['peak']:.6f} (numpy "
+          f"{want['peak']:.6f}), rel. diff {max(errs.values()):.3g} (tol "
+          f"{HA_RTOL}); shm left by this run's processes "
+          f"{res['shm_left']}", flush=True)
+    ids = list(range(HA_FRAMES))
+    if not (res["frames"] == HA_FRAMES and res["frame_ids"] == ids
+            and res["readback_ids"] == ids and res["readback_equal"]):
+        raise AssertionError(f"frames {res['frames']}, sink ids "
+                             f"{len(res['frame_ids'])}, read back "
+                             f"{len(res['readback_ids'])}, equal "
+                             f"{res['readback_equal']} (mismatched "
+                             f"{res['readback_mismatched'][:8]})")
+    if not max(errs.values()) <= HA_RTOL:
+        raise AssertionError(f"card {res['photons']}, {res['peak']} vs "
+                             f"numpy {want}")
+    for name, client in (("producer", prod), ("consumer", cons)):
+        if not (client["failovers"] >= 1 and client["epoch"] == 1):
+            raise AssertionError(f"{name}: {client}")
+    if not (prod["flushed"] and res["zombie_error"] and res["fenced"]):
+        raise AssertionError(f"flushed {prod['flushed']}, zombie "
+                             f"{res['zombie_error']}, fenced {res['fenced']}")
+    if res["shm_left"]:
+        raise AssertionError(f"shm left: {res['shm_left']}")
+    if any(counts.values()):
+        raise AssertionError(f"kernels launched: {counts}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print("chip_smoke: no src/repro_torch next to this script; run it "
@@ -1418,8 +1704,14 @@ def main() -> int:
     rows.append(art_row)
 
     print("[8] the tomography stream at full width:", flush=True)
-    art_row["launches"] = tomo_phase(torch, dev, art_row["ms"])
+    art_row["launches"], tomo_volume = tomo_phase(torch, dev, art_row["ms"])
     tomo_profile_phase(torch, dev)
+
+    # before the cache is cleared: the two consumers share phase 8's system
+    print("[14] a §IV consumer-group handoff at full width:", flush=True)
+    art_row["launches_group_handoff"] = group_phase(torch, dev, tomo_volume,
+                                                    smi)
+    del tomo_volume
     from repro_torch.apps.tomo.solver import clear_system_cache
     clear_system_cache()            # the 4.75 GiB system off the card
     torch.cuda.empty_cache()
@@ -1451,6 +1743,10 @@ def main() -> int:
 
     print("[13] the remote ingest at the §III frame shape:", flush=True)
     remote_phase(torch, dev, smi)
+
+    print("[15] broker HA under the card's consumer at the §III frame "
+          "shape:", flush=True)
+    ha_phase(torch, dev, smi)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -12,5 +12,7 @@ serving loop (``python -m repro_torch.launch.serve``), whose prefill runs
 causal attention in a hand-written CUDA flash kernel. The remote-ingest
 topology (``python -m repro_torch.apps.ptycho.remote_ingest``) puts the
 detector in a process of its own, joined to the consumer on the card by
-the socket transport.
+the socket transport, and the HA topology (``python -m
+repro_torch.apps.ptycho.ha_failover``) keeps that consumer fed through a
+SIGKILL of the broker's primary.
 """

@@ -27,10 +27,16 @@ broker never looks inside a value. Each topic registers the reference's
 four instruments in the metrics registry. Locks come from
 :mod:`repro_torch.data.locktrace`.
 
-The reference's generation fencing through the group coordinator (ROADMAP
-Queue 1 item 3.6) and its replication, HA role and commit topic (item 3.7)
-are left out: a commit that names a ``generation`` raises
-``NotImplementedError``.
+The broker hosts the consumer groups' coordinator
+(:mod:`repro_torch.data.groups`, created on first use): a commit that names
+a ``generation`` is fenced by it, so a consumer the group has moved on from
+cannot advance the group's offsets. For broker HA
+(:mod:`repro_torch.data.replication`) a broker has a role: a *replica*
+(``writable=False``) refuses writes until a client promotes it at a higher
+*epoch*, and a primary fenced by a higher epoch refuses them for good. With
+a ``commit_topic`` every group commit and generation is also appended to
+that topic, which replicates like any other, so a promoted follower rebuilds
+the groups' progress from it (:meth:`Broker.restore_commits`).
 """
 from __future__ import annotations
 
@@ -46,6 +52,26 @@ from repro_torch.data.metrics import get_registry
 # Committed offsets are namespaced per consumer group; groupless callers
 # (and the broker's own lag gauge) land on this default group.
 DEFAULT_GROUP = ""
+
+# Broker-side record of group/committed-offset advances, appended to this
+# topic when Broker(commit_topic=...) is set. With a durable log factory the
+# topic replicates to followers like any other, which is how a promoted
+# follower rebuilds per-group committed offsets and the coordinator's
+# generation floor (see repro_torch.data.replication and
+# Broker.restore_commits).
+COMMIT_TOPIC = "__commits"
+
+
+class BrokerFencedError(RuntimeError):
+    """This broker was fenced by a higher-epoch promotion: a follower took
+    over while it was away, and accepting writes now would fork the log. A
+    zombie primary raises this on every produce/commit after a returning
+    client fences it (``Broker.fence``)."""
+
+
+class NotPrimaryError(RuntimeError):
+    """This broker is a replica (read-only follower): writes must go to the
+    primary until ``Broker.promote`` makes this one the primary."""
 
 
 @dataclass(frozen=True)
@@ -139,8 +165,9 @@ class Broker:
     :class:`~repro_torch.data.durable_log.DurableLogFactory` maps partitions
     onto stable directories that survive a restart."""
 
-    def __init__(self, log_factory: Callable[..., PartitionLog] | None = None
-                 ) -> None:
+    def __init__(self, log_factory: Callable[..., PartitionLog] | None = None,
+                 commit_topic: str | None = None, writable: bool = True,
+                 epoch: int = 0) -> None:
         self._log_factory: Callable[..., PartitionLog] = (
             log_factory or InMemoryPartitionLog)
         self._locate_logs = _factory_wants_location(self._log_factory)
@@ -150,6 +177,21 @@ class Broker:
         # topic -> group -> per-partition committed offsets
         self._committed: dict[str, dict[str, list[int]]] = {}
         self._lock = new_lock("Broker._lock")
+        self._coordinator: Any = None
+        self._coord_lock = new_lock("Broker._coord_lock")
+        # -- HA role (repro_torch.data.replication) ------------------------
+        # epoch is the fencing token: each failover promotes at a strictly
+        # higher epoch, and a broker fenced by a higher epoch refuses writes
+        self.epoch = epoch
+        self.writable = writable           # False = replica until promoted
+        self._fenced_by: int | None = None
+        self.commit_topic = commit_topic
+        self._commit_replay = False        # True while restore_commits runs
+        # replica_id -> {topic: [per-partition replicated high-watermarks]}
+        self._replica_hwms: dict[str, dict[str, list[int]]] = {}
+        # runs after a successful promote (ReplicaFollower persists the new
+        # epoch) — called outside the lock, with the broker
+        self.on_promote: Callable[["Broker"], None] | None = None
         # instruments cached per topic: one dict lookup per produce/read,
         # no registry lookup on the hot path
         self._registry = get_registry()
@@ -227,9 +269,212 @@ class Broker:
                 f"({len(logs)} partitions)")
         return logs[partition]
 
+    # -- HA role ----------------------------------------------------------
+    def _require_writable(self) -> None:
+        if self._fenced_by is not None:
+            raise BrokerFencedError(
+                f"broker fenced by epoch {self._fenced_by} (own epoch "
+                f"{self.epoch}): a promoted follower owns the log now")
+        if not self.writable:
+            raise NotPrimaryError(
+                f"broker is a replica at epoch {self.epoch}; "
+                "produce/commit must go to the primary")
+
+    def broker_epoch(self) -> dict:
+        """The fencing state clients probe before trusting a broker."""
+        return {"epoch": self.epoch,
+                "writable": self.writable and self._fenced_by is None}
+
+    def fence(self, epoch: int) -> dict:
+        """Fence this broker out of the write path: a failover promoted a
+        follower at ``epoch``, so any write accepted here would fork the
+        log. Requires a *strictly higher* epoch — a stale fencing attempt
+        (epoch <= ours) is itself rejected."""
+        if epoch <= self.epoch:
+            raise ValueError(
+                f"fence epoch {epoch} is not newer than broker epoch "
+                f"{self.epoch}")
+        with self._lock:
+            if self._fenced_by is None or epoch > self._fenced_by:
+                self._fenced_by = epoch
+        return self.broker_epoch()
+
+    def promote(self, epoch: int) -> dict:
+        """Promote this (replica) broker to primary at ``epoch``.
+
+        Idempotent across racing clients: the first caller at a new epoch
+        performs the promotion (un-fence, then rebuild group/committed
+        offsets from the replicated commit topic); later callers at the same
+        or an older epoch get the current state back with
+        ``promoted=False``. A promotion epoch must be strictly higher than
+        the epoch this broker last followed, served or was fenced at, so a
+        zombie primary can never promote itself back over the new one."""
+        with self._lock:
+            if self.writable and self._fenced_by is None \
+                    and self.epoch >= epoch:
+                return {"epoch": self.epoch, "promoted": False,
+                        "writable": True}
+            # the fence epoch is a floor too: a broker fenced at N knows a
+            # promotion at N happened elsewhere, so re-entering at <= N
+            # would put two primaries at the same epoch
+            floor = max(self.epoch, self._fenced_by or 0)
+            if epoch <= floor:
+                raise ValueError(
+                    f"promote epoch {epoch} is not newer than broker epoch "
+                    f"{floor}")
+            self.epoch = epoch
+            self.writable = True
+            self._fenced_by = None
+        self.restore_commits()
+        if self.on_promote is not None:
+            self.on_promote(self)
+        return {"epoch": epoch, "promoted": True, "writable": True}
+
+    def fetch_frames(self, topic: str, partition: int, start: int,
+                     max_bytes: int = 4 * 1024 * 1024
+                     ) -> tuple[bytes, list[int], int, int]:
+        """Replication pull: raw CRC frames for ``[start, end)`` of one
+        partition as one contiguous blob plus per-frame sizes, capped at
+        ``max_bytes`` a call. Returns ``(blob, lengths, next_offset,
+        end_offset)``. Durable logs serve their segment bytes verbatim
+        (:meth:`~repro_torch.data.durable_log.DurablePartitionLog
+        .read_frames`); in-memory logs frame records on the fly, so every
+        backend is replicable. The follower CRC-verifies every frame before
+        it appends — the primary ships bytes, it does not re-check them."""
+        plog = self._partition(topic, partition)
+        end = plog.end_offset()
+        reader = getattr(plog, "read_frames", None)
+        if reader is not None:
+            blob, lengths, nxt = reader(start, end, max_bytes=max_bytes)
+            return blob, lengths, nxt, end
+        # imported here: both modules import this one
+        from repro_torch.data.durable_log import frame_bytes
+        from repro_torch.data.transport import encode_message
+        frames, total, nxt = [], 0, max(start, 0)
+        for rec in plog.read(start, end):
+            frame = frame_bytes(b"".join(
+                encode_message((rec.key, rec.value, rec.timestamp))))
+            if frames and total + len(frame) > max_bytes:
+                break
+            frames.append(frame)
+            total += len(frame)
+            nxt += 1
+        return b"".join(frames), [len(f) for f in frames], nxt, end
+
+    def replica_sync(self, replica_id: str, cursors: dict,
+                     max_bytes: int = 4 * 1024 * 1024) -> dict:
+        """One whole replication round in one round trip, so a follower
+        does not tax the produce path it shares the broker with by polling
+        ``topics``, each partition's :meth:`fetch_frames` and
+        :meth:`replica_hwm` apart. ``cursors`` is the follower's ``{topic:
+        [next_offset per partition]}``; it doubles as its high-watermark
+        report (what the follower has is what is safely replicated).
+        Returns ``{"topics": {topic: n_partitions}, "parts": {topic:
+        [(blob, lengths, next_offset, end_offset), ...]}}``; topics the
+        follower has no cursor for yet are served from offset 0 so it can
+        mirror and append in the same round. ``max_bytes`` caps the payload
+        across all partitions — the rest comes next round."""
+        self.replica_hwm(replica_id, cursors)
+        topics: dict[str, int] = {}
+        parts: dict[str, list] = {}
+        remaining = int(max_bytes)
+        for topic in self.topics():
+            plogs = self._topic(topic)
+            topics[topic] = len(plogs)
+            starts = cursors.get(topic) or []
+            entries = []
+            for p, plog in enumerate(plogs):
+                start = int(starts[p]) if p < len(starts) else 0
+                end = plog.end_offset()
+                if remaining > 0 and start < end:
+                    blob, lengths, nxt, end = self.fetch_frames(
+                        topic, p, start, max_bytes=remaining)
+                    remaining -= len(blob)
+                else:
+                    blob, lengths, nxt = b"", [], start
+                entries.append((blob, lengths, nxt, end))
+            parts[topic] = entries
+        return {"topics": topics, "parts": parts}
+
+    def replica_hwm(self, replica_id: str | None = None,
+                    hwms: dict | None = None) -> dict:
+        """Follower-reported replicated high-watermarks.
+
+        A follower calls this with its ``replica_id`` and a ``{topic:
+        [per-partition next offsets]}`` map after each pull round; anyone (a
+        :class:`~repro_torch.data.replication.FailoverBroker` confirming
+        its resend window) calls it bare to read the whole ``{replica_id:
+        {topic: [hwm]}}`` map back."""
+        with self._lock:
+            if replica_id is not None and hwms is not None:
+                self._replica_hwms[str(replica_id)] = {
+                    str(t): [int(o) for o in offs]
+                    for t, offs in hwms.items()}
+            return {r: {t: list(offs) for t, offs in m.items()}
+                    for r, m in self._replica_hwms.items()}
+
+    def _record_group_event(self, event: tuple) -> None:
+        """Append one commit/generation event to the commit topic (when
+        configured) so group progress survives a failover. Never on the
+        replay path, and never for the commit topic itself."""
+        if self.commit_topic is None or self._commit_replay:
+            return
+        with self._lock:
+            missing = self.commit_topic not in self._topics
+        if missing:
+            self.create_topic(self.commit_topic, 1)
+        self._topic(self.commit_topic)[0].append(None, event, 0.0)
+        self._m_produce[self.commit_topic].inc()
+
+    def restore_commits(self) -> int:
+        """Replay the commit topic into per-group committed offsets and the
+        coordinator's generation floor — the restart and promotion path
+        (data topics are restored by ``DurableLogFactory.restore``).
+        Offsets are clamped to the local log end: replication of the data
+        may trail replication of the commit record, and a committed offset
+        past the log would wedge every reader. Returns the number of events
+        applied."""
+        if self.commit_topic is None:
+            return 0
+        with self._lock:
+            if self.commit_topic not in self._topics:
+                return 0
+        plog = self._topic(self.commit_topic)[0]
+        applied = 0
+        self._commit_replay = True
+        try:
+            for rec in plog.read(0, plog.end_offset()):
+                event = tuple(rec.value)
+                if event[0] == "commit":
+                    _, group, topic, partition, offset = event
+                    try:
+                        logs = self._topic(topic)
+                    except KeyError:
+                        continue           # data topic not replicated (yet)
+                    if not 0 <= int(partition) < len(logs):
+                        continue
+                    offset = min(int(offset),
+                                 logs[int(partition)].end_offset())
+                    with self._lock:
+                        done = self._committed[topic].setdefault(
+                            str(group), [0] * len(logs))
+                        if len(done) < len(logs):
+                            done.extend([0] * (len(logs) - len(done)))
+                        done[int(partition)] = max(done[int(partition)],
+                                                   offset)
+                elif event[0] == "gen":
+                    _, group, generation = event
+                    self.coordinator.seed_generation(str(group),
+                                                     int(generation))
+                applied += 1
+        finally:
+            self._commit_replay = False
+        return applied
+
     # -- producer ---------------------------------------------------------
     def produce(self, topic: str, value: Any, key: bytes | None = None,
                 partition: int | None = None, timestamp: float = 0.0) -> int:
+        self._require_writable()
         logs = self._topic(topic)
         if partition is None:
             partition = _route_partition(key, len(logs))
@@ -250,6 +495,7 @@ class Broker:
         its key (:func:`_route_partition`). With an explicit ``partition``,
         a log with ``append_many`` (the durable log) takes the whole batch
         in one call: one write and at most one fsync."""
+        self._require_writable()
         logs = self._topic(topic)
         if partition is not None:
             self._partition(topic, partition)
@@ -306,6 +552,7 @@ class Broker:
         # network-facing via the transport: a bad partition (negative Python
         # indexing) or an offset past the log end must not poison the lag
         # signal backpressure runs on
+        self._require_writable()
         logs = self._topic(topic)
         if not 0 <= partition < len(logs):
             raise ValueError(
@@ -317,14 +564,25 @@ class Broker:
                 f"[0, {logs[partition].end_offset()}] for "
                 f"{topic!r}[{partition}]")
         if generation is not None:
-            raise NotImplementedError(
-                "generation-fenced commits need the group coordinator, "
-                "ROADMAP Queue 1 item 3.6")
+            # generation fencing: only a live member of `group` at the
+            # current generation that owns the partition may advance it — a
+            # zombie consumer's commit raises StaleGenerationError instead
+            # of corrupting the group's lag signal. Checked before taking
+            # self._lock (coordinator -> broker lock order).
+            self.coordinator.check_commit(group, consumer, generation,
+                                          topic=topic, partition=partition)
         with self._lock:
             done = self._committed[topic].setdefault(group, [0] * len(logs))
             if len(done) < len(logs):
                 done.extend([0] * (len(logs) - len(done)))
+            advanced = offset > done[partition]
             done[partition] = max(done[partition], offset)
+        if advanced and topic != self.commit_topic:
+            # the durable (and so replicated) record of the advance: one
+            # append a committing micro-batch, the price of group progress
+            # surviving a broker failover (see restore_commits)
+            self._record_group_event(("commit", group, topic, partition,
+                                      offset))
 
     def committed(self, topic: str, group: str = DEFAULT_GROUP) -> list[int]:
         logs = self._topic(topic)
@@ -345,6 +603,42 @@ class Broker:
         measured against ``group``'s committed offsets."""
         return sum(self.end_offsets(topic)) - sum(self.committed(topic,
                                                                  group))
+
+    # -- consumer groups ---------------------------------------------------
+    @property
+    def coordinator(self):
+        """The broker-hosted :class:`~repro_torch.data.groups
+        .GroupCoordinator`, created on first use. Tests install a
+        fake-clock coordinator by assigning ``broker._coordinator`` before
+        the first group op."""
+        with self._coord_lock:
+            if self._coordinator is None:
+                # imported here: the groups module imports the transport,
+                # which imports this one
+                from repro_torch.data.groups import GroupCoordinator
+                self._coordinator = GroupCoordinator(self)
+            return self._coordinator
+
+    def join_group(self, group: str, consumer: str, topics: Sequence[str],
+                   session_timeout: float = 5.0) -> dict:
+        # group membership is primary-side state: joining a fenced zombie or
+        # an unpromoted replica would split the group across brokers
+        self._require_writable()
+        return self.coordinator.join_group(group, consumer, topics,
+                                           session_timeout=session_timeout)
+
+    def heartbeat(self, group: str, consumer: str, generation: int) -> dict:
+        return self.coordinator.heartbeat(group, consumer, generation)
+
+    def sync_group(self, group: str, consumer: str,
+                   generation: int) -> dict:
+        return self.coordinator.sync_group(group, consumer, generation)
+
+    def leave_group(self, group: str, consumer: str) -> None:
+        return self.coordinator.leave_group(group, consumer)
+
+    def describe_group(self, group: str) -> dict:
+        return self.coordinator.describe(group)
 
 
 def create_rdd(context: Context, broker: Broker,

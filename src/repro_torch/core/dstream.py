@@ -32,9 +32,13 @@ Each committed batch leaves one trace span (:class:`~repro_torch.data
 ``batch_fn``, ``sinks``, ``state_commit``, ``checkpoint``,
 ``broker_commit`` and ``delivery_submit``, tagged with the checkpoint epoch —
 and moves the reference's ``stream_*`` instruments;
-:meth:`StreamingContext.serve_observability` serves both over HTTP. The
-reference's consumer groups (``join_group``, ROADMAP Queue 1 item 3.6) and
-its failover rebase (item 3.7) are left out.
+:meth:`StreamingContext.serve_observability` serves both over HTTP.
+
+In consumer-group mode (:meth:`StreamingContext.join_group`) the context
+consumes only the partitions the group's coordinator assigns it and commits
+under ``(group, consumer, generation)``, so a stale owner is fenced. Over a
+:class:`~repro_torch.data.replication.FailoverBroker` the context rebases
+its cursor onto the promoted broker's log after each failover.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from repro_torch.core.broker import Broker, OffsetRange, create_rdd
 from repro_torch.core.rdd import RDD, Context
 from repro_torch.data.codec import compose_decoder
 from repro_torch.data.delivery import DeliveryRuntime
+from repro_torch.data.groups import GroupError, GroupMember
 from repro_torch.data.metrics import TraceLog, get_registry
 from repro_torch.data.obs_server import ObservabilityServer, lag_health
 from repro_torch.utils import get_logger
@@ -60,6 +65,14 @@ def _stage(rec: Any, name: str):
     """A span-stage timer when a recorder is present, else a no-op — so
     ``_commit`` reads the same with and without tracing."""
     return rec.stage(name) if rec is not None else nullcontext()
+
+
+def _keep_max(pending: dict[tuple[str, int], int],
+              offsets: Sequence[tuple[str, int, int]]) -> None:
+    """Record ``(topic, partition, offset)`` progress to commit again,
+    keeping the furthest offset of each partition."""
+    for topic, p, until in offsets:
+        pending[(topic, p)] = max(until, pending.get((topic, p), 0))
 
 
 @dataclass
@@ -145,8 +158,27 @@ class StreamingContext:
         # per-topic produce round-robin cursor, kept across batches so short
         # polls do not restart at partition 0 every batch
         self._rr: dict[str, int] = {}
+        # HA: a FailoverBroker bumps .failovers when it promotes a new
+        # primary; the new primary's log may be shorter than our cursor
+        # (asynchronous replication lost the tail), so the cursor is rebased
+        self._last_failovers = getattr(broker, "failovers", 0)
+        self.cursors_rewound = 0           # partition cursors the rebase moved
         # windowers whose state rides this context's commit protocol
         self._window_states: list[tuple[str, Any]] = []
+        # consumer-group mode (join_group): when set, only assigned
+        # partitions are consumed and broker commits carry (group, consumer,
+        # generation) so the coordinator can fence stale owners
+        self.group_member: GroupMember | None = None
+        self._group_owned: dict[str, set[int]] = {}
+        self._group_start_offset: Callable[[str, int], int | None] | None = \
+            None
+        self._group_on_rebalance: Callable[[dict, dict], None] | None = None
+        # (topic, partition) -> offset processed here whose group commit was
+        # fenced; committed again under the new generation while still owned
+        self._group_unacked: dict[tuple[str, int], int] = {}
+        # (topic, partition) -> offset processed here whose commit the broker
+        # promoted mid-batch refused; committed again after the rebase
+        self._failover_unacked: dict[tuple[str, int], int] = {}
         self._progress = (StreamProgress.load(checkpoint_path)
                           if checkpoint_path else StreamProgress())
         self._history: list[BatchInfo] = []
@@ -180,6 +212,11 @@ class StreamingContext:
             self._registry.gauge(
                 "stream_lag", help="produced-but-unprocessed records",
                 labels={"topic": t}, callback=lambda t=t: self.lag(t))
+        if new and self.group_member is not None:
+            # subscription changed while in a group: re-join so the
+            # coordinator assigns the new topics' partitions too
+            self.group_member.topics = list(self._topics)
+            self.group_member.join()
 
     def subscribe_source(self, source: Any, topic: str | None = None,
                          partitions: int = 1) -> str:
@@ -201,6 +238,68 @@ class StreamingContext:
             n = 64
         self._sources.append((source, topic, n))
         return topic
+
+    # -- consumer-group mode ------------------------------------------------
+    def join_group(self, group: str, consumer_id: str | None = None, *,
+                   heartbeat_interval: float = 1.0,
+                   session_timeout: float = 5.0,
+                   start_offset: Callable[[str, int], int | None] | None = None,
+                   on_rebalance: Callable[[dict, dict], None] | None = None,
+                   clock: Callable[[], float] | None = None) -> GroupMember:
+        """Enter consumer-group mode: this context consumes only the
+        partitions the group coordinator assigns it, heartbeats at the top
+        of every micro-batch, and commits offsets under ``(group, consumer,
+        generation)`` so a stale owner is fenced instead of corrupting the
+        group's progress.
+
+        ``start_offset(topic, partition)`` resolves where a newly *gained*
+        partition starts (from a handoff checkpoint, say — see
+        :class:`~repro_torch.data.groups.GroupConsumer`); ``None`` falls back
+        to the group's committed offset on the broker. ``on_rebalance
+        (old_assignment, new_assignment)`` fires after the context applied
+        an ownership change. Returns the :class:`~repro_torch.data.groups
+        .GroupMember`, whose ``leave()`` runs in :meth:`close`."""
+        if self.group_member is not None:
+            raise ValueError("context already joined group "
+                             f"{self.group_member.group!r}")
+        self._group_start_offset = start_offset
+        self._group_on_rebalance = on_rebalance
+        self.group_member = GroupMember(
+            self.broker, group, consumer_id, topics=list(self._topics),
+            heartbeat_interval=heartbeat_interval,
+            session_timeout=session_timeout, clock=clock,
+            on_rebalance=self._apply_group_assignment)
+        self._registry.gauge(
+            "stream_group_partitions",
+            help="partitions this consumer currently owns",
+            labels={"group": group},
+            callback=lambda: sum(len(p) for p in self._group_owned.values()))
+        self.group_member.join()
+        return self.group_member
+
+    def _apply_group_assignment(self, old: dict, new: dict) -> None:
+        """Adopt a new partition assignment: newly gained partitions get
+        their start offset resolved (handoff checkpoint, else the group's
+        broker-committed offset); lost partitions simply stop appearing in
+        :meth:`_pending_ranges`. Fires the user ``on_rebalance`` last."""
+        member = self.group_member
+        for topic in self._topics:
+            owned = set(new.get(topic, []))
+            prev = self._group_owned.get(topic, set())
+            starts = self._consumed(topic, self.broker.num_partitions(topic))
+            for p in sorted(owned - prev):
+                start = None
+                if self._group_start_offset is not None:
+                    start = self._group_start_offset(topic, p)
+                if start is None:
+                    done = self.broker.committed(topic, group=member.group)
+                    start = done[p] if p < len(done) else 0
+                if p >= len(starts):
+                    starts.extend([0] * (p + 1 - len(starts)))
+                starts[p] = int(start)
+            self._group_owned[topic] = owned
+        if self._group_on_rebalance is not None:
+            self._group_on_rebalance(old, new)
 
     def foreach_batch(self, fn: Callable[[RDD, BatchInfo], Any]) -> None:
         self._batch_fn = fn
@@ -296,10 +395,14 @@ class StreamingContext:
     def _pending_ranges(self) -> list[OffsetRange]:
         ranges: list[OffsetRange] = []
         cap = self.max_records_per_partition
+        in_group = self.group_member is not None
         for topic in self._topics:
             ends = self.broker.end_offsets(topic)
             starts = self._consumed(topic, len(ends))
+            owned = self._group_owned.get(topic, set()) if in_group else None
             for p, (start, end) in enumerate(zip(starts, ends)):
+                if owned is not None and p not in owned:
+                    continue           # another group member owns it
                 if cap is not None:
                     end = min(end, start + cap)
                 if end > start:
@@ -319,8 +422,62 @@ class StreamingContext:
                 rr += 1
             self._rr[topic] = rr
 
+    def _rebase_after_failover(self) -> None:
+        """Clamp start offsets to the new primary's log ends after a broker
+        failover. Replication is asynchronous: the promoted follower may be
+        missing a tail this consumer already read, and a start offset past
+        the log end would silently skip every record the new primary appends
+        below it. Clamping replays the gap instead — duplicates the
+        idempotent-by-key sinks absorb."""
+        for topic in self._topics:
+            ends = self.broker.end_offsets(topic)
+            starts = self._consumed(topic, len(ends))
+            for p, end in enumerate(ends):
+                if starts[p] > end:
+                    log.warning(
+                        "failover rebase: %s[%d] cursor %d is past the new "
+                        "primary's end %d; rewinding (replayed records are "
+                        "absorbed by idempotent sinks)",
+                        topic, p, starts[p], end)
+                    starts[p] = end
+                    self.cursors_rewound += 1
+        # progress that did not reach the promoted broker, refused inside
+        # the last batch or fenced before the failover: commit it again,
+        # each offset clamped to the new primary's end as the cursor was, or
+        # the broker-side lag would stay above 0 for good
+        pending, self._failover_unacked = self._failover_unacked, {}
+        _keep_max(pending, [(t, p, u) for (t, p), u
+                            in self._group_unacked.items()])
+        self._group_unacked = {}
+        ends = {t: self.broker.end_offsets(t) for t, _ in pending}
+        self._broker_commit([(t, p, min(until, ends[t][p]))
+                             for (t, p), until in sorted(pending.items())])
+
+    def _recommit_fenced(self) -> None:
+        """Commit, under the generation the member resynced at, the progress
+        whose group commit was fenced, for the partitions it still owns.
+        The local cursor is past those records, so no later batch would
+        commit them: without this the group's lag would stay above zero
+        for good when the fenced batch held a partition's last records.
+        A partition that moved is the new owner's to commit; a commit
+        fenced again is kept for the next try."""
+        pending, self._group_unacked = self._group_unacked, {}
+        self._broker_commit([(t, p, until)
+                             for (t, p), until in sorted(pending.items())
+                             if p in self._group_owned.get(t, ())])
+
     def run_one_batch(self) -> BatchInfo | None:
         """Paper Fig. 8 ``run_batch``: per-topic RDDs, union, process."""
+        failovers = getattr(self.broker, "failovers", 0)
+        if failovers != self._last_failovers:
+            self._last_failovers = failovers
+            self._rebase_after_failover()
+        if self.group_member is not None:
+            # heartbeat / rejoin as due; an ownership change lands through
+            # _apply_group_assignment before ranges are computed
+            self.group_member.maintain()
+            if self._group_unacked:
+                self._recommit_fenced()
         t_pump = time.perf_counter()
         self._pump_sources()
         ranges = self._pending_ranges()
@@ -403,8 +560,44 @@ class StreamingContext:
             with _stage(rec, "checkpoint"):
                 self._progress.save(self.checkpoint_path)
         with _stage(rec, "broker_commit"):
-            for r in ranges:
-                self.broker.commit(r.topic, r.partition, r.until)
+            self._broker_commit([(r.topic, r.partition, r.until)
+                                 for r in ranges])
+
+    def _broker_commit(self, offsets: Sequence[tuple[str, int, int]]) -> None:
+        """Push ``(topic, partition, offset)`` progress broker-side.
+
+        In group mode the commit carries (group, consumer, generation). A
+        fenced commit means the group moved on mid-batch: local progress
+        stands (a new owner replays from its own start offset; idempotent
+        sinks absorb the overlap), the member resyncs at the top of the
+        next batch and commits the fenced offsets again there for the
+        partitions it kept. A broker that failed over inside this batch
+        may refuse an offset past its log end (the promoted follower had
+        not replicated all the batch read): local progress stands too, and
+        every offset of the call is kept so that the next batch's rebase
+        commits it again, clamped to the new primary's end."""
+        member = self.group_member
+        try:
+            for topic, p, until in offsets:
+                if member is None:
+                    self.broker.commit(topic, p, until)
+                else:
+                    self.broker.commit(topic, p, until, group=member.group,
+                                       consumer=member.consumer_id,
+                                       generation=member.generation)
+        except ValueError as e:        # GroupError is a ValueError
+            failed_over = (getattr(self.broker, "failovers", 0)
+                           != self._last_failovers)
+            if isinstance(e, GroupError):
+                log.warning("group commit fenced (%s); resyncing", e)
+                member.request_resync()
+            elif failed_over:
+                log.warning("commit refused by the broker promoted during "
+                            "the batch (%s); the next batch rebases", e)
+            else:
+                raise
+            _keep_max(self._failover_unacked if failed_over
+                      else self._group_unacked, offsets)
 
     def checkpoint_now(self) -> None:
         """Checkpoint current progress + window state outside the batch loop
@@ -447,7 +640,8 @@ class StreamingContext:
         discards queued work. Raises a pending
         :class:`~repro_torch.data.delivery.DeliveryFailed`. Attached window
         state stores are closed (their last committed state stays on disk),
-        and the observability endpoint (if served) is stopped."""
+        the observability endpoint (if served) is stopped, and a group
+        member leaves its group."""
         try:
             if self._delivery is not None:
                 self._delivery.close(drain=drain)
@@ -459,6 +653,9 @@ class StreamingContext:
             if self._obs_server is not None:
                 self._obs_server.stop()
                 self._obs_server = None
+            if self.group_member is not None:
+                self.group_member.leave()
+                self.group_member = None
 
     # -- near-real-time accounting ------------------------------------------
     def realtime_report(self) -> dict[str, float]:

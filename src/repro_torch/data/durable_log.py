@@ -36,9 +36,12 @@ Creating a segment (a roll) and renaming one aside (``*.orphan``) are
 directory mutations, so under ``"always"``/``"interval"`` the partition
 directory is fsynced after each; ``"never"`` skips it.
 
-The reference's replication cursor over these frames (``read_frames``,
-``append_frames``) comes with the port's replication (ROADMAP Queue 1 item
-3.7).
+The CRC frame format doubles as the **replication wire format**: a follower
+(:class:`~repro_torch.data.replication.ReplicaFollower`) pulls committed
+frames with :meth:`DurablePartitionLog.read_frames` — raw header and payload
+bytes, verbatim — re-verifies each CRC on its side of the socket and appends
+them byte-identical with :meth:`DurablePartitionLog.append_frames`. Offsets
+stay dense and equal on both logs by construction.
 
 :class:`DurableLogFactory` adapts this to ``Broker(log_factory=...)``: the
 broker passes ``(topic, partition)`` to factories that accept them, and the
@@ -331,6 +334,70 @@ class DurablePartitionLog:
             key, value, ts = decode_message(memoryview(raw)[_REC_HEADER.size:])
             out.append(Record(key, value, offset, ts))
         return out
+
+    def read_frames(self, start: int, until: int,
+                    max_bytes: int = 4 * 1024 * 1024
+                    ) -> tuple[bytes, list[int], int]:
+        """Replication cursor: the segments' bytes for offsets ``[start,
+        min(until, end))`` as one contiguous blob plus the per-frame sizes
+        (header included), capped at ``max_bytes`` a call (at least one
+        frame whenever any is available). Returns ``(blob, lengths,
+        next_offset)``. CRCs are *not* checked here: the follower
+        re-verifies every frame before it appends (:meth:`append_frames`),
+        so a corrupt byte still cannot enter the replica's offset space,
+        and the primary's serving path stays a handful of preads."""
+        begin, entries = self._index_slice(start, until)
+        lengths: list[int] = []
+        total = 0
+        for _, _, length in entries:
+            size = _REC_HEADER.size + length
+            if lengths and total + size > max_bytes:
+                break
+            lengths.append(size)
+            total += size
+        entries = entries[:len(lengths)]
+        chunks: list[bytes] = []
+        i = 0
+        while i < len(entries):
+            # frames are append-only, so consecutive index entries in one
+            # segment are physically contiguous: coalesce the whole span
+            # into one pread instead of one syscall a frame (a catching-up
+            # follower pulls tens of thousands at a time)
+            seg_id, pos, _ = entries[i]
+            j, span = i, 0
+            while j < len(entries) and entries[j][0] == seg_id and \
+                    entries[j][1] == pos + span:
+                span += lengths[j]
+                j += 1
+            chunks.append(self._pread(self._reader_fd(seg_id), span, pos))
+            i = j
+        return b"".join(chunks), lengths, begin + len(entries)
+
+    def append_frames(self, frames: Sequence[bytes]) -> list[int]:
+        """Follower-side replication append: verify and append pre-framed
+        record bytes *verbatim* (no decode and re-encode: the CRC frame is
+        the wire format). A frame whose header or CRC does not hold fails
+        the whole batch before anything is appended: a corrupt frame must
+        never enter the offset space."""
+        checked: list[bytes] = []
+        for frame in frames:
+            frame = bytes(frame)
+            if len(frame) < _REC_HEADER.size:
+                raise ValueError(
+                    f"replicated frame of {len(frame)} bytes is shorter "
+                    "than its header")
+            length, crc = _REC_HEADER.unpack_from(frame)
+            if length != len(frame) - _REC_HEADER.size or \
+                    length > MAX_FRAME_BYTES or \
+                    zlib.crc32(memoryview(frame)[_REC_HEADER.size:]) != crc:
+                raise ValueError(
+                    "replicated frame failed its CRC/length check "
+                    "(corrupted in transit; refusing the batch)")
+            checked.append(frame)
+        if not checked:
+            return []
+        with self._lock:
+            return self._append_frames(checked, [len(f) for f in checked])
 
     def end_offset(self) -> int:
         with self._lock:

@@ -54,10 +54,10 @@ arrays, never a device tensor, which the list refuses.
 Delivery and ordering match the in-process broker: per-partition total
 order (one handler thread executes one client's requests in order; the log
 append itself is locked), no order across partitions or across clients.
-The consumer-group and replication ops of the reference's server are left
-out until ROADMAP Queue 1 items 3.6 and 3.7; a request for one gets the
-error frame of an unknown op. Locks come from
-:mod:`repro_torch.data.locktrace`.
+The server also carries the consumer-group protocol
+(:mod:`repro_torch.data.groups`) and the replication and HA ops
+(:mod:`repro_torch.data.replication`), whose errors cross the wire typed.
+Locks come from :mod:`repro_torch.data.locktrace`.
 """
 from __future__ import annotations
 
@@ -76,7 +76,8 @@ from typing import Any, Callable
 
 import numpy as np
 
-from repro_torch.core.broker import Broker, OffsetRange, Record  # noqa: F401
+from repro_torch.core.broker import (  # noqa: F401
+    Broker, BrokerFencedError, NotPrimaryError, OffsetRange, Record)
 from repro_torch.data.locktrace import new_lock, new_rlock
 from repro_torch.data.metrics import get_registry
 from repro_torch.utils import get_logger
@@ -642,14 +643,18 @@ def _make_socket(address: Any) -> socket.socket:
 # The server executes exactly these broker methods; anything else is an error
 # frame, never an attribute lookup on the broker (no remote getattr).
 # "ping", "stats", "hello" and "shm_alloc" are served by the transport
-# itself, not the broker. The reference's consumer-group ops (join_group ...
-# describe_group) and replication ops (fetch_frames ... fence) come with
-# ROADMAP Queue 1 items 3.6 and 3.7; until then they are unknown ops.
+# itself, not the broker.
 _OPS = frozenset({
     "create_topic", "topics", "num_partitions", "produce", "produce_many",
     "read", "end_offset", "end_offsets", "commit", "committed",
     "commit_groups", "lag", "ping", "stats", "hello", "shm_alloc",
     "topic_codec",
+    # consumer-group protocol (repro_torch.data.groups), hosted by the broker
+    "join_group", "heartbeat", "sync_group", "leave_group", "describe_group",
+    # replication/HA protocol (repro_torch.data.replication): followers pull
+    # raw record frames and report high-watermarks; clients fence/promote
+    "fetch_frames", "replica_sync", "replica_hwm", "broker_epoch",
+    "promote", "fence",
 })
 
 
@@ -879,9 +884,10 @@ def serve_broker(broker: Broker, address: Any = ("127.0.0.1", 0)
 
 _ERR_TYPES: dict[str, Callable[[str], Exception]] = {
     "KeyError": KeyError, "ValueError": ValueError, "TypeError": TypeError,
-    # a commit that names a generation raises this until the port's
-    # consumer groups (ROADMAP Queue 1 item 3.6) fence commits
-    "NotImplementedError": NotImplementedError,
+    # HA fencing errors must survive the wire typed: FailoverBroker reacts
+    # to them (fail over, re-point), unlike a generic TransportError
+    "BrokerFencedError": BrokerFencedError,
+    "NotPrimaryError": NotPrimaryError,
 }
 
 
@@ -1135,6 +1141,60 @@ class RemoteBroker:
 
     def lag(self, topic: str, group: str = "") -> int:
         return self._request("lag", topic, group=group)
+
+    # -- consumer groups (repro_torch.data.groups; errors arrive as
+    # GroupError / StaleGenerationError, which groups.py registers in
+    # _ERR_TYPES) ----------------------------------------------------------
+    def join_group(self, group: str, consumer: str, topics,
+                   session_timeout: float = 5.0) -> dict:
+        return self._request("join_group", group, consumer, list(topics),
+                             session_timeout=session_timeout)
+
+    def heartbeat(self, group: str, consumer: str, generation: int) -> dict:
+        return self._request("heartbeat", group, consumer, generation)
+
+    def sync_group(self, group: str, consumer: str, generation: int) -> dict:
+        return self._request("sync_group", group, consumer, generation)
+
+    def leave_group(self, group: str, consumer: str) -> None:
+        self._request("leave_group", group, consumer)
+
+    def describe_group(self, group: str) -> dict:
+        return self._request("describe_group", group)
+
+    # -- replication / HA (repro_torch.data.replication) ---------------------
+    def fetch_frames(self, topic: str, partition: int, start: int,
+                     max_bytes: int = 4 * 1024 * 1024) -> tuple:
+        """Pull committed raw record frames for replication: returns
+        ``(blob, lengths, next_offset, end_offset)`` — one contiguous blob
+        of the durable log's CRC-framed bytes, shipped verbatim, plus each
+        frame's size within it."""
+        return self._request("fetch_frames", topic, partition, start,
+                             max_bytes=max_bytes)
+
+    def replica_sync(self, replica_id: str, cursors: dict,
+                     max_bytes: int = 4 * 1024 * 1024) -> dict:
+        """One replication round in one round trip: report ``cursors`` as
+        this replica's high-watermarks and pull every partition's tail past
+        them (:meth:`repro_torch.core.broker.Broker.replica_sync`)."""
+        return self._request("replica_sync", replica_id, cursors,
+                             max_bytes=max_bytes)
+
+    def replica_hwm(self, replica_id: str | None = None,
+                    hwms: dict | None = None) -> dict:
+        """Report this replica's per-partition replicated high-watermarks
+        (when ``replica_id`` and ``hwms`` are given) and fetch the whole
+        map."""
+        return self._request("replica_hwm", replica_id=replica_id, hwms=hwms)
+
+    def broker_epoch(self) -> dict:
+        return self._request("broker_epoch")
+
+    def promote(self, epoch: int) -> dict:
+        return self._request("promote", epoch)
+
+    def fence(self, epoch: int) -> dict:
+        return self._request("fence", epoch)
 
 
 def parse_address(spec: str) -> Any:

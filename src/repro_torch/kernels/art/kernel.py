@@ -4,6 +4,7 @@ reads the system matrix as CSR (``ops.csr_rows`` builds it from the dense
 A): only the non-zeros, which are all that change f."""
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -58,8 +59,10 @@ def art_sweep(csr: CSR, b: torch.Tensor, inv_rip: torch.Tensor,
             b.data_ptr(), inv_rip.data_ptr(), f.data_ptr(), nrow, ncol,
             nslice, int(iters), float(beta), _build.current_stream(dev))
     _build.check_launch(op, rc)
-    art_sweep.launches += 1
+    with _count_lock:          # consumers of a group launch from threads
+        art_sweep.launches += 1
     return f
 
 
+_count_lock = threading.Lock()
 art_sweep.launches = 0

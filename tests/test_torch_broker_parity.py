@@ -1,30 +1,34 @@
 """The port's broker contract parity matrix on the CPU: the counterpart of
 tests/test_broker_parity.py.
 
-Every test runs against five interchangeable port backends — the
+Every test runs against six interchangeable port backends — the
 in-process :class:`Broker`, :class:`RemoteBroker` over TCP and over a Unix
 domain socket, a :class:`Broker` storing on disk through
-``DurableLogFactory``, and a :class:`CodecBroker` compressing every value
+``DurableLogFactory``, a replicated primary and follower behind
+:class:`FailoverBroker`, and a :class:`CodecBroker` compressing every value
 losslessly — pinning the duck type the rest of the port (``IngestRunner``,
 ``StreamingContext``, ``TopicSource``) relies on: identical results,
 identical error types, including ``produce_many``'s all-or-nothing
-validation. The reference's sixth backend, a replicated pair behind
-``FailoverBroker``, comes with the port's replication (ROADMAP Queue 1 item
-3.7).
+validation. Then replication across the packages: a port follower of a
+reference primary and a reference follower of a port primary both hold
+logs byte-identical to their primary's.
 
 Every test runs with the port's lock tracing on and asserts afterwards that
 the locks it took were acquired in no cyclic order.
 """
+import os
+
 import numpy as np
 import pytest
 
-from repro_torch.core.broker import Broker, OffsetRange
+from repro_torch.core.broker import COMMIT_TOPIC, Broker, OffsetRange
 from repro_torch.data import locktrace
 from repro_torch.data.codec import CodecBroker
 from repro_torch.data.durable_log import DurableLogFactory
+from repro_torch.data.replication import FailoverBroker, ReplicaFollower
 from repro_torch.data.transport import RemoteBroker, serve_broker
 
-BACKENDS = ("local", "durable", "uds", "tcp", "codec")
+BACKENDS = ("local", "durable", "uds", "tcp", "failover", "codec")
 
 
 @pytest.fixture(autouse=True)
@@ -53,6 +57,23 @@ def anybroker(request, tmp_path):
         return
     if request.param == "durable":
         yield Broker(log_factory=DurableLogFactory(str(tmp_path / "wal")))
+        return
+    if request.param == "failover":
+        # durable primary and a live follower, every call through the HA
+        # client: replication and the resend window must be invisible to
+        # the duck type (same results, same error types as every backend)
+        backing = Broker(log_factory=DurableLogFactory(str(tmp_path / "p")),
+                         commit_topic=COMMIT_TOPIC)
+        server = serve_broker(backing, str(tmp_path / "p.sock"))
+        follower = ReplicaFollower(server.address, str(tmp_path / "f"),
+                                   poll_interval=0.005)
+        faddr = follower.serve(str(tmp_path / "f.sock"))
+        follower.start()
+        client = FailoverBroker([server.address, faddr])
+        yield client
+        client.close()
+        follower.stop()
+        server.stop()
         return
     backing = Broker()
     address = (str(tmp_path / "b.sock") if request.param == "uds"
@@ -210,3 +231,76 @@ def test_torch_numpy_payloads_roundtrip_writable(anybroker):
         np.testing.assert_array_equal(got, arrs[i])
         assert got.flags.writeable
         got += 1.0                         # must not raise
+
+
+# -- replication across the packages ------------------------------------------
+
+def _seg_bytes(root, topic, parts):
+    out = {}
+    for p in range(parts):
+        pdir = root / topic / f"p{p:04d}"
+        for name in sorted(os.listdir(pdir)):
+            if name.endswith(".seg"):
+                out[(p, name)] = (pdir / name).read_bytes()
+    return out
+
+
+@pytest.mark.parametrize("leader", ["reference", "port"])
+def test_torch_follower_of_the_other_package_is_byte_identical(tmp_path,
+                                                               leader):
+    """A port :class:`ReplicaFollower` pulling from a reference primary, and
+    a reference follower pulling from a port primary, over a Unix socket:
+    each follower's segment files hold its primary's bytes, its records read
+    back equal, its high-watermarks reach the primary, and ``read_frames``
+    serves the same blobs from either package's log."""
+    from repro.core.broker import COMMIT_TOPIC as REF_COMMIT_TOPIC
+    from repro.core.broker import Broker as RefBroker
+    from repro.data.durable_log import DurableLogFactory as RefFactory
+    from repro.data.replication import ReplicaFollower as RefFollower
+    from repro.data.transport import serve_broker as ref_serve
+
+    if leader == "reference":
+        primary = RefBroker(log_factory=RefFactory(str(tmp_path / "p")),
+                            commit_topic=REF_COMMIT_TOPIC)
+        server = ref_serve(primary, str(tmp_path / "p.sock"))
+        follower = ReplicaFollower(server.address, str(tmp_path / "f"))
+    else:
+        primary = Broker(log_factory=DurableLogFactory(str(tmp_path / "p")),
+                         commit_topic=COMMIT_TOPIC)
+        server = serve_broker(primary, str(tmp_path / "p.sock"))
+        follower = RefFollower(server.address, str(tmp_path / "f"))
+    frames = [(f"frame-{i:06d}".encode(),
+               (i, np.full((16, 16), i, np.float32))) for i in range(24)]
+    try:
+        primary.create_topic("frames", 2)
+        primary.produce_many("frames", frames)
+        primary.produce_many("frames", [(None, {"i": i}) for i in range(5)],
+                             partition=1)
+        primary.commit("frames", 0, 3, group="g")
+        while follower.sync_once():
+            pass
+        ends = primary.end_offsets("frames")
+        assert follower.broker.end_offsets("frames") == ends
+        assert (_seg_bytes(tmp_path / "f", "frames", 2)
+                == _seg_bytes(tmp_path / "p", "frames", 2) != {})
+        assert (_seg_bytes(tmp_path / "f", COMMIT_TOPIC, 1)
+                == _seg_bytes(tmp_path / "p", COMMIT_TOPIC, 1) != {})
+        for p, end in enumerate(ends):
+            got = follower.broker._topic("frames")[p].read(0, end)
+            want = primary._topic("frames")[p].read(0, end)
+            assert [(r.key, r.offset) for r in got] == \
+                [(r.key, r.offset) for r in want]
+            for a, b in zip(got, want):
+                if isinstance(b.value, tuple):
+                    assert a.value[0] == b.value[0]
+                    np.testing.assert_array_equal(a.value[1], b.value[1])
+                else:
+                    assert a.value == b.value
+            assert (follower.broker._topic("frames")[p].read_frames(0, end)
+                    == primary._topic("frames")[p].read_frames(0, end))
+        assert primary.replica_hwm()[follower.replica_id]["frames"] == ends
+        follower.broker.promote(1)
+        assert follower.broker.committed("frames", group="g") == [3, 0]
+    finally:
+        follower.stop()
+        server.stop()

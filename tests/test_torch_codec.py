@@ -273,12 +273,15 @@ def test_torch_codec_metrics_account_reduction():
 # -- composition with durability ---------------------------------------------------
 
 def test_torch_codec_durable_log_byte_identity_with_codec(tmp_path):
-    """The port's counterpart of the reference's replication test, whose
-    follower the port has not yet (ROADMAP Queue 1 item 3.7): codec'd
+    """The port's counterpart of the reference's replication test: codec'd
     payloads are opaque to the broker, so the same compressed topic written
     through the port's durable log and the reference's lands byte-identical
-    segment files, and either log's records decode to the values."""
+    segment files, a port follower replicating the port's log over a Unix
+    socket holds the same bytes, and every log's records decode to the
+    values."""
     from repro_torch.data.durable_log import DurableLogFactory
+    from repro_torch.data.replication import ReplicaFollower
+    from repro_torch.data.transport import serve_broker
 
     values = [{"i": i, "blob": b"x" * 200} for i in range(30)]
     pairs = [(f"k{i}".encode(), get_codec("zlib").encode(v))
@@ -292,22 +295,34 @@ def test_torch_codec_durable_log_byte_identity_with_codec(tmp_path):
     ref.produce_many("t", [(k, jax_codec.get_codec("zlib").encode(v))
                            for (k, _), v in zip(pairs, values)])
     assert port.end_offsets("t") == ref.end_offsets("t")
-    for p in range(2):
-        pdir = tmp_path / "port" / "t" / f"p{p:04d}"
-        rdir = tmp_path / "ref" / "t" / f"p{p:04d}"
-        segs = sorted(f for f in os.listdir(pdir) if f.endswith(".seg"))
-        assert segs == sorted(f for f in os.listdir(rdir)
-                              if f.endswith(".seg"))
-        for seg in segs:
-            assert (pdir / seg).read_bytes() == (rdir / seg).read_bytes()
-    got = []
-    for p in range(2):
-        end = port.end_offset("t", p)
-        got += [maybe_decode(r.value)
-                for r in port.read(OffsetRange("t", p, 0, end))]
-        got += [jax_codec.maybe_decode(r.value)
-                for r in ref.read(JaxOffsetRange("t", p, 0, end))]
-    assert sorted(v["i"] for v in got) == sorted(2 * list(range(30)))
+    server = serve_broker(port, str(tmp_path / "p.sock"))
+    fol = ReplicaFollower(server.address, str(tmp_path / "replica"))
+    try:
+        while fol.sync_once():
+            pass
+        for p in range(2):
+            pdir = tmp_path / "port" / "t" / f"p{p:04d}"
+            segs = sorted(f for f in os.listdir(pdir) if f.endswith(".seg"))
+            for other in ("ref", "replica"):
+                odir = tmp_path / other / "t" / f"p{p:04d}"
+                assert segs == sorted(f for f in os.listdir(odir)
+                                      if f.endswith(".seg"))
+                for seg in segs:
+                    assert (pdir / seg).read_bytes() == \
+                        (odir / seg).read_bytes()
+        got = []
+        for p in range(2):
+            end = port.end_offset("t", p)
+            got += [maybe_decode(r.value)
+                    for r in port.read(OffsetRange("t", p, 0, end))]
+            got += [maybe_decode(r.value)
+                    for r in fol.broker.read(OffsetRange("t", p, 0, end))]
+            got += [jax_codec.maybe_decode(r.value)
+                    for r in ref.read(JaxOffsetRange("t", p, 0, end))]
+        assert sorted(v["i"] for v in got) == sorted(3 * list(range(30)))
+    finally:
+        fol.stop()
+        server.stop()
 
 
 def test_torch_codec_broker_adapter_passthrough():

@@ -30,6 +30,7 @@ from repro_torch.core.broker import Broker, OffsetRange
 from repro_torch.core.dstream import StreamingContext
 from repro_torch.core.rdd import Context
 from repro_torch.data import locktrace
+from repro_torch.data.groups import StaleGenerationError
 from repro_torch.data.ingest import IngestConfig, IngestRunner, ingest_all
 from repro_torch.data.sources import (DetectorSource, FileReplaySource,
                                       ProjectionSource, ReplayableSource,
@@ -323,8 +324,12 @@ def test_torch_consumer_group_lag_bounds_backpressure():
         runner.pump()
     assert m.produced == 16 and m.max_observed_lag == 8
     assert sorted(broker.commit_groups("t")) == ["", "g1"]
-    with pytest.raises(NotImplementedError, match="3.6"):
-        broker.commit("t", 0, 1, group="g1", consumer="c", generation=1)
+    # a commit naming a generation is fenced by the group's coordinator
+    gen = broker.join_group("g1", "c", ["t"])["generation"]
+    with pytest.raises(StaleGenerationError):
+        broker.commit("t", 0, 1, group="g1", consumer="c",
+                      generation=gen + 1)
+    assert broker.committed("t", group="g1") == ends
 
 
 # -- the same sources through both packages ---------------------------------------

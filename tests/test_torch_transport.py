@@ -5,8 +5,8 @@ and of tests/test_broker_parity.py's contract matrix over the port's
 backends; the wire between the packages, both ways (a reference client
 against the port's server and the port's client against the reference's
 server, over TCP and a Unix socket, with array and shared-memory frames);
-the ops the port's server does not serve yet; and the repaired shm release
-order.
+the group and replication ops answered as the reference's server answers
+them; and the repaired shm release order.
 
 Every test runs with the port's lock tracing on and asserts afterwards that
 the locks it took were acquired in no cyclic order.
@@ -880,36 +880,52 @@ def test_torch_wire_bytes_equal_the_reference(name):
         assert seg_a == seg_b
 
 
-_DEFERRED_OPS = sorted(jax_transport._OPS - port_transport._OPS)
+# the consumer-group and replication ops, the last the port's server took on
+_DEFERRED_OPS = sorted([
+    "join_group", "heartbeat", "sync_group", "leave_group", "describe_group",
+    "fetch_frames", "replica_sync", "replica_hwm", "broker_epoch", "promote",
+    "fence"])
 
 
 def test_torch_deferred_ops_are_the_group_and_replication_protocol():
-    assert _DEFERRED_OPS == sorted([
-        "join_group", "heartbeat", "sync_group", "leave_group",
-        "describe_group", "fetch_frames", "replica_sync", "replica_hwm",
-        "broker_epoch", "promote", "fence"])
-    assert port_transport._OPS < jax_transport._OPS
+    """The port's server executes the reference's op set, the group and
+    replication protocol included."""
+    assert port_transport._OPS == jax_transport._OPS
+    assert set(_DEFERRED_OPS) <= port_transport._OPS
 
 
 @pytest.mark.parametrize("op", _DEFERRED_OPS)
-def test_torch_server_answers_deferred_ops_as_unknown(op, served):
-    """Until the port's groups and replication, a request for one of their
-    ops gets the reference's error frame for an unknown op, and the
-    connection stays up."""
+def test_torch_server_answers_deferred_ops_as_unknown(op, served, tmp_path):
+    """Each group and replication op, sent with no arguments, gets the same
+    answer from the port's server as from the reference's server: the op is
+    known, so the broker method runs (the two that take no arguments
+    answer) or its own argument check refuses, and the connection stays
+    up."""
     from repro_torch.data.transport import decode_message, send_message
 
+    def answer(address):
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.settimeout(5)
+        sock.connect(address)
+        try:
+            send_message(sock, (op, (), {}))
+            got = decode_message(recv_frame(sock))
+            send_message(sock, ("ping", (), {}))
+            assert decode_message(recv_frame(sock)) == ("ok", "pong")
+        finally:
+            sock.close()
+        return got
+
     _, server, client = served
-    sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-    sock.settimeout(5)
-    sock.connect(server.address)
+    ref_server = jax_transport.serve_broker(JaxBroker(),
+                                            str(tmp_path / "ref.sock"))
     try:
-        send_message(sock, (op, (), {}))
-        assert decode_message(recv_frame(sock)) == (
-            "err", "ValueError", f"unknown op {op!r}")
-        send_message(sock, ("ping", (), {}))
-        assert decode_message(recv_frame(sock)) == ("ok", "pong")
+        got = answer(server.address)
+        assert got == answer(ref_server.address)
     finally:
-        sock.close()
+        ref_server.stop()
+    assert got[0] == "ok" or got[:2] == ("err", "TypeError")
+    assert "unknown op" not in repr(got)
     assert client.ping()
 
 
@@ -940,14 +956,19 @@ def test_torch_shm_pool_leaves_the_live_set_before_it_unlinks(served,
 
 
 def test_torch_generation_commit_is_refused_typed_over_the_wire(served):
-    """A commit naming a generation needs the group coordinator (ROADMAP
-    Queue 1 item 3.6): refused before it lands, with its type across the
-    socket, and nothing committed."""
+    """A commit naming a generation goes through the group's coordinator: a
+    stale generation is refused before it lands, with its type across the
+    socket, and nothing is committed; the live generation commits."""
+    from repro_torch.data.groups import GroupError, StaleGenerationError
+
     broker, _, client = served
     client.create_topic("t")
     client.produce("t", 1)
-    with pytest.raises(NotImplementedError, match="3.6"):
+    with pytest.raises(GroupError, match="unknown group"):
         client.commit("t", 0, 1, group="g", consumer="c", generation=1)
+    gen = client.join_group("g", "c", ["t"])["generation"]
+    with pytest.raises(StaleGenerationError):
+        client.commit("t", 0, 1, group="g", consumer="c", generation=gen + 1)
     assert broker.committed("t", group="g") == [0]
-    client.commit("t", 0, 1, group="g")
+    client.commit("t", 0, 1, group="g", consumer="c", generation=gen)
     assert client.committed("t", group="g") == [1]
