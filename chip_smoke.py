@@ -107,9 +107,35 @@ Phases, each fatal on failure:
      relative), both clients at one failover or more and epoch 1, the
      restarted zombie fenced, no shared-memory segment left, no kernel
      launched; the time from the kill to the next frame produced, the
-     resend window's duplicates, the cursors rewound and frames/s printed.
+     resend window's duplicates, the cursors rewound and frames/s printed;
+ 16. the Spark-MPI bridge (``TorchBridge``): in this process over an NCCL
+     group of world 1 (from a ``FileStore``), the quickstart's two
+     reductions at 2,000,000 floats (``buffer[-1]`` 5.0 on both paths, the
+     buffers equal), sum, max and mean exact against numpy and int8 within
+     0.05, each timed with CUDA events; then two spawned processes on the
+     card over gloo with CUDA tensors: the all-reduces against numpy, and
+     6 RAAR steps at 512 frames, each rank holding half the frames and
+     passing ``group=``, held to the one-process chain on the same frames
+     (1e-5 relative, L2), each rank's modulus, overlap and raar launches
+     counted;
+ 17. the §III stream with ``--elastic`` at Table II size (512 frames,
+     batches of 64, 6 steps a batch, 60 refinement steps, 4 worker slots
+     on the card): every frame consumed, the §III limits, one policy
+     observation a batch, the world within [1, 4], each scale event's
+     bridge handed to the pipeline, the peak lag within the runner's
+     bound; records shed, scale events, the stream and total times and the
+     kernels' launches printed;
+ 18. ``run_with_recovery`` over 12 RAAR steps at 512 frames on 4 worker
+     slots of the card, a checkpoint every 4 steps (``save`` and
+     ``restore(device=card)``), one worker failed before step 6: steps 4-5
+     re-run at world 3, the restored state bit-equal to the saved one, the
+     final object within 1e-5 (relative, L2) of an uncrashed run; then the
+     ``AsyncCheckpointer`` with keep 2; save and restore times and bytes
+     printed.
 It then prints a JSON line of the kernels (the ART row's
-``launches_group_handoff`` is phase 14's count), the nvidia-smi line again,
+``launches_group_handoff`` is phase 14's count; the modulus, overlap and
+raar rows carry ``launches_group_ranks``, ``launches_elastic_stream`` and
+``launches_recovery``, phases 16-18's), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1647,6 +1673,454 @@ def ha_phase(torch, dev, smi: str) -> None:
         raise AssertionError(f"kernels launched: {counts}")
 
 
+# -- phases 16-18: the compute plane ---------------------------------------
+QUICKSTART_N = 2_000_000             # the paper's 2M-float payload
+BRIDGE_INT8_REL = 0.05               # tests/test_multidevice.py:62
+GROUP_WORLD, GROUP_ITERS = 2, 6
+# the 2-rank RAAR chain against the one-process chain on the same frames:
+# |a - b| / |b| of each output (L2 norms), as tests/test_torch_bridge.py
+# holds its 4-rank chain
+GROUP_REL = 1e-5
+GROUP_TIMEOUT_S = 600
+ELASTIC_ARGS = PAPER_ARGS + ["--elastic", "--batch-frames", "64",
+                             "--iters-per-batch", "6", "--final-iters", "60"]
+RECOVERY_STEPS, RECOVERY_EVERY, RECOVERY_SLOTS = 12, 4, 4
+RECOVERY_FAILURES = {6: 1}
+RECOVERY_REL = 1e-5
+OWN_ROWS = ("modulus_project", "overlap_products", "raar_combine")
+
+
+def _rel(torch, got, want) -> float:
+    """|got - want| / |want| in the L2 norm, on the host in float64."""
+    g = torch.as_tensor(got).to("cpu", torch.complex128)
+    w = torch.as_tensor(want).to("cpu", torch.complex128)
+    return float(torch.linalg.vector_norm(g - w)
+                 / torch.linalg.vector_norm(w).clamp_min(1e-30))
+
+
+def _ptycho_frames(dev, frames: int):
+    """Phase 5's §III problem on the card: the first ``frames`` frames'
+    magnitudes and positions, the true probe and the starting waves."""
+    from repro_torch.apps.ptycho.sim import simulate
+    from repro_torch.apps.ptycho.solver import init_waves
+    problem = simulate(256, 64, 8, device=dev)
+    mags = problem.magnitudes[:frames]
+    psi = init_waves(mags, problem.probe_true)
+    return (psi, mags, problem.positions[:frames], problem.probe_true,
+            tuple(problem.object_true.shape))
+
+
+def _raar_chain(psi, mags, pos, probe, shape, iters: int,
+                group=None):
+    from repro_torch.apps.ptycho.solver import SolverConfig, raar_step
+    cfg = SolverConfig()
+    for it in range(iters):
+        psi, obj, probe, err = raar_step(psi, mags, pos, probe, shape, cfg,
+                                         it, group=group)
+    return psi, obj, probe, err
+
+
+def _group_rank(rank: int, world: int, init: str, device: str,
+                results) -> None:
+    """One of phase 16's two processes on the card: the bridge over a gloo
+    group with CUDA tensors, its all-reduces, then the RAAR chain on this
+    rank's half of the frames with ``group=``."""
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    try:
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        try:
+            from repro_torch import kernels
+            from repro_torch.core.bridge import TorchBridge
+            from repro_torch.core.rdd import Context
+
+            bridge = TorchBridge(device=dev, group=dist.group.WORLD)
+            rng = np.random.default_rng(SEED + 16)
+            parts = [rng.standard_normal(QUICKSTART_N).astype(np.float32)
+                     for _ in range(world)]
+            rdd = Context().from_partitions(
+                [torch.from_numpy(p).to(dev) for p in parts])
+            out = {}
+            for op, comp in (("sum", None), ("max", None), ("mean", None),
+                             ("int8", "int8")):
+                try:
+                    got = bridge.allreduce(rdd, "sum" if comp else op,
+                                           compression=comp)
+                    torch.cuda.synchronize()
+                    out[op] = got.cpu().numpy()
+                    out[op + "_ms"] = _time_ms(torch, lambda: bridge.allreduce(
+                        rdd, "sum" if comp else op, compression=comp),
+                        reps=10, warmup=2)
+                except RuntimeError as exc:
+                    raise RuntimeError(f"gloo all_reduce for {op!r} on CUDA "
+                                       f"tensors failed: {exc}") from exc
+            psi, mags, pos, probe, shape = _ptycho_frames(dev, F)
+            lo, hi = rank * F // world, (rank + 1) * F // world
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            psi, obj, probe, err = _raar_chain(
+                psi[lo:hi].contiguous(), mags[lo:hi].contiguous(),
+                pos[lo:hi], probe, shape, GROUP_ITERS, group=bridge.group)
+            torch.cuda.synchronize()
+            out["raar_s"] = time.perf_counter() - t0
+            out["launches"] = kernels.launch_counts()
+            out.update(psi=psi.cpu().numpy(), obj=obj.cpu().numpy(),
+                       probe=probe.cpu().numpy(), err=float(err),
+                       coords=bridge.pmi.kvs().snapshot())
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _spawn_group(world: int, tmp: Path, dev) -> list[dict]:
+    """``_group_rank`` in ``world`` spawned processes; every process is
+    stopped before this returns, and a rank that raises, dies or outlives
+    the time limit fails the phase."""
+    import multiprocessing as mp
+    import queue
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init = f"file://{tmp / 'gloo_store'}"
+    procs = [ctx.Process(target=_group_rank,
+                         args=(r, world, init, str(dev), results),
+                         daemon=True) for r in range(world)]
+    got: dict[int, dict] = {}
+    deadline = time.monotonic() + GROUP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks gave no result in "
+                                     f"{GROUP_TIMEOUT_S} s")
+            try:
+                rank, err, value = results.get(timeout=1.0)
+            except queue.Empty:
+                dead = {r: p.exitcode for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in got}
+                if dead:
+                    raise AssertionError(f"ranks died: exit codes {dead}")
+                continue
+            if err is not None:
+                raise AssertionError(f"rank {rank} failed:\n{err}")
+            got[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"rank exit codes {[p.exitcode for p in procs]}")
+    return [got[r] for r in range(world)]
+
+
+def bridge_phase(torch, dev, smi: str) -> dict:
+    """Phase 16: the bridge over NCCL at world 1 in this process (the
+    quickstart's two reductions at 2M floats, sum, max and mean exact
+    against numpy, int8 within 0.05), then two processes on the card over
+    gloo with CUDA tensors (the all-reduces against numpy, and the RAAR
+    chain at 512 frames split in halves with ``group=``, held to the
+    one-process chain)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.apps.quickstart import make_payload, run_quickstart
+    from repro_torch.core.bridge import TorchBridge
+    from repro_torch.core.rdd import Context
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            bridge = TorchBridge(device=dev, group=dist.group.WORLD)
+            t0 = time.perf_counter()
+            res = run_quickstart(QUICKSTART_N, bridge=bridge)
+            quick_s = time.perf_counter() - t0
+            mpi = res["mpi"].cpu().numpy()
+            if not (mpi[-1] == 5.0 and res["driver"][-1] == 5.0
+                    and np.array_equal(mpi, res["driver"])
+                    and np.array_equal(mpi, make_payload())):
+                raise AssertionError(f"quickstart: driver {res['driver'][-3:]}"
+                                     f", all-reduce {mpi[-3:]}")
+            part = np.random.default_rng(SEED + 16).standard_normal(
+                QUICKSTART_N).astype(np.float32)
+            rdd = Context().from_partitions([torch.from_numpy(part).to(dev)])
+            times = {}
+            for op in ("sum", "max", "mean"):
+                got = bridge.allreduce(rdd, op).cpu().numpy()
+                if not np.array_equal(got, part):    # world 1: exact
+                    raise AssertionError(f"NCCL {op} at world 1 differs "
+                                         f"from numpy by "
+                                         f"{np.abs(got - part).max()}")
+                times[op] = _time_ms(torch, lambda op=op: bridge.allreduce(
+                    rdd, op), reps=20)
+            got = bridge.allreduce(rdd, compression="int8").cpu().numpy()
+            int8_rel = float(np.linalg.norm(got - part)
+                             / np.linalg.norm(part))
+            if not int8_rel < BRIDGE_INT8_REL:
+                raise AssertionError(f"int8 relative error {int8_rel}")
+            times["int8"] = _time_ms(torch, lambda: bridge.allreduce(
+                rdd, compression="int8"), reps=20)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                TorchBridge.driver_reduce(rdd)
+            driver_ms = (time.perf_counter() - t0) / 5 * 1e3
+            coords = bridge.pmi.kvs().snapshot()
+        finally:
+            dist.destroy_process_group()
+        print(f"  NCCL world 1 on {smi}: quickstart at {QUICKSTART_N:,} "
+              f"floats, buffer[-1] 5.0 on both paths, buffers equal "
+              f"({quick_s:.3f} s with the first collective); PMI coords "
+              f"{coords}; all-reduce of 8 MB (CUDA events): sum "
+              f"{times['sum']:.4f} ms, max {times['max']:.4f} ms, mean "
+              f"{times['mean']:.4f} ms (each exact), int8 "
+              f"{times['int8']:.4f} ms (rel. error {int8_rel:.4g} < "
+              f"{BRIDGE_INT8_REL}); the driver path (to the host, numpy) "
+              f"{driver_ms:.3f} ms", flush=True)
+
+        t0 = time.perf_counter()
+        ranks = _spawn_group(GROUP_WORLD, Path(tmp), dev)
+        spawn_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED + 16)
+    parts = [rng.standard_normal(QUICKSTART_N).astype(np.float32)
+             for _ in range(GROUP_WORLD)]
+    want = {"sum": np.sum(parts, 0), "max": np.max(parts, 0),
+            "mean": np.mean(parts, 0)}
+    for r, out in enumerate(ranks):
+        for op, w in want.items():
+            np.testing.assert_allclose(out[op], w, rtol=1e-5, atol=1e-4)
+        rel = float(np.linalg.norm(out["int8"] - want["sum"])
+                    / np.linalg.norm(want["sum"]))
+        if not rel < BRIDGE_INT8_REL:
+            raise AssertionError(f"rank {r}: int8 relative error {rel}")
+        if out["coords"] != {f"coords/{i}": str(dev)
+                             for i in range(GROUP_WORLD)}:
+            raise AssertionError(f"rank {r}: PMI coords {out['coords']}")
+    print(f"  gloo, {GROUP_WORLD} processes on the card ({spawn_s:.1f} s "
+          f"with their start): sum, max and mean of {QUICKSTART_N:,} floats "
+          f"match numpy (rtol 1e-5, atol 1e-4), int8 within "
+          f"{BRIDGE_INT8_REL}; rank 0 (CUDA events) sum "
+          f"{ranks[0]['sum_ms']:.3f} ms, max {ranks[0]['max_ms']:.3f} ms, "
+          f"mean {ranks[0]['mean_ms']:.3f} ms, int8 "
+          f"{ranks[0]['int8_ms']:.3f} ms", flush=True)
+
+    psi, mags, pos, probe, shape = _ptycho_frames(dev, F)
+    one = _raar_chain(psi, mags, pos, probe, shape, GROUP_ITERS)
+    got = {"psi": np.concatenate([r["psi"] for r in ranks]),
+           "obj": ranks[0]["obj"], "probe": ranks[0]["probe"],
+           "err": np.float32(ranks[0]["err"])}
+    rels = {k: _rel(torch, got[k], one[i].cpu())
+            for i, k in enumerate(("psi", "obj", "probe", "err"))}
+    diffs = {k: float(np.abs(got[k] - one[i].cpu().numpy()).max())
+             for i, k in enumerate(("psi", "obj", "probe", "err"))}
+    expect = {"modulus_project": GROUP_ITERS, "raar_combine": GROUP_ITERS,
+              "overlap_products": 2 * GROUP_ITERS - 2, "art_sweep": 0,
+              "flash_attention": 0}
+    for r, out in enumerate(ranks):
+        print(f"  rank {r}: frames [{r * F // GROUP_WORLD}, "
+              f"{(r + 1) * F // GROUP_WORLD}), {GROUP_ITERS} raar_steps with "
+              f"group= in {out['raar_s']:.3f} s, launches {out['launches']}",
+              flush=True)
+        if out["launches"] != expect:
+            raise AssertionError(f"rank {r} launches {out['launches']} != "
+                                 f"{expect}")
+        for k in ("obj", "probe"):
+            if not np.array_equal(out[k], ranks[0][k]):
+                raise AssertionError(f"rank {r}'s {k} differs from rank 0's")
+    print(f"  the 2-rank chain against one process on the same {F} frames: "
+          f"rel. difference (L2) {rels}, max |diff| {diffs} (tol "
+          f"{GROUP_REL}); fourier error {ranks[0]['err']:.6f} vs "
+          f"{float(one[3]):.6f}", flush=True)
+    if not all(math.isfinite(v) and v <= GROUP_REL for v in rels.values()):
+        raise AssertionError(f"2-rank RAAR differs from one process: {rels}")
+    return {name: [out["launches"][name] for out in ranks]
+            for name in ("modulus_project", "overlap_products",
+                         "raar_combine")}
+
+
+def elastic_phase(torch, dev, smi: str) -> dict:
+    """Phase 17: the §III stream with ``--elastic`` at Table II size."""
+    from repro_torch import kernels
+    from repro_torch.apps.ptycho.stream import (ELASTIC_WORKERS, parse_args,
+                                                run_stream)
+
+    args = parse_args(ELASTIC_ARGS + ["--out", str(OUT / "elastic")])
+    kernels.reset_launch_counts()
+    res = run_stream(args, device=dev)
+    counts = kernels.launch_counts()
+    el = res["elastic"]
+    steps = res["iterations"]
+    expect = {"modulus_project": steps, "raar_combine": steps,
+              "overlap_products": 2 * steps - min(steps, 2),
+              "art_sweep": 0, "flash_attention": 0}
+    events = [(e.generation, e.world, e.reason) for e in el["events"]]
+    print(f"  {res['report'].records} frames in {res['report'].batches} "
+          f"batches; worlds after each batch {el['worlds']}; scale events "
+          f"{events}; bridges handed to the pipeline (world) "
+          f"{el['handed']}; peak lag {el['peak_lag']} (bound "
+          f"{el['max_pending'] + el['poll_batch']}), {el['shed']} shed; "
+          f"launches {counts}", flush=True)
+    print(f"  elastic stream on {smi}: stream {res['stream_time']:.3f} s, "
+          f"total {res['total_time']:.3f} s vs acquisition window "
+          f"{res['acquisition_window']:.1f} s -> near-real-time "
+          f"{res['near_real_time']}; final error {res['final_error']:.4f} "
+          f"(<= {MAX_FINAL_ERROR}), quality {res['quality']:.4f} "
+          f"(>= {MIN_QUALITY})", flush=True)
+    if not (res["report"].records == F and res["frames_seen"][-1] == F):
+        raise AssertionError(f"{res['report'].records} records, frames seen "
+                             f"{res['frames_seen']}")
+    if not (res["final_error"] <= MAX_FINAL_ERROR
+            and res["quality"] >= MIN_QUALITY):
+        raise AssertionError(f"error {res['final_error']}, quality "
+                             f"{res['quality']}")
+    if not el["observations"] == res["report"].batches == len(el["worlds"]):
+        raise AssertionError(f"{el['observations']} policy observations for "
+                             f"{res['report'].batches} batches")
+    if not all(1 <= w <= ELASTIC_WORKERS for w in el["worlds"]):
+        raise AssertionError(f"world outside [1, {ELASTIC_WORKERS}]: "
+                             f"{el['worlds']}")
+    if el["handed"] != [e.world for e in el["events"]]:
+        raise AssertionError(f"bridges handed {el['handed']} for events "
+                             f"{events}")
+    if not el["peak_lag"] <= el["max_pending"] + el["poll_batch"]:
+        raise AssertionError(f"peak lag {el['peak_lag']}")
+    if counts != expect or res["launches"] != expect:
+        raise AssertionError(f"launches {counts} != {expect}")
+    return counts
+
+
+def recovery_phase(torch, dev, smi: str) -> dict:
+    """Phase 18: ``run_with_recovery`` over 12 RAAR steps on 4 worker slots
+    of the card, a checkpoint every 4 steps, one worker failed before step
+    6; the state read back bit-equal to what was saved, and the final
+    object held to an uncrashed run."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.apps.ptycho.solver import SolverConfig, raar_step
+    from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
+                                        restore, save)
+    from repro_torch.core.fault import ElasticController, run_with_recovery
+
+    psi0, mags, pos, probe0, shape = _ptycho_frames(dev, F)
+    pos = torch.as_tensor(pos, device=dev)
+    cfg = SolverConfig()
+    root = OUT / "recovery"
+    shutil.rmtree(root, ignore_errors=True)
+    saved: dict[int, dict] = {}
+    steps_run: list[tuple[int, int]] = []
+    save_s, restore_s, restored_equal = [], [], []
+
+    def init_state(bridge):
+        return {"psi": psi0.clone(), "probe": probe0.clone(),
+                "obj": torch.zeros(shape, dtype=torch.complex64, device=dev)}
+
+    def advance(state, step):
+        psi, obj, probe, _ = raar_step(state["psi"], mags, pos,
+                                       state["probe"], shape, cfg, step)
+        return {"psi": psi, "probe": probe, "obj": obj}
+
+    def step_fn(bridge, state, step):
+        steps_run.append((step, bridge.world))
+        return advance(state, step)
+
+    def save_fn(state, step):
+        t0 = time.perf_counter()
+        save(str(root), step, state)
+        save_s.append(time.perf_counter() - t0)
+        saved[step] = {k: v.cpu() for k, v in state.items()}
+
+    def restore_fn(bridge):
+        like = {k: torch.empty(0) for k in ("psi", "probe", "obj")}
+        t0 = time.perf_counter()
+        state, step = restore(str(root), like, device=bridge.device)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        restored_equal.append(all(
+            torch.equal(state[k].cpu(), saved[step][k]) for k in state))
+        return state, step
+
+    controller = ElasticController(num_workers=RECOVERY_SLOTS,
+                                   devices=[dev] * RECOVERY_SLOTS)
+    kernels.reset_launch_counts()
+    state, events = run_with_recovery(
+        controller, init_state, step_fn, RECOVERY_STEPS, save_fn,
+        restore_fn, checkpoint_every=RECOVERY_EVERY,
+        failure_plan=dict(RECOVERY_FAILURES))
+    counts = kernels.launch_counts()
+    uncrashed = init_state(None)
+    for step in range(RECOVERY_STEPS):
+        uncrashed = advance(uncrashed, step)
+    rel = _rel(torch, state["obj"].cpu(), uncrashed["obj"].cpu())
+    leaf_bytes = sum(v.numel() * v.element_size() for v in state.values())
+    last = root / f"step_{latest_step(str(root)):08d}"
+    disk = sum(f.stat().st_size for f in last.iterdir())
+    print(f"  steps run (step, world): {steps_run}; events "
+          f"{[(e.generation, e.world, e.reason, e.step) for e in events]}; "
+          f"launches {counts}", flush=True)
+    rerun = [s for s, w in steps_run if w == RECOVERY_SLOTS - 1]
+    if not (controller.world == RECOVERY_SLOTS - 1 and len(events) == 1
+            and rerun[:2] == [4, 5]
+            and [s for s, _ in steps_run].count(4) == 2):
+        raise AssertionError(f"recovery ran {steps_run}, events {events}")
+    for step in sorted(saved):             # every checkpoint, read back
+        like = {k: torch.empty(0) for k in saved[step]}
+        back, _ = restore(str(root), like, step=step, device=dev)
+        restored_equal.append(all(torch.equal(back[k].cpu(), v)
+                                  for k, v in saved[step].items()))
+    if not (len(restored_equal) == len(saved) + 1 and all(restored_equal)):
+        raise AssertionError(f"restored state bit-equal: {restored_equal}")
+    if not rel <= RECOVERY_REL:
+        raise AssertionError(f"final object rel. difference {rel} > "
+                             f"{RECOVERY_REL}")
+    n_steps = len(steps_run)
+    expect = {"modulus_project": n_steps, "raar_combine": n_steps,
+              "overlap_products": 2 * n_steps - sum(
+                  1 for s, _ in steps_run if s < 2),
+              "art_sweep": 0, "flash_attention": 0}
+    if counts != expect:
+        raise AssertionError(f"launches {counts} != {expect}")
+
+    ck = AsyncCheckpointer(str(root / "async"), keep=2)
+    t0 = time.perf_counter()
+    for step in (4, 8, 12):
+        ck.save(step, state)
+    ck.wait()
+    async_s = time.perf_counter() - t0
+    kept = sorted(p.name for p in (root / "async").iterdir()
+                  if p.name.startswith("step_"))
+    back, step = restore(str(root / "async"), state, device=dev)
+    if kept != ["step_00000008", "step_00000012"] or step != 12 or not all(
+            torch.equal(back[k], state[k]) for k in state):
+        raise AssertionError(f"async checkpointer kept {kept}, step {step}")
+    print(f"  recovery OK on {smi}: steps 4-5 re-ran at world "
+          f"{RECOVERY_SLOTS - 1}; the recovery's restore and each of "
+          f"steps {sorted(saved)} read back bit-equal; final object rel. difference (L2) {rel:.3g} from "
+          f"the uncrashed {RECOVERY_STEPS}-step run (tol {RECOVERY_REL}); "
+          f"state {leaf_bytes / 2**20:.2f} MiB, {disk / 2**20:.2f} MiB on "
+          f"disk a checkpoint; save (card to disk, fsynced) "
+          f"{[round(s, 4) for s in save_s]} s, restore (disk to card) "
+          f"{[round(s, 4) for s in restore_s]} s; AsyncCheckpointer 3 saves "
+          f"(keep 2) {async_s:.4f} s, kept {kept}", flush=True)
+    return counts
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print("chip_smoke: no src/repro_torch next to this script; run it "
@@ -1747,6 +2221,22 @@ def main() -> int:
     print("[15] broker HA under the card's consumer at the §III frame "
           "shape:", flush=True)
     ha_phase(torch, dev, smi)
+
+    print("[16] the Spark-MPI bridge: NCCL at world 1, then two processes "
+          "on gloo:", flush=True)
+    by_row = {row["name"]: row for row in rows}
+    for name, n in bridge_phase(torch, dev, smi).items():
+        by_row[name]["launches_group_ranks"] = n
+    print("[17] the §III stream with --elastic at Table II size:",
+          flush=True)
+    for name, n in elastic_phase(torch, dev, smi).items():
+        if name in OWN_ROWS:
+            by_row[name]["launches_elastic_stream"] = n
+    print("[18] elastic checkpoint/restart of the §III solver on the card:",
+          flush=True)
+    for name, n in recovery_phase(torch, dev, smi).items():
+        if name in OWN_ROWS:
+            by_row[name]["launches_recovery"] = n
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -14,5 +14,10 @@ topology (``python -m repro_torch.apps.ptycho.remote_ingest``) puts the
 detector in a process of its own, joined to the consumer on the card by
 the socket transport, and the HA topology (``python -m
 repro_torch.apps.ptycho.ha_failover``) keeps that consumer fed through a
-SIGKILL of the broker's primary.
+SIGKILL of the broker's primary. The compute plane (``core.pmi``,
+``core.bridge``, ``core.fault``, ``optim``, ``checkpoint``) runs the
+paper's Spark-MPI bridge on ``torch.distributed``
+(``python -m repro_torch.apps.quickstart``), the §III stream's
+``--elastic`` worker set, and checkpoint/restart on the reference's
+on-disk layout.
 """

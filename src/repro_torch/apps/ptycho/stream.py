@@ -19,6 +19,16 @@ the run serves its metrics registry and batch spans over HTTP while it
 streams, reads them back through the endpoint before ``close()``, and
 prints where each batch's time went, stage by stage.
 
+With ``--elastic`` the detector is pumped by a threaded ``IngestRunner``
+into a 2-partition topic, and a ``LagPolicy`` watches its backpressure
+lag: when reconstruction falls behind it grows an ``ElasticController``'s
+worker set, and the pipeline is handed the new bridge. The controller has
+four worker slots on the card, the counterpart of the four virtual devices
+the reference forces for ``--elastic``. As in the reference, ``process``
+does not split its RAAR step over the bridge, so this exercises the
+control loop (signal -> policy -> controller -> new bridge), not parallel
+reconstruction.
+
 With ``--restart`` the run is the reference's restart-safe windowed path
 instead (:func:`run_restart`): the detector's frame ids land in a durable
 log, RAAR runs once per *window* of frames on the device with the open
@@ -51,9 +61,11 @@ from repro_torch.apps.ptycho.solver import (SolverConfig, init_waves,
                                             raar_step, reconstruction_quality)
 from repro_torch.core.bridge import TorchBridge
 from repro_torch.core.broker import Broker
+from repro_torch.core.fault import ElasticController, LagPolicy
 from repro_torch.core.pipeline import NearRealTimePipeline, PipelineConfig
 from repro_torch.data.delivery import SinkPolicy
 from repro_torch.data.durable_log import DurableLogFactory
+from repro_torch.data.ingest import IngestConfig, IngestRunner
 from repro_torch.data.metrics import (MetricsRegistry, get_registry,
                                       set_registry)
 from repro_torch.data.obs_server import print_stream_scrape, scrape_stream
@@ -63,6 +75,10 @@ from repro_torch.data.state import DurableStateStore
 from repro_torch.data.window import WindowSpec
 from repro_torch.kernels import _build, launch_counts
 from repro_torch.utils import resolve_device
+
+# --elastic: the worker slots on the card, the counterpart of the four
+# virtual devices examples/ptycho_pipeline.py forces for --elastic
+ELASTIC_WORKERS = 4
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -77,6 +93,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--iters-per-batch", type=int, default=6)
     ap.add_argument("--final-iters", type=int, default=60)
     ap.add_argument("--fast", action="store_true")
+    ap.add_argument("--elastic", action="store_true",
+                    help="threaded ingest + LagPolicy-driven elastic scaling")
     ap.add_argument("--restart", action="store_true",
                     help="SIGKILL mid-window + resume: restart-safe windowed "
                          "state (durable log + DurableStateStore)")
@@ -103,7 +121,12 @@ def run_stream(args: argparse.Namespace,
     run made; with ``--obs-port``, also ``obs``: the endpoint's roll-up
     (:func:`~repro_torch.data.obs_server.scrape_stream`), read over HTTP
     into a registry of this run's own, and the seconds that read and the
-    endpoint's stop took, which the stream and total times leave out."""
+    endpoint's stop took, which the stream and total times leave out.
+    With ``--elastic``, also ``elastic``: the peak lag the policy saw, the
+    records shed, the final world, the controller's events, the world after
+    each batch, the world of each bridge handed to the pipeline, the number
+    of policy observations, and the runner's ``max_pending`` and
+    ``poll_batch``."""
     dev = resolve_device(device)
     launches_before = launch_counts()
     t_setup = time.perf_counter()
@@ -166,9 +189,13 @@ def run_stream(args: argparse.Namespace,
                                  if args.obs_port is not None
                                  else get_registry())
     try:
+        broker = Broker()
+        if args.elastic:
+            broker.create_topic("frames", 2)
         pipeline = NearRealTimePipeline(
-            Broker(),
-            PipelineConfig(batch_interval=0.05,
+            broker,
+            PipelineConfig(topics=("frames",) if args.elastic else (),
+                           batch_interval=0.05,
                            max_records_per_partition=args.batch_frames // 2,
                            source_partitions=2),
             process, bridge=TorchBridge(device=dev),
@@ -177,16 +204,53 @@ def run_stream(args: argparse.Namespace,
             # twice
             sinks=[metrics,
                    (artifact_sink, SinkPolicy.retry(2, queue_depth=32))])
-        pipeline.subscribe_source(source, topic="frames")
+        runner = controller = policy = None
+        if args.elastic:
+            # threaded ingest with block backpressure against the consumed
+            # offsets; LagPolicy grows the worker set when reconstruction
+            # falls behind
+            controller = ElasticController(
+                initial_workers=1, devices=[dev] * ELASTIC_WORKERS)
+            policy = LagPolicy(scale_up_lag=args.batch_frames // 2,
+                               scale_down_lag=max(1, args.batch_frames // 8),
+                               sustain=2, cooldown=0.5)
+            runner = IngestRunner(broker, consumer=pipeline.streaming)
+            runner.add(source, IngestConfig(
+                topic="frames", partitions=2, policy="block",
+                poll_batch=args.batch_frames,
+                max_pending=4 * args.batch_frames))
+        else:
+            pipeline.subscribe_source(source, topic="frames")
     finally:
         set_registry(prev_registry)
+    worlds: list[int] = []
+    handed: list[int] = []
+    if args.elastic:
+        def drive_elastic(info):
+            # on a scale event, hand the pipeline the new bridge
+            if policy.drive(controller, runner) != 0:
+                pipeline.bridge = controller.bridge()
+                handed.append(pipeline.bridge.world)
+            worlds.append(controller.world)
+
+        pipeline.streaming.add_sink(drive_elastic)
+        print(f"elastic: starting on {controller.world}/"
+              f"{controller.max_workers} workers")
     obs = None
     if args.obs_port is not None:
-        obs = pipeline.serve_observability(("127.0.0.1", args.obs_port))
+        obs = pipeline.serve_observability(("127.0.0.1", args.obs_port),
+                                           lag_policy=policy)
         print(f"observability endpoint: {obs.url}")
 
     t0 = time.perf_counter()
-    report = pipeline.run_until_drained()
+    if runner is not None:
+        runner.start()
+    try:
+        report = pipeline.run_until_drained(
+            producer_done=(lambda: runner.done) if runner else None)
+    finally:
+        if runner is not None:
+            runner.stop()
     scrape, scrape_s = None, 0.0
     if obs is not None:        # read THROUGH the endpoint, then stop it
         t_scrape = time.perf_counter()
@@ -233,6 +297,20 @@ def run_stream(args: argparse.Namespace,
     if scrape is not None:
         # the spans answer "which stage took the time", per batch epoch
         print_stream_scrape(scrape)
+    elastic = None
+    if args.elastic:
+        shed = sum(m.dropped + m.sampled_out for m in runner.metrics)
+        peak = max((o.lag for o in policy.history), default=0)
+        print(f"elastic: peak consumer lag {peak} records, {shed} shed; "
+              f"world {controller.world}/{controller.max_workers} after "
+              f"{len(controller.events)} scale event(s)")
+        for ev in controller.events:
+            print(f"  gen {ev.generation}: {ev.reason} (world {ev.world})")
+        elastic = {"peak_lag": peak, "shed": shed, "world": controller.world,
+                   "events": list(controller.events), "worlds": worlds,
+                   "handed": handed, "observations": len(policy.history),
+                   "max_pending": 4 * args.batch_frames,
+                   "poll_batch": args.batch_frames}
     print(f"final fourier error {final_err:.4f}, "
           f"phase correlation vs truth {q:.3f}")
     keys = artifact_sink.keys_on_disk()
@@ -246,6 +324,7 @@ def run_stream(args: argparse.Namespace,
             "total_time": total, "acquisition_window": acq,
             "near_real_time": total < acq, "sink_keys": keys,
             "lanes": lanes, "obs": scrape, "obs_scrape_s": scrape_s,
+            "elastic": elastic,
             "iterations": state["iteration"] + args.final_iters,
             "launches": {k: after[k] - launches_before[k] for k in after}}
 

@@ -5,7 +5,8 @@ datasets, where a partition is computed (from the broker, for the RDDs of
 ``create_rdd``) when it is asked for. ``create_rdd`` builds one partition per
 broker offset range, and each micro-batch unions the per-topic RDDs; the
 §IV path re-cuts a batch with ``Context.parallelize`` and runs its sweep
-with ``map_partitions``. The reference's threaded task scheduler (retries,
+with ``map_partitions``; ``Context.from_partitions`` hands the bridge one
+block a rank. The reference's threaded task scheduler (retries,
 speculation) and its other transformations are left out: partitions are
 computed in order, in the calling thread. On one card its threads would
 only queue on one stream, and a speculative copy would launch a kernel
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import bisect
 import itertools
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 
@@ -81,3 +82,14 @@ class Context:
             return items[bounds[idx]:bounds[idx + 1]]
 
         return RDD(self, num_partitions, compute)
+
+    def from_partitions(self, partitions: Sequence[Any]) -> RDD:
+        """An RDD whose partition ``i`` is ``partitions[i]``: the data plane
+        side of the bridge (``TorchBridge.to_rdd``, and one block a rank
+        for ``TorchBridge.run``)."""
+        parts = list(partitions)
+
+        def compute(idx: int) -> Any:
+            return parts[idx]
+
+        return RDD(self, len(parts), compute)

@@ -1,8 +1,10 @@
-"""Shared utilities of the port: logging and device resolution."""
+"""Shared utilities of the port: logging, device resolution, and a map
+over nested dicts, lists and tuples of tensors."""
 from __future__ import annotations
 
 import logging
 import os
+from typing import Any, Callable
 
 import torch
 
@@ -32,3 +34,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts, lists and tuples, with the
+    matching leaves of ``rest`` (trees of the same structure) as further
+    arguments; the structure is kept. Anything else is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)

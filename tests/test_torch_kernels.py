@@ -536,6 +536,12 @@ def test_torch_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the compute plane keeps its own copies of the reference's modules
+    # that import no JAX (pmi, compression): they are walked too
+    for module in ("core/pmi.py", "core/bridge.py", "core/fault.py",
+                   "optim/compression.py", "checkpoint/ckpt.py",
+                   "apps/quickstart.py"):
+        assert ROOT / "src" / "repro_torch" / module in files, module
     bad = []
     for path in files:
         for mod in _imported_modules(path):

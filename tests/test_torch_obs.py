@@ -20,6 +20,7 @@ import torch
 from repro.core.fault import LagPolicy
 from repro_torch.core.broker import Broker
 from repro_torch.core.dstream import StreamingContext
+from repro_torch.core.fault import LagPolicy as TorchLagPolicy
 from repro_torch.core.rdd import Context
 from repro_torch.data import locktrace
 from repro_torch.data.delivery import SinkPolicy
@@ -387,10 +388,13 @@ def test_torch_obs_start_is_idempotent_and_stop_releases(registry):
         ObservabilityServer(registry).url
 
 
-def test_torch_obs_lag_health_degrades_on_watermark(registry):
-    """``lag_policy`` is duck-typed: the reference's ``LagPolicy`` serves."""
+@pytest.mark.parametrize("policy_cls", [LagPolicy, TorchLagPolicy],
+                         ids=["reference", "port"])
+def test_torch_obs_lag_health_degrades_on_watermark(registry, policy_cls):
+    """``lag_policy`` is duck-typed: the reference's ``LagPolicy`` serves,
+    and so does the port's."""
     lags = {"frames": 0}
-    policy = LagPolicy(100, 10, sustain=3, cooldown=5.0)
+    policy = policy_cls(100, 10, sustain=3, cooldown=5.0)
     with ObservabilityServer(
             registry, health_fn=lag_health(lambda: lags, policy)) as srv:
         status, body = _get_json(srv.url + "/health")
@@ -411,10 +415,12 @@ def test_torch_obs_lag_health_without_policy_never_degrades():
     assert health()["status"] == "ok"
 
 
-def test_torch_obs_lag_health_survives_torn_down_context():
+@pytest.mark.parametrize("policy_cls", [LagPolicy, TorchLagPolicy],
+                         ids=["reference", "port"])
+def test_torch_obs_lag_health_survives_torn_down_context(policy_cls):
     def lag_of():
         raise RuntimeError("context closed")
-    verdict = lag_health(lag_of, LagPolicy(100, 10))()
+    verdict = lag_health(lag_of, policy_cls(100, 10))()
     assert verdict["status"] == "degraded"
     assert "context closed" in verdict["error"]
 
