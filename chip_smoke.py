@@ -39,17 +39,18 @@ Phases, each fatal on failure:
      256); then a profile of one of its batches: device time and idle
      share;
   9. ptxas's registers, shared memory and spills of the ART kernel and
-     the two tensor-core flash kernels, the HGMMA count of the wgmma
-     kernel's SASS and the TF32 HMMA count of the tf32x3 kernel's; then
-     the three flash-attention kernels against their plain version on the
-     card: at the shapes of tests/test_kernels.py the tf32x3 kernel (fp32)
-     and the SIMT kernel (bf16); at hd 128 the tf32x3 kernel (every fp32
-     call) and the wgmma kernel (every bf16 call) at S 64 and 130 (one
-     tile, a ragged last one), 1,000 through ``ops`` and the model's
-     prefill (B 4, S 1,024, H 16, hd 128), each timed there beside its
-     bound and PyTorch's ``scaled_dot_product_attention`` (timed for the
-     table only); the SIMT kernel timed at the model's batch and sequence
-     in bf16 at hd 32;
+     the two tensor-core flash kernels (each instance, hd 128 and 256),
+     the HGMMA count of each wgmma instance's SASS and the TF32 HMMA count
+     of the tf32x3 kernel's at hd 128 and 256; then the three
+     flash-attention kernels against their plain version on the card: at
+     the shapes of tests/test_kernels.py the tf32x3 kernel (fp32) and the
+     SIMT kernel (bf16); at hd 128 and at hd 256 the tf32x3 kernel (every
+     fp32 call) and the wgmma kernel (every bf16 call) at S 64 and 130
+     (one tile, a ragged last one), 1,000 through ``ops`` and the prefill
+     shape (B 4, S 1,024, H 16: internlm2-1.8b's at hd 128, gemma-7b's at
+     hd 256), each timed there beside its bound and PyTorch's
+     ``scaled_dot_product_attention`` (timed for the table only); the
+     SIMT kernel timed at the model's batch and sequence in bf16 at hd 32;
  10. internlm2-1.8b at full width on the card from the seed: a 4 x 1,024
      prompt batch prefilled with the kernel (every launch on the wgmma
      kernel) and with the naive attention, logits and greedy tokens
@@ -132,10 +133,28 @@ Phases, each fatal on failure:
      final object within 1e-5 (relative, L2) of an uncrashed run; then the
      ``AsyncCheckpointer`` with keep 2; save and restore times and bytes
      printed.
+ 19. the dense configs at full width from the seed, each drawn in bf16
+     and released before the next: gemma-7b (hd 256), minitron-8b and
+     starcoder2-3b, each with its parameter count, a 4 x 1,024 prompt
+     batch prefilled with the kernel (one wgmma launch a layer) and with
+     the naive attention, last-token logits compared, both timed; then its
+     serve stream through ``run_serve`` (gemma-7b 8 requests of 1,024
+     tokens in batches of 4, 16 tokens out; the others one batch of 4, 8
+     tokens out), every flash launch on the wgmma kernel, with tokens/s,
+     per-batch prefill and decode and the time to first token; for
+     gemma-7b also the serve invariant in fp32 (B 2, S 256, 4 tokens, every
+     launch on the tf32x3 kernel at hd 256) on fp32 parameters drawn after
+     the bf16 ones left the card; where a prefill's and 7 decode steps'
+     device time goes (flash, GEMMs, the rest, by the profiler); each
+     model's time and peak device memory.
 It then prints a JSON line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count; the modulus, overlap and
 raar rows carry ``launches_group_ranks``, ``launches_elastic_stream`` and
-``launches_recovery``, phases 16-18's), the nvidia-smi line again,
+``launches_recovery``, phases 16-18's; the flash rows at hd 256 carry
+phase 19's counts, gemma-7b's serve stream as ``launches`` and its fp32
+invariant as ``launches_fp32_invariant``, and the wgmma row at hd 128
+``launches_dense_configs``, minitron-8b's and starcoder2-3b's served
+batches), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -207,6 +226,16 @@ REF_SLICE_ERROR = (0.6561629934299793, 0.6542791921408858,
 REF_TOL = 1e-3
 FLASH_SHAPES = ((64, 16), (128, 32), (32, 8))    # tests/test_kernels.py:124
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:136
+TC_HEAD_DIMS = (128, 256)       # the tensor-core kernels' instances
+# the flash rows of the kernels line, (design, the head dims whose launches
+# the row counts) -> name: one row a design up to hd 128, as before, and
+# one row each tensor-core instance at hd 256 (gemma-7b); together they
+# cover every built (design, hd) instance of the wrapper
+FLASH_ROWS = {("wgmma", (128,)): "wgmma, bf16 hd 128",
+              ("tf32x3", (8, 16, 32, 128)): "tf32x3, fp32",
+              ("simt", (8, 16, 32)): "simt, bf16 hd 8/16/32 only",
+              ("wgmma", (256,)): "wgmma, bf16 hd 256",
+              ("tf32x3", (256,)): "tf32x3, fp32 hd 256"}
 MODEL_B, MODEL_S, MODEL_H, MODEL_HD = 4, 1024, 16, 128
 ARCH = "internlm2-1.8b"
 # bf16 prefill of the 4 x 1,024 batch, kernel against naive attention: the
@@ -214,6 +243,16 @@ ARCH = "internlm2-1.8b"
 MAX_PREFILL_LOGIT_DIFF = 0.25
 SERVE_ARGS = ["--requests", "16", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--seed", str(SEED)]
+# phase 19: the other dense configs, each served at full width
+DENSE_ARCHS = ("gemma-7b", "minitron-8b", "starcoder2-3b")
+DENSE_SERVE_ARGS = {
+    "gemma-7b": ["--requests", "8", "--batch", "4", "--prompt-len", "1024",
+                 "--gen", "16", "--seed", str(SEED)],
+    "minitron-8b": ["--requests", "4", "--batch", "4", "--prompt-len",
+                    "1024", "--gen", "8", "--seed", str(SEED)],
+    "starcoder2-3b": ["--requests", "4", "--batch", "4", "--prompt-len",
+                      "1024", "--gen", "8", "--seed", str(SEED)],
+}
 
 
 def _nvidia_smi() -> str:
@@ -1069,11 +1108,20 @@ def group_phase(torch, dev, tomo_volume, smi: str) -> int:
     return launches
 
 
+def _instance(mangled: str) -> str:
+    """" hd N" for a kernel template's instance at head dim N, else ""."""
+    import re
+
+    m = re.search(r"kernelILi(\d+)E", mangled)
+    return f" hd {m.group(1)}" if m else ""
+
+
 def build_report(kernels: tuple[str, ...]) -> None:
     """ptxas's registers, shared memory and spills of ``kernels`` (from the
     build's log), and the tensor-core instructions in the SASS of the two
-    flash kernels that use them (cuobjdump, next to nvcc): HGMMA in the
-    wgmma kernel, TF32 HMMA in the tf32x3 one; raises if either has none."""
+    flash kernels that use them (cuobjdump, next to nvcc): HGMMA in each
+    instance of the wgmma kernel, TF32 HMMA in each of the tf32x3 one;
+    raises if one has none."""
     import re
 
     from repro_torch.kernels import _build
@@ -1085,7 +1133,7 @@ def build_report(kernels: tuple[str, ...]) -> None:
         if m:
             entry = next((k for k in kernels if k in m.group(1)), None)
             if entry:
-                print(f"  ptxas {entry} ({m.group(1)[:60]}):")
+                print(f"  ptxas {entry}{_instance(m.group(1))}:")
         elif entry and ("Used" in line or "spill" in line):
             print(f"    {line.split('ptxas info    :')[-1].strip()}")
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -1106,15 +1154,18 @@ def build_report(kernels: tuple[str, ...]) -> None:
             counts[fn, "HGMMA"] = counts.get((fn, "HGMMA"), 0) + 1
         elif fn and "HMMA" in line and "TF32" in line:
             counts[fn, "HMMA"] = counts.get((fn, "HMMA"), 0) + 1
-    for kernel, op, what in (
-            ("flash_attention_wgmma", "HGMMA", "HGMMA"),
-            ("flash_attention_tf32x3", "HMMA", "TF32 HMMA")):
-        n = sum(c for (f, o), c in counts.items() if kernel in f and o == op)
+    for kernel, op, what, dims in (
+            ("flash_attention_wgmma", "HGMMA", "HGMMA", TC_HEAD_DIMS),
+            ("flash_attention_tf32x3", "HMMA", "TF32 HMMA", TC_HEAD_DIMS)):
         total = sum(c for (_, o), c in counts.items() if o == op)
-        print(f"  {what} instructions in {kernel}_kernel's SASS: {n} (all "
-              f"functions: {total})")
-        if n == 0:
-            raise AssertionError(f"no {what} in {kernel}_kernel's SASS")
+        for hd in dims:
+            n = sum(c for (f, o), c in counts.items()
+                    if kernel in f and o == op and _instance(f) == f" hd {hd}")
+            print(f"  {what} instructions in {kernel}_kernel's SASS at hd "
+                  f"{hd}: {n} (all functions: {total})")
+            if n == 0:
+                raise AssertionError(f"no {what} in {kernel}_kernel's SASS "
+                                     f"at hd {hd}")
 
 
 def sdpa_kernels(torch, dev) -> dict[str, str]:
@@ -1146,16 +1197,18 @@ def sdpa_kernels(torch, dev) -> dict[str, str]:
     return names
 
 
-def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
+def flash_phase(torch, dev, flush) -> list[dict]:
     """The three flash kernels against their plain version (held to
     FLASH_TOL): at the test shapes (fp32 on the tf32x3 kernel, bf16 on the
-    SIMT one); at hd 128 the wgmma kernel (bf16) and the tf32x3 kernel
-    (fp32) at S 64 and 130 (one tile, a ragged last one), 1,000 through
-    ``ops`` and the model's prefill. At the model shape each is timed
+    SIMT one); at hd 128 and 256 the wgmma kernel (bf16) and the tf32x3
+    kernel (fp32) at S 64 and 130 (one tile, a ragged last one), 1,000
+    through ``ops`` and the prefill shape (B 4, S 1,024, H 16: internlm2's
+    at hd 128, gemma-7b's at hd 256). At the prefill shape each is timed
     beside its bound and PyTorch's ``scaled_dot_product_attention`` (timed
     for the table only), the tf32x3 kernel also beside the fp32-FMA bound;
     the SIMT kernel is timed at the model's batch and sequence in bf16 at
-    hd 32. Returns the wgmma, tf32x3 and SIMT rows."""
+    hd 32. Returns the rows of the kernels line, by their ``FLASH_ROWS``
+    key."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1165,6 +1218,10 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
 
     build_report(("flash_attention_wgmma_kernel",
                   "flash_attention_tf32x3_kernel", "art_csr_kernel"))
+    if {(d, hd) for d, hds in FLASH_ROWS for hd in hds} != set(
+            fk.INSTANCES):
+        raise AssertionError(f"the flash rows {list(FLASH_ROWS)} do not "
+                             f"cover the wrapper's instances {fk.INSTANCES}")
     rng = np.random.default_rng(SEED)
 
     def qkv(shape, dtype):
@@ -1182,46 +1239,50 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
         return {"name": f"flash_attention ({label}, {dtype})",
                 "max_abs_err": err}
 
-    def designed(design, fn):
-        """Run ``fn``, asserting that its one launch went to ``design``."""
-        before = dict(fk.flash_attention.launches_by_design)
+    def designed(design, hd, fn):
+        """Run ``fn``, asserting that its one launch went to ``design``'s
+        instance at ``hd``."""
+        before = dict(fk.flash_attention.launches_by_instance)
         out = fn()
-        after = fk.flash_attention.launches_by_design
-        if {d: after[d] - before[d] for d in after} != {
-                d: int(d == design) for d in after}:
-            raise AssertionError(f"expected one {design} launch: {before} -> "
-                                 f"{after}")
+        after = fk.flash_attention.launches_by_instance
+        if {i: after[i] - before[i] for i in after} != {
+                i: int(i == (design, hd)) for i in after}:
+            raise AssertionError(f"expected one {design} launch at hd {hd}: "
+                                 f"{before} -> {after}")
         return out
 
-    variants = {d: [] for d in fk.DESIGNS}
+    variants = {key: [] for key in FLASH_ROWS}
     for S, hd in FLASH_SHAPES:
         for dtype in FLASH_TOL:
             design = fk.design_for(getattr(torch, dtype), hd)
             q, k, v = qkv((4, S, hd), dtype)
-            got = designed(design, lambda: fk.flash_attention(
+            got = designed(design, hd, lambda: fk.flash_attention(
                 q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0])
-            variants[design].append(check(f"{design}, BH 4, S {S}, hd {hd}",
+            variants[_flash_row(design, hd)].append(check(f"{design}, BH 4, S {S}, hd {hd}",
                                           dtype, got,
                                           fr.attention_ref(q, k, v)))
-    for B, S, H in ((2, 64, 4), (2, 130, 4)):
-        for dtype in FLASH_TOL:
-            design = fk.design_for(getattr(torch, dtype), MODEL_HD)
-            q, k, v = qkv((B, S, H, MODEL_HD), dtype)
-            got = designed(design, lambda: fk.flash_attention(q, k, v))
-            variants[design].append(check(
-                f"{design}, B {B}, S {S}, H {H}, hd {MODEL_HD}", dtype, got,
-                fo.flash_attention(q, k, v, use_kernel=False)))
-    for dtype in FLASH_TOL:         # the tail: 1,000 = 7 x 128 + 104
-        design = fk.design_for(getattr(torch, dtype), MODEL_HD)
-        q, k, v = qkv((1, 1000, MODEL_H, MODEL_HD), dtype)
-        got = designed(design, lambda: fo.flash_attention(q, k, v))
-        variants[design].append(check(
-            f"{design} through ops, B 1, S 1000, H {MODEL_H}, hd {MODEL_HD}",
-            dtype, got, fo.flash_attention(q, k, v, use_kernel=False)))
+    for hd in TC_HEAD_DIMS:
+        for B, S, H in ((2, 64, 4), (2, 130, 4)):
+            for dtype in FLASH_TOL:
+                design = fk.design_for(getattr(torch, dtype), hd)
+                q, k, v = qkv((B, S, H, hd), dtype)
+                got = designed(design, hd,
+                               lambda: fk.flash_attention(q, k, v))
+                variants[_flash_row(design, hd)].append(check(
+                    f"{design}, B {B}, S {S}, H {H}, hd {hd}", dtype, got,
+                    fo.flash_attention(q, k, v, use_kernel=False)))
+        for dtype in FLASH_TOL:     # the tail: 1,000 = 7 x 128 + 104
+            design = fk.design_for(getattr(torch, dtype), hd)
+            q, k, v = qkv((1, 1000, MODEL_H, hd), dtype)
+            got = designed(design, hd, lambda: fo.flash_attention(q, k, v))
+            variants[_flash_row(design, hd)].append(check(
+                f"{design} through ops, B 1, S 1000, H {MODEL_H}, hd {hd}",
+                dtype, got, fo.flash_attention(q, k, v, use_kernel=False)))
     rows = {}
-    # the SIMT kernel's largest head dim at the model's batch and sequence
-    timed = (("bfloat16", MODEL_HD), ("float32", MODEL_HD),
-             ("bfloat16", max(hd for _, hd in FLASH_SHAPES)))
+    # the prefills at hd 128 and 256, and the SIMT kernel's largest head
+    # dim at the model's batch and sequence
+    timed = [(dtype, hd) for hd in TC_HEAD_DIMS for dtype in FLASH_TOL]
+    timed.append(("bfloat16", max(hd for _, hd in FLASH_SHAPES)))
     for dtype, hd in timed:
         design = fk.design_for(getattr(torch, dtype), hd)
         shape = (MODEL_B, MODEL_S, MODEL_H, hd)
@@ -1238,7 +1299,7 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-        got = designed(design, call)
+        got = designed(design, hd, call)
         row = check(f"{design}, B {MODEL_B}, S {MODEL_S}, H {MODEL_H}, hd "
                     f"{hd}", dtype, got, plain())
         sdpa_err = _max_err(torch, got.float(),
@@ -1263,26 +1324,42 @@ def flash_phase(torch, dev, flush) -> tuple[dict, dict, dict]:
             extra = (f" (3 x {ops / 1e9:.2f} GFLOP of TF32 at "
                      f"{TF32_TC_OPS_PER_S / 1e12:.0f} TFLOP/s; fp32 FMA bound "
                      f"{fma_ms:.4f} ms ({fma_by}))")
-        print(f"    {design} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}){extra}, library (SDPA) "
-              f"{library_ms:.4f} ms; max|kernel - SDPA| {sdpa_err:.3g} "
-              f"(reported)", flush=True)
+        print(f"    {design} kernel at hd {hd} {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}){extra}, "
+              f"library (SDPA) {library_ms:.4f} ms; max|kernel - SDPA| "
+              f"{sdpa_err:.3g} (reported)", flush=True)
         row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                    library_ms=library_ms, max_abs_err_vs_library=sdpa_err)
-        variants[design].append(row)
-        rows[design] = row
+        key = _flash_row(design, hd)
+        variants[key].append(row)
+        rows[key] = row
     sources = {"wgmma": "src/repro_torch/csrc/flash_attention_wgmma.cu",
                "tf32x3": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
                "simt": "src/repro_torch/csrc/flash_attention.cu"}
-    names = {"wgmma": "wgmma, bf16 hd 128", "tf32x3": "tf32x3, fp32",
-             "simt": "simt, bf16 hd 8/16/32 only"}
     replaces = "src/repro/kernels/flash_attention/kernel.py:79"
-    return tuple(dict(rows[d], name=f"flash_attention ({names[d]})",
-                      route="cuda", source=sources[d], replaces=replaces,
-                      launches=0,
-                      max_abs_err=max(v["max_abs_err"] for v in variants[d]),
-                      variants=variants[d])
-                 for d in ("wgmma", "tf32x3", "simt"))
+    return {key: dict(rows[key], name=f"flash_attention ({name})",
+                      route="cuda", source=sources[key[0]],
+                      replaces=replaces, launches=0,
+                      max_abs_err=max(v["max_abs_err"] for v in variants[key]),
+                      variants=variants[key])
+            for key, name in FLASH_ROWS.items()}
+
+
+def _flash_row(design: str, hd: int) -> tuple:
+    """The ``FLASH_ROWS`` key whose row counts ``design`` at ``hd``."""
+    return next(key for key in FLASH_ROWS if key[0] == design
+                and hd in key[1])
+
+
+def _row_launches(by_instance: dict, key: tuple) -> int:
+    """The launches of a flash row: its design's at each of its head dims,
+    from a run's per-instance counts."""
+    return sum(by_instance.get((key[0], hd), 0) for hd in key[1])
+
+
+def _launched(by_instance: dict) -> dict:
+    """The instances a run launched, with their counts."""
+    return {i: n for i, n in by_instance.items() if n}
 
 
 def _param_count(params) -> int:
@@ -1293,31 +1370,35 @@ def _param_count(params) -> int:
     return params.numel()
 
 
-def model_phase(torch, dev) -> int:
-    """internlm2-1.8b at full width: the prefill with the kernel against
-    the naive attention (bf16, every launch on the wgmma kernel), then the
-    serve invariant in fp32 (on the tf32x3 kernel). Returns the tf32x3
-    kernel's launches in the invariant's run."""
-    import numpy as np
-
-    from repro_torch import kernels
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fk
+def _draw(torch, dev, config):
+    """The config's parameters drawn on the card from SEED, printed with
+    their count and size."""
     from repro_torch.models import transformer
 
-    config = get_config(ARCH)
     t0 = time.perf_counter()
     params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
                               config)
     torch.cuda.synchronize()
     n = _param_count(params)
-    print(f"  {ARCH}: {config.num_layers} layers, d_model {config.d_model}, "
-          f"{config.num_heads}/{config.num_kv_heads} heads of "
-          f"{config.resolved_head_dim}, d_ff {config.d_ff}, vocab "
+    size = n * torch.finfo(config.parameter_dtype).bits / 8
+    print(f"  {config.name}: {config.num_layers} layers, d_model "
+          f"{config.d_model}, {config.num_heads}/{config.num_kv_heads} heads "
+          f"of {config.resolved_head_dim}, d_ff {config.d_ff}, vocab "
           f"{config.vocab_size}: {n / 1e9:.3f} B parameters, "
-          f"{n * 2 / 1e9:.2f} GB in bf16, drawn on the card in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
-    rng = np.random.default_rng(SEED)
+          f"{size / 1e9:.2f} GB in {config.param_dtype}, drawn on the card "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    return params
+
+
+def prefill_check(torch, dev, config, params, rng) -> None:
+    """The bf16 prefill of MODEL_B x MODEL_S tokens drawn from ``rng`` with
+    the kernel (every launch on the wgmma kernel at the config's head dim,
+    one a layer) against the naive attention: last-token logits within
+    MAX_PREFILL_LOGIT_DIFF; both timed."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+
     tokens = torch.from_numpy(rng.integers(
         0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
     naive = config.replace(attention_impl="naive")
@@ -1325,7 +1406,7 @@ def model_phase(torch, dev) -> int:
         kernels.reset_launch_counts()
         lk, _ = transformer.prefill(params, {"tokens": tokens}, config)
         launched = kernels.launch_counts()["flash_attention"]
-        by_design = dict(fk.flash_attention.launches_by_design)
+        by_instance = _launched(fk.flash_attention.launches_by_instance)
         ln, _ = transformer.prefill(params, {"tokens": tokens}, naive)
         ms_k = _time_ms(torch, lambda: transformer.prefill(
             params, {"tokens": tokens}, config), reps=3, warmup=1)
@@ -1338,27 +1419,35 @@ def model_phase(torch, dev) -> int:
     diff = _max_err(torch, lk.float(), ln.float())
     agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
     print(f"  bf16 prefill of {MODEL_B} x {MODEL_S} tokens: kernel "
-          f"({launched} launches, {by_design}) against naive attention: "
+          f"({launched} launches, {by_instance}) against naive attention: "
           f"last-token "
           f"logits max|diff| {diff:.4g} (limit {MAX_PREFILL_LOGIT_DIFF}; "
           f"max|logit| {float(ln.float().abs().max()):.3g}), greedy tokens "
           f"agree {agree}/{MODEL_B}; prefill {ms_k:.2f} ms with the kernel, "
           f"{ms_n:.2f} ms naive", flush=True)
-    if by_design != {"wgmma": config.num_layers, "tf32x3": 0, "simt": 0}:
-        raise AssertionError(f"flash launches {by_design} in a bf16 prefill "
-                             f"of {config.num_layers} layers")
+    want = {("wgmma", config.resolved_head_dim): config.num_layers}
+    if by_instance != want:
+        raise AssertionError(f"flash launches {by_instance} in a bf16 "
+                             f"prefill of {config.num_layers} layers, "
+                             f"expected {want}")
     if not diff <= MAX_PREFILL_LOGIT_DIFF:
         raise AssertionError(f"kernel and naive prefill logits differ by "
                              f"{diff} > {MAX_PREFILL_LOGIT_DIFF}")
-    del params, lk, ln
-    torch.cuda.empty_cache()
 
-    # the serve invariant of tests/test_models.py:45-84, in full fp32
+
+def invariant_check(torch, dev, config, rng) -> dict:
+    """The serve invariant of tests/test_models.py:45-84 in full fp32 (B 2,
+    S 256, 4 tokens drawn from ``rng``; every launch on the tf32x3 kernel)
+    on parameters drawn here and released before it returns; returns the
+    run's flash launches by instance."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 products would run in TF32")
     config = config.replace(dtype="float32", param_dtype="float32")
-    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
-                              config)
+    params = _draw(torch, dev, config)
     B, S, G = 2, 256, 4
     tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
                                            (B, S))).to(dev)
@@ -1380,19 +1469,39 @@ def model_phase(torch, dev) -> int:
                 raise AssertionError(f"serve invariant broken at step {g}: "
                                      f"{nxt.tolist()} != {serve[g].tolist()}")
             full = torch.cat([full, nxt[:, None]], dim=1)
-    by_design = dict(fk.flash_attention.launches_by_design)
+    by_instance = dict(fk.flash_attention.launches_by_instance)
     print(f"  fp32 serve invariant at full width (B {B}, S {S}, {G} tokens, "
-          f"the kernel on, launches {by_design}): greedy prefill + decode == "
-          f"teacher-forced prefills, tokens {torch.stack(serve, 1).tolist()}",
-          flush=True)
-    want = {"wgmma": 0, "tf32x3": (1 + G) * config.num_layers, "simt": 0}
-    if by_design != want:
-        raise AssertionError(f"flash launches {by_design} in {1 + G} fp32 "
-                             f"prefills of {config.num_layers} layers, "
-                             f"expected {want}")
-    del params, cache
+          f"the kernel on, launches {_launched(by_instance)}): greedy "
+          f"prefill + decode == teacher-forced prefills, tokens "
+          f"{torch.stack(serve, 1).tolist()}", flush=True)
+    want = {("tf32x3", config.resolved_head_dim):
+            (1 + G) * config.num_layers}
+    if _launched(by_instance) != want:
+        raise AssertionError(f"flash launches {_launched(by_instance)} in "
+                             f"{1 + G} fp32 prefills of {config.num_layers} "
+                             f"layers, expected {want}")
+    del params, cache, logits, logits2
     torch.cuda.empty_cache()
-    return by_design["tf32x3"]
+    return by_instance
+
+
+def model_phase(torch, dev) -> dict:
+    """internlm2-1.8b at full width: the prefill with the kernel against
+    the naive attention (bf16, every launch on the wgmma kernel), then the
+    serve invariant in fp32 (on the tf32x3 kernel), their tokens drawn in
+    turn from one generator seeded with SEED. Returns the invariant's flash
+    launches by instance."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+
+    config = get_config(ARCH)
+    rng = np.random.default_rng(SEED)
+    params = _draw(torch, dev, config)
+    prefill_check(torch, dev, config, params, rng)
+    del params
+    torch.cuda.empty_cache()
+    return invariant_check(torch, dev, config, rng)
 
 
 def _greedy(torch, params, config, prompts, gen: int):
@@ -1413,30 +1522,34 @@ def _greedy(torch, params, config, prompts, gen: int):
     return torch.stack([s.argmax(-1) for s in steps], 1).cpu(), steps
 
 
-def serve_phase(torch, dev) -> dict:
-    """The serve stream at full width; returns its flash launches by
-    design, every one of them on the wgmma kernel."""
+def serve_phase(torch, dev, argv=SERVE_ARGS, params=None) -> dict:
+    """The serve stream at full width through ``run_serve`` on ``argv``,
+    on ``params`` when given (else drawn from the seed); returns its flash
+    launches by instance, every one of them on the wgmma kernel at the
+    config's head dim."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import parse_args, run_serve
 
-    args = parse_args(SERVE_ARGS)
+    args = parse_args(argv)
     kernels.reset_launch_counts()
-    res = run_serve(args, device=dev)
+    res = run_serve(args, device=dev, params=params)
     counts = kernels.launch_counts()
-    by_design = dict(fk.flash_attention.launches_by_design)
+    by_instance = dict(fk.flash_attention.launches_by_instance)
     n_layers = res["config"].num_layers
+    hd = res["config"].resolved_head_dim
     batches = -(-args.requests // args.batch)
     want = batches * n_layers
     print(f"  launches {counts} (run_serve reports {res['launches']}), by "
-          f"design {by_design}; expected flash_attention {batches} batches x "
-          f"{n_layers} layers = {want}, all wgmma")
+          f"instance {_launched(by_instance)}; expected flash_attention {batches} batches x "
+          f"{n_layers} layers = {want}, all wgmma at hd {hd}")
     if counts["flash_attention"] != want or res["launches"] != counts:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"!= {want}")
-    if by_design != {"wgmma": want, "tf32x3": 0, "simt": 0}:
-        raise AssertionError(f"flash launches by design {by_design}, not "
-                             f"all {want} on the wgmma kernel")
+    if _launched(by_instance) != {("wgmma", hd): want}:
+        raise AssertionError(f"flash launches by instance "
+                             f"{_launched(by_instance)}, not all {want} on "
+                             f"the wgmma kernel at hd {hd}")
     if any(n for name, n in counts.items() if name != "flash_attention"):
         raise AssertionError(f"other kernels launched: {counts}")
     results = res["results"]
@@ -1454,7 +1567,117 @@ def serve_phase(torch, dev) -> dict:
           f"(s) {[round(x, 4) for x in res['ttft_s']]}")
     print(f"  realtime report {res['report']}; request 0 -> "
           f"{results[0][:8]}", flush=True)
-    return by_design
+    return by_instance
+
+
+def _split_ms(torch, prof) -> tuple[float, float, float, int]:
+    """A trace's device time in ms: all, the flash kernels', the GEMMs';
+    and the flash launches it saw."""
+    by_kernel = _device_us(torch, prof)
+    flash = {n: us for n, us in by_kernel.items()
+             if any(k in n for k in FLASH_KERNELS)}
+    gemm = sum(us for n, us in by_kernel.items() if n not in flash
+               and any(m in n.lower() for m in GEMM_MARKERS))
+    seen = sum(1 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and any(k in ev.name for k in FLASH_KERNELS))
+    return (sum(by_kernel.values()) / 1e3, sum(flash.values()) / 1e3,
+            gemm / 1e3, seen)
+
+
+def dense_profile(torch, dev, config, params, steps: int = 7) -> None:
+    """Where a bf16 prefill of MODEL_B x MODEL_S tokens and the ``steps``
+    decode steps after it spend the device's time: flash kernel, GEMMs and
+    the rest, by the profiler, beside each one's wall time (profiled; the
+    host clock around work that ends in a synchronize). Reported: a trace
+    that misses launches says so."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer
+
+    rng = np.random.default_rng(SEED + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        transformer.prefill(params, {"tokens": tokens}, config)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            logits, cache = transformer.prefill(
+                params, {"tokens": tokens}, config, max_len=MODEL_S + steps)
+            torch.cuda.synchronize()
+            wall_p = (time.perf_counter() - t0) * 1e3
+        split_p = _split_ms(torch, prof)
+        tok = logits[:, -1:].argmax(-1)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = transformer.decode_step(params, tok, cache,
+                                                        config)
+                tok = logits[:, -1:].argmax(-1)
+            torch.cuda.synchronize()
+            wall_d = (time.perf_counter() - t0) * 1e3
+        split_d = _split_ms(torch, prof)
+    for what, wall, (busy, flash, gemm, seen), n_flash in (
+            ("prefill", wall_p, split_p, config.num_layers),
+            (f"{steps} decode steps", wall_d, split_d, 0)):
+        if busy == 0:
+            print(f"  {config.name} {what}: the trace came back empty; "
+                  f"its device time not measured", flush=True)
+            continue
+        print(f"  {config.name} {what} (profiled): wall {wall:.2f} ms, "
+              f"device busy {busy:.2f} ms, idle share "
+              f"{max(0.0, 1 - busy / wall):.3f}; flash {flash:.2f} ms "
+              f"({seen} of {n_flash} launches seen), GEMMs {gemm:.2f} ms, "
+              f"the rest {busy - flash - gemm:.2f} ms", flush=True)
+
+
+def dense_phase(torch, dev, smi: str) -> dict:
+    """Phase 19: gemma-7b, minitron-8b and starcoder2-3b at full width, each
+    drawn from the seed in bf16 and released before the next: the prefill
+    check (every layer on the wgmma kernel, at hd 256 for gemma-7b), then
+    the serve stream through ``run_serve`` (gemma-7b 8 requests, the others
+    one batch of 4, all 1,024 tokens in, every flash launch on the wgmma
+    kernel); for gemma-7b also the fp32 serve invariant on the tf32x3
+    kernel at hd 256, on fp32 parameters drawn after the bf16 ones left.
+    Each arch's tokens come in turn from one generator seeded with SEED.
+    Returns the flash launches by instance of the serve streams summed
+    ("served") and of the invariant ("invariant")."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    out = {"served": dict.fromkeys(fk.INSTANCES, 0),
+           "invariant": dict.fromkeys(fk.INSTANCES, 0)}
+    t_phase = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(dev)     # the context up before its stats
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        config = get_config(arch)
+        rng = np.random.default_rng(SEED)
+        params = _draw(torch, dev, config)
+        prefill_check(torch, dev, config, params, rng)
+        argv = ["--arch", arch] + DENSE_SERVE_ARGS[arch]
+        for i, n in serve_phase(torch, dev, argv, params=params).items():
+            out["served"][i] += n
+        dense_profile(torch, dev, config, params)
+        del params
+        torch.cuda.empty_cache()
+        if config.resolved_head_dim == 256:
+            out["invariant"] = invariant_check(torch, dev, config, rng)
+        print(f"  {arch} done in {time.perf_counter() - t0:.1f} s, peak "
+              f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+              f" GB, on {smi}", flush=True)
+    print(f"  the dense configs at full width: flash launches served "
+          f"{_launched(out['served'])}, in the fp32 invariant "
+          f"{_launched(out['invariant'])}, in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def serve_profile_phase(torch, dev) -> None:
@@ -1511,9 +1734,7 @@ def serve_profile_phase(torch, dev) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             run_serve(args, device=dev, params=params)
         launched = kernels.launch_counts()["flash_attention"] - before
-        seen = sum(1 for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and any(k in ev.name for k in FLASH_KERNELS))
+        busy_ms, flash_ms, gemm_ms, seen = _split_ms(torch, prof)
         if seen == launched:
             break
         print(f"  profile {attempt}: the profiler saw {seen} of the "
@@ -1523,12 +1744,6 @@ def serve_profile_phase(torch, dev) -> None:
               "measured")
         return
     by_kernel = _device_us(torch, prof)
-    busy_ms = sum(by_kernel.values()) / 1e3
-    flash_ms = sum(us for name, us in by_kernel.items()
-                   if any(k in name for k in FLASH_KERNELS)) / 1e3
-    gemm_ms = sum(us for name, us in by_kernel.items()
-                  if not any(k in name for k in FLASH_KERNELS)
-                  and any(m in name.lower() for m in GEMM_MARKERS)) / 1e3
     print(f"  one batch (4 x {args.prompt_len} tokens, {args.gen} out): "
           f"wall {wall_ms:.3f} ms unprofiled (prefill "
           f"{res['prefill_s'][0] * 1e3:.3f} ms, decode "
@@ -2193,23 +2408,29 @@ def main() -> int:
     print("[9] the flash-attention kernels against their plain version (fp32 "
           "tol 1e-5, bf16 2e-2):", flush=True)
     l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    wgmma_row, tf32x3_row, simt_row = flash_phase(torch, dev,
-                                                  l2_flush.zero_)
+    flash_rows = flash_phase(torch, dev, l2_flush.zero_)
     del l2_flush
-    rows += [wgmma_row, tf32x3_row, simt_row]
-    wgmma_row["library_kernels"] = library_kernels["bfloat16"]
-    tf32x3_row["library_kernels"] = library_kernels["float32"]
+    rows += flash_rows.values()
+    # the rows of one design up to hd 128, and of each instance at hd 256
+    base_rows = [k for k in FLASH_ROWS if 256 not in k[1]]
+    hd256_rows = [k for k in FLASH_ROWS if 256 in k[1]]
+    flash_rows["wgmma", (128,)]["library_kernels"] = library_kernels[
+        "bfloat16"]
+    flash_rows["tf32x3", (8, 16, 32, 128)]["library_kernels"] = (
+        library_kernels["float32"])
 
     print(f"[10] {ARCH} at full width:", flush=True)
     # the fp32 invariant's direct prefill/decode_step loop, not the served
     # path: under a name of its own
-    tf32x3_row["launches_fp32_invariant"] = model_phase(torch, dev)
+    invariant = model_phase(torch, dev)
+    for key in base_rows:
+        flash_rows[key]["launches_fp32_invariant"] = _row_launches(invariant,
+                                                                   key)
 
     print("[11] the serve stream at full width:", flush=True)
-    by_design = serve_phase(torch, dev)
-    wgmma_row["launches"] = by_design["wgmma"]
-    tf32x3_row["launches"] = by_design["tf32x3"]
-    simt_row["launches"] = by_design["simt"]
+    served = serve_phase(torch, dev)
+    for key in base_rows:
+        flash_rows[key]["launches"] = _row_launches(served, key)
     serve_profile_phase(torch, dev)
 
     print("[12] the §III restart at Table II size:", flush=True)
@@ -2237,6 +2458,17 @@ def main() -> int:
     for name, n in recovery_phase(torch, dev, smi).items():
         if name in OWN_ROWS:
             by_row[name]["launches_recovery"] = n
+
+    print("[19] the dense configs at full width: gemma-7b (hd 256), "
+          "minitron-8b and starcoder2-3b:", flush=True)
+    dense = dense_phase(torch, dev, smi)
+    for key in hd256_rows:
+        flash_rows[key]["launches"] = _row_launches(dense["served"], key)
+        flash_rows[key]["launches_fp32_invariant"] = _row_launches(
+            dense["invariant"], key)
+    for key in base_rows:
+        flash_rows[key]["launches_dense_configs"] = _row_launches(
+            dense["served"], key)
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -12,11 +12,13 @@ from repro_torch.configs.base import DTYPES, ModelConfig
 
 ARCHS: dict[str, str] = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "gemma-7b": "repro_torch.configs.gemma_7b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
 }
 # the reference's other archs, which wait for ROADMAP Queue 1 item 8
-WAITING = ("llava-next-34b", "minitron-8b", "gemma-7b", "starcoder2-3b",
-           "whisper-medium", "recurrentgemma-2b", "rwkv6-7b",
-           "kimi-k2-1t-a32b", "granite-moe-3b-a800m")
+WAITING = ("llava-next-34b", "whisper-medium", "recurrentgemma-2b",
+           "rwkv6-7b", "kimi-k2-1t-a32b", "granite-moe-3b-a800m")
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

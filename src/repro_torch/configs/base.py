@@ -2,17 +2,22 @@
 
 The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
 names and defaults for the fields kept, but ``attention_impl``, whose
-values are the port's own (below). The reference keeps dtypes as
-strings (``dtype``, ``param_dtype``); ``DTYPES`` maps them to torch dtypes.
-Only the fields internlm2-1.8b sets or the serve path reads are kept: its
-layers are RMSNorm, a SwiGLU MLP, RoPE and an untied head. The options of
-the archs that wait (the gemma embedding scale and (1 + w) norm, LayerNorm,
-GELU and squared ReLU, ungated MLPs, learned positions, tied embeddings,
-the logit soft cap) and the fields of MoE, recurrent, audio and VLM blocks,
-sharding, remat and scan come with the slice that ports an arch setting
-them. ``local_window`` and ``is_encoder_decoder`` stay so that a config
-asking for a sliding window or cross-attention is refused, not served as
-something else.
+values are the port's own (below), and one field of the port's own,
+``embed_scale``. The reference keeps dtypes as strings (``dtype``,
+``param_dtype``); ``DTYPES`` maps them to torch dtypes. Kept are the
+fields the dense archs set: the MLP's activation and gating, RMSNorm (with
+gemma's (1 + w) offset) or LayerNorm, tied embeddings, RoPE's theta. The
+reference scales gemma's embeddings by sqrt(d_model) on a test of the
+arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
+the arch's config file. The reference's ``pad_attention_heads`` pads the
+heads to a mesh's tensor-parallel degree and pads 0 heads without a mesh;
+the port has no mesh yet, so the field comes with the mesh (ROADMAP Queue
+1 item 10). The options of the archs that wait (learned
+positions, the logit soft cap) and the fields of MoE, recurrent, audio and
+VLM blocks, sharding, remat and scan come with the slice that ports an
+arch setting them. ``local_window`` and ``is_encoder_decoder`` stay so
+that a config asking for a sliding window or cross-attention is refused,
+not served as something else.
 """
 from __future__ import annotations
 
@@ -38,7 +43,14 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0              # 0 => d_model // num_heads
+    # layer flavours
+    hidden_act: str = "silu"       # silu | gelu (tanh form) | relu2
+    mlp_gated: bool = True
+    norm: str = "rmsnorm"          # rmsnorm | layernorm
+    norm_offset: bool = False      # gemma-style (1 + w) RMSNorm scale
     rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    embed_scale: bool = False      # embeddings x sqrt(d_model) (gemma)
     local_window: int = 0          # sliding window: not ported, refused
     is_encoder_decoder: bool = False   # cross-attention: not ported, refused
     # numerics / execution

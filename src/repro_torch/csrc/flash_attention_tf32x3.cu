@@ -6,7 +6,8 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
 // flash_attention_bhsd (body _make_kernel) for every fp32 call, at hd 8, 16,
-// 32 and 128; csrc/flash_attention_wgmma.cu takes bf16 at hd 128 and
+// 32, 128 and 256; csrc/flash_attention_wgmma.cu takes bf16 at hd 128 and
+// 256 and
 // csrc/flash_attention.cu bf16 at the small head dims. It computes what the
 // TPU kernel computes: scores in fp32 scaled by 1/sqrt(hd), the top-left
 // causal mask kpos <= qpos with NEG_INF = -1e30, an online softmax with the
@@ -41,14 +42,15 @@
 // split costs a few ALU instructions a fragment and no shared memory.
 //
 // Design: one CTA of 4 warps a (tile of 64 query rows, head, batch), the
-// longest q tiles first (reversed block index), two CTAs an SM. Each warp
-// owns 16 query rows (the FlashAttention-2 layout) and walks the kv tiles
-// of 64 keys up to its own causal reach, with mma.sync.m16n8k8 TF32 for
-// S = Q.K^T (8 n-tiles of 8 keys, 32 registers) and O += P.V (hd/8
-// n-tiles, 64 registers at hd 128). The split is two integer operations
-// for cvt.rna (to_tf32) and one subtraction, on each fragment right after
-// its shared-memory read. A row's scores live in the 4 lanes of one quad of
-// the C fragment, so the row max is two __shfl_xor_sync steps, with no
+// longest q tiles first (reversed block index), two CTAs an SM (one at hd
+// 256). Each warp owns 16 query rows (the FlashAttention-2 layout) and
+// walks the kv tiles of 64 keys up to its own causal reach, with
+// mma.sync.m16n8k8 TF32 for S = Q.K^T (8 n-tiles of 8 keys, 32
+// registers) and O += P.V (hd/8 n-tiles, 64 registers at hd 128). The
+// split is two integer operations for cvt.rna (to_tf32) and one
+// subtraction, on each fragment right after its shared-memory read. A
+// row's scores live in the 4 lanes of one quad of the C fragment, so the
+// row max is two __shfl_xor_sync steps, with no
 // block barrier; each lane keeps its share of the denominator, summed over
 // the quad once at the end. P stays in registers: the C fragment holds
 // (row g, columns 2t and 2t+1) and the A fragment wants (row g, k-indices
@@ -65,7 +67,10 @@
 // warp's fragment reads on 32 distinct banks: Q and K rows are a multiple
 // of 16 plus 8 floats apart (the float2 reads of 16 lanes), V rows 4 more
 // than a multiple of 8 (rows 2t, 2t+1 of 4 lanes). Shared memory at hd 128:
-// Q, K and V 34, 34 and 33 KB, 101 KB a CTA. Measured against the
+// Q, K and V 34, 34 and 33 KB, 101 KB a CTA. At hd 256 (gemma-7b) the
+// same design holds twice the columns: Q, K and V 68, 68 and 67 KB, 202 KB,
+// so one CTA an SM (4 warps) where hd 128 has two, and O's accumulator is
+// 128 registers a thread where hd 128's is 64. Measured against the
 // alternatives on the H100 (tools/flash_tf32x3_variants.py, PERF.md): the
 // instructions around the products, not the products, set the time, so
 // each choice here is the one that issues fewer of them: cvt.rna as two
@@ -99,6 +104,7 @@ struct Shape {
   static constexpr int kK = kBKV * kQKPitch;
   static constexpr int kV = kBKV * kVPitch;
   static constexpr int kSmemBytes = 4 * (kQ + kK + kV);
+  static constexpr int kCtasPerSm = 2 * kSmemBytes <= 232448 ? 2 : 1;
 };
 
 // ---------------------------------------------------------------- PTX ----
@@ -190,7 +196,7 @@ __device__ __forceinline__ void load_rows(float* dst,
 
 // ------------------------------------------------------------- kernel ----
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Shape<HD>::kCtasPerSm)
     flash_attention_tf32x3_kernel(const float* __restrict__ q,
                                   const float* __restrict__ k,
                                   const float* __restrict__ v,
@@ -402,7 +408,8 @@ int launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q, k, v, o: (B, S, H, hd) fp32, contiguous and 16-byte aligned on the
-// current device; o aliases none of the inputs. hd is 8, 16, 32 or 128.
+// current device; o aliases none of the inputs. hd is 8, 16, 32, 128 or
+// 256.
 // Launches one CTA of 128 threads per (tile of 64 query rows, head, batch)
 // on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a shape or an alignment it does not take.
@@ -426,6 +433,7 @@ extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k,
     case 16: return launch<16>(qf, kf, vf, of, B, S, H, s);
     case 32: return launch<32>(qf, kf, vf, of, B, S, H, s);
     case 128: return launch<128>(qf, kf, vf, of, B, S, H, s);
+    case 256: return launch<256>(qf, kf, vf, of, B, S, H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,7 +7,8 @@ dispatches: the kernel for a CUDA tensor, the plain version for a CPU one.
 Each wrapper counts its launches in a ``launches`` attribute, so a run can
 show that its main path went through the kernel; the flash wrapper, which
 picks one of three kernels, also counts them by design in
-``launches_by_design``.
+``launches_by_design`` and by template instance, (design, head dim), in
+``launches_by_instance``.
 """
 from __future__ import annotations
 
@@ -33,5 +34,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_design"):
-            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
+        for attr in ("launches_by_design", "launches_by_instance"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))

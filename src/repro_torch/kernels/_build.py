@@ -61,7 +61,8 @@ SIGNATURES = {
                                       ctypes.c_int64, ctypes.c_int64,
                                       ctypes.c_int64, _P),
     "flash_attention_wgmma_launch": (_P, _P, _P, _P, ctypes.c_int64,
-                                     ctypes.c_int64, ctypes.c_int64, _P),
+                                     ctypes.c_int64, ctypes.c_int64,
+                                     ctypes.c_int64, _P),
 }
 
 

@@ -1,27 +1,33 @@
 """Launch wrapper of the three CUDA flash-attention kernels, the
 counterparts of ``repro/kernels/flash_attention/kernel.py:
 flash_attention_bhsd``: ``csrc/flash_attention_wgmma.cu`` (``wgmma`` on
-Hopper's tensor cores) takes every bf16 call at head dim 128, the model's
-prefill; ``csrc/flash_attention_tf32x3.cu`` (split TF32 on ``mma.sync``,
-as close to float64 as fp32 FMAs) takes every fp32 call; and
-``csrc/flash_attention.cu`` (fp32 FMAs) bf16 at the small head dims."""
+Hopper's tensor cores) takes every bf16 call at head dims 128 and 256, the
+models' prefill; ``csrc/flash_attention_tf32x3.cu`` (split TF32 on
+``mma.sync``, as close to float64 as fp32 FMAs) takes every fp32 call; and
+``csrc/flash_attention.cu`` (fp32 FMAs) bf16 at the small head dims. hd 64
+is not built yet (ROADMAP Queue 2 item 6): no ported arch has it."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (8, 16, 32, 128)           # the kernels' instantiations
+HEAD_DIMS = (8, 16, 32, 128, 256)      # the kernels' instantiations
+WGMMA_HEAD_DIMS = (128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 DESIGNS = ("wgmma", "tf32x3", "simt")
 
 
 def design_for(dtype: torch.dtype, hd: int) -> str:
     """The kernel that takes a call: "tf32x3" for every fp32 call, "wgmma"
-    for bf16 at hd 128, "simt" for bf16 at the small head dims."""
+    for bf16 at hd 128 and 256, "simt" for bf16 at the small head dims.
+    Raises ``ValueError`` for a head dim no kernel is built at."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not built; the "
+                         f"kernels take {HEAD_DIMS}")
     if dtype == torch.float32:
         return "tf32x3"
-    return "wgmma" if hd == 128 else "simt"
+    return "wgmma" if hd in WGMMA_HEAD_DIMS else "simt"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -40,17 +46,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check_tensor(op, "k", k, q.dtype, q.shape, q.device)
     _build.check_tensor(op, "v", v, q.dtype, q.shape, q.device)
     B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{op}: head_dim {hd} not built; the kernels take "
-                         f"{HEAD_DIMS}")
-    o = torch.empty_like(q)
     design = design_for(q.dtype, hd)
+    o = torch.empty_like(q)
     lib = _build.load_library()
     with torch.cuda.device(q.device):
         stream = _build.current_stream(q.device)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
         if design == "wgmma":
-            rc = lib.flash_attention_wgmma_launch(*ptrs, B, S, H, stream)
+            rc = lib.flash_attention_wgmma_launch(*ptrs, B, S, H, hd, stream)
         elif design == "tf32x3":
             rc = lib.flash_attention_tf32x3_launch(*ptrs, B, S, H, hd, stream)
         else:
@@ -58,8 +61,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check_launch(f"{op} ({design})", rc)
     flash_attention.launches += 1
     flash_attention.launches_by_design[design] += 1
+    flash_attention.launches_by_instance[design, hd] += 1
     return o
 
 
+# every built (design, head dim) pair, each a template instance
+INSTANCES = tuple(sorted({(design_for(dtype, hd), hd) for dtype in _DTYPES
+                          for hd in HEAD_DIMS}))
 flash_attention.launches = 0
 flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
+flash_attention.launches_by_instance = dict.fromkeys(INSTANCES, 0)

@@ -15,10 +15,12 @@ serve path. Two implementations of the same function:
 ``attention_impl`` is ``"flash"`` (the default) or ``"naive"`` (naive
 everywhere, so one model runs with and without the kernel). The
 reference's ``blocked`` and ``triangular`` schedules compute the naive
-function in tiles for XLA; they, cross-attention, the sliding-window cache
-and head padding (which exists only under a mesh) wait for ROADMAP Queue 1
-item 8, and a config that asks for one is refused rather than served
-otherwise.
+function in tiles for XLA; they, cross-attention and the sliding-window
+cache wait for ROADMAP Queue 1 item 8, and a config that asks for one is
+refused rather than served otherwise. The reference's head padding
+(``pad_attention_heads``) pads H to a mesh's tensor-parallel degree and
+pads 0 heads without one (``attention.py:317-320``); it comes with the
+port's mesh (ROADMAP Queue 1 item 10).
 
 GQA: K/V are repeated to the full H query heads after RoPE, as the
 reference does, so every attention tensor is (B, S, H, hd).

@@ -6,7 +6,9 @@ packages the same weights.
 dicts. The caller passes the reference's tree with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves
 arrive as ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so
-every leaf keeps its dtype and value.
+every leaf keeps its dtype and value. The walk follows whatever keys the
+tree has, so a tied tree (no ``lm_head``), a LayerNorm's ``bias`` and an
+ungated MLP (no ``w_gate``) arrive as they are.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Shared model layers: RMSNorm, the SwiGLU MLP, embeddings, RoPE,
+"""Shared model layers: norms, activations, MLPs, embeddings, RoPE,
 initialisers.
 
 The counterpart of ``repro/models/layers.py``, in the same pure-function
@@ -6,7 +6,10 @@ style: parameters are plain dicts of tensors and every layer is a function
 of them. The initialisers draw from an explicit ``torch.Generator`` with the
 reference's standard deviations (an fp32 normal times std, then cast); the
 draws differ from ``jax.random``'s, so the tests hand both packages the same
-weights through ``repro_torch.models.convert``.
+weights through ``repro_torch.models.convert``. Where the reference's
+arithmetic rounds in a particular place, so does this: both norms in fp32
+and cast once, GELU in its tanh form (``jax.nn.gelu``'s default), and
+gemma's sqrt(d_model) rounded to the activation dtype before it scales.
 """
 from __future__ import annotations
 
@@ -29,52 +32,113 @@ def normal_init(gen: torch.Generator, shape: tuple[int, ...], std: float,
 
 
 # -- norms -------------------------------------------------------------------
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            offset: bool = False) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    w = scale.float()
+    if offset:                     # gemma-style (1 + w)
+        w = 1.0 + w
+    return (y * w).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """In fp32 with the population variance (``jnp.var``), scale and bias
+    applied in fp32, cast once."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, params: dict,
+               config: ModelConfig) -> torch.Tensor:
+    if config.norm == "layernorm":
+        return layernorm(x, params["scale"], params["bias"])
+    return rmsnorm(x, params["scale"], offset=config.norm_offset)
 
 
 def init_norm(config: ModelConfig, dtype: torch.dtype,
               device: torch.device) -> dict:
-    return {"scale": torch.ones(config.d_model, dtype=dtype, device=device)}
+    """LayerNorm: scale 1, bias 0. RMSNorm: scale 1, or 0 with the (1 + w)
+    offset."""
+    d = config.d_model
+    if config.norm == "layernorm":
+        return {"scale": torch.ones(d, dtype=dtype, device=device),
+                "bias": torch.zeros(d, dtype=dtype, device=device)}
+    fill = torch.zeros if config.norm_offset else torch.ones
+    return {"scale": fill(d, dtype=dtype, device=device)}
 
 
-# -- dense MLP (SwiGLU) ------------------------------------------------------
+# -- activations -----------------------------------------------------------------
+def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":             # jax.nn.gelu's default: the tanh form
+        return F.gelu(x, approximate="tanh")
+    if kind == "relu2":            # nemotron / minitron squared ReLU
+        r = F.relu(x)
+        return r * r
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+# -- dense MLP -----------------------------------------------------------------
 def init_mlp(gen: torch.Generator, config: ModelConfig,
              dtype: torch.dtype) -> dict:
+    """w_up and w_down, and w_gate when the MLP is gated."""
     d, f = config.d_model, config.d_ff
     std_in = 1.0 / math.sqrt(d)
     std_out = 1.0 / math.sqrt(f) / math.sqrt(2.0 * config.num_layers)
-    return {"w_up": normal_init(gen, (d, f), std_in, dtype),
-            "w_down": normal_init(gen, (f, d), std_out, dtype),
-            "w_gate": normal_init(gen, (d, f), std_in, dtype)}
+    params = {"w_up": normal_init(gen, (d, f), std_in, dtype),
+              "w_down": normal_init(gen, (f, d), std_out, dtype)}
+    if config.mlp_gated:
+        params["w_gate"] = normal_init(gen, (d, f), std_in, dtype)
+    return params
 
 
 def mlp(x: torch.Tensor, params: dict, config: ModelConfig) -> torch.Tensor:
+    """Gated: act(x W_gate) * (x W_up), then W_down; ungated: act(x W_up),
+    then W_down."""
     dtype = x.dtype
     up = x @ params["w_up"].to(dtype)
-    gate = F.silu(x @ params["w_gate"].to(dtype))
-    return (gate * up) @ params["w_down"].to(dtype)
+    if config.mlp_gated:
+        h = activation(x @ params["w_gate"].to(dtype), config.hidden_act) * up
+    else:
+        h = activation(up, config.hidden_act)
+    return h @ params["w_down"].to(dtype)
 
 
 # -- embeddings ----------------------------------------------------------------
 def init_embedding(gen: torch.Generator, config: ModelConfig,
                    dtype: torch.dtype) -> dict:
+    """The token table, and the head unless the embeddings are tied."""
     d, V = config.d_model, config.vocab_size
-    return {"tok": normal_init(gen, (V, d), 1.0 / math.sqrt(d), dtype),
-            "lm_head": normal_init(gen, (d, V), 1.0 / math.sqrt(d), dtype)}
+    params = {"tok": normal_init(gen, (V, d), 1.0 / math.sqrt(d), dtype)}
+    if not config.tie_embeddings:
+        params["lm_head"] = normal_init(gen, (d, V), 1.0 / math.sqrt(d),
+                                        dtype)
+    return params
 
 
 def embed_tokens(tokens: torch.Tensor, params: dict,
                  config: ModelConfig) -> torch.Tensor:
-    return params["tok"].to(config.activation_dtype)[tokens]
+    """The table's rows in the activation dtype; with ``embed_scale``, times
+    sqrt(d_model) rounded to that dtype first (55.5 for gemma-7b in bf16),
+    as the reference multiplies."""
+    x = params["tok"].to(config.activation_dtype)[tokens]
+    if config.embed_scale:
+        x = x * torch.tensor(math.sqrt(config.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def lm_logits(x: torch.Tensor, params: dict,
               config: ModelConfig) -> torch.Tensor:
+    if config.tie_embeddings:
+        return x @ params["tok"].to(x.dtype).T
     return x @ params["lm_head"].to(x.dtype)
 
 

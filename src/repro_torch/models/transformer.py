@@ -31,7 +31,9 @@ def _init_block(gen: torch.Generator, config: ModelConfig,
 def init(gen: torch.Generator, config: ModelConfig) -> dict:
     """Random parameters in ``config.param_dtype``, drawn from ``gen`` on
     its device: {'embed': {...}, 'layers': [per-layer dicts],
-    'final_norm': {...}}."""
+    'final_norm': {...}}, the trees the reference's ``init`` builds: no
+    ``lm_head`` when the embeddings are tied, no ``w_gate`` in an ungated
+    MLP, a ``bias`` beside each LayerNorm's ``scale``."""
     dtype = config.parameter_dtype
     embed = L.init_embedding(gen, config, dtype)
     layers = [_init_block(gen, config, dtype)
@@ -44,11 +46,11 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
 def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
            positions: torch.Tensor, cache: dict | None
            ) -> tuple[torch.Tensor, dict | None]:
-    h = L.rmsnorm(x, block_params["norm1"]["scale"])
+    h = L.apply_norm(x, block_params["norm1"], config)
     a, new_cache = attn.attention_layer(h, block_params["attn"], config,
                                         positions, cache=cache)
     x = x + a
-    h = L.rmsnorm(x, block_params["norm2"]["scale"])
+    h = L.apply_norm(x, block_params["norm2"], config)
     x = x + L.mlp(h, block_params["mlp"], config)
     return x, new_cache
 
@@ -98,7 +100,7 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     cache = init_cache(config, tokens.shape[0], max_len or x.shape[1],
                        tokens.device)
     x, cache = _run_layers(x, params, config, positions, cache)
-    x = L.rmsnorm(x, params["final_norm"]["scale"])
+    x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache
 
 
@@ -108,5 +110,5 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     x, positions = _embed_inputs(params, tokens, config,
                                  start_pos=cache["pos"])
     x, cache = _run_layers(x, params, config, positions, cache)
-    x = L.rmsnorm(x, params["final_norm"]["scale"])
+    x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x, params["embed"], config), cache

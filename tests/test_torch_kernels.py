@@ -224,12 +224,13 @@ def test_torch_flash_attention_ref_keeps_the_bottom_right_mask():
                                rtol=1e-5, atol=1e-5)
 
 
-def _wgmma_model(q, k, v):
-    """The arithmetic of csrc/flash_attention_wgmma.cu on (BH, S, 128)
-    tensors: 128-row q tiles, 128-row kv tiles up to causal reach, scores
-    in fp32 scaled and masked (top-left, and the tail past S), the online
-    max and sum in fp32, P rounded to bf16 before P.V (fp32 products and
-    sums), the sum clamped at 1e-30, the output rounded once to bf16."""
+def _wgmma_model(q, k, v, bkv=128):
+    """The arithmetic of csrc/flash_attention_wgmma.cu on (BH, S, hd)
+    tensors: 128-row q tiles, ``bkv``-row kv tiles up to causal reach (128
+    at hd 128, 64 at hd 256), scores in fp32 scaled and masked (top-left,
+    and the tail past S), the online max and sum in fp32, P rounded to bf16
+    before P.V (fp32 products and sums), the sum clamped at 1e-30, the
+    output rounded once to bf16."""
     BH, S, hd = q.shape
     qf, kf, vf = (x.float() for x in (q, k, v))
     out = torch.empty_like(qf)
@@ -240,8 +241,8 @@ def _wgmma_model(q, k, v):
         m = torch.full((BH, qt.shape[1]), -1e30)
         l = torch.zeros((BH, qt.shape[1]))
         acc = torch.zeros((BH, qt.shape[1], hd))
-        for k0 in range(0, min(q0 + 128, S), 128):
-            s = qt @ kf[:, k0:k0 + 128].transpose(1, 2) * scale
+        for k0 in range(0, min(q0 + 128, S), bkv):
+            s = qt @ kf[:, k0:k0 + bkv].transpose(1, 2) * scale
             cols = torch.arange(k0, k0 + s.shape[2])[None, :]
             s = s.masked_fill(~(cols <= rows), -1e30)
             m_new = torch.maximum(m, s.amax(-1))
@@ -249,7 +250,7 @@ def _wgmma_model(q, k, v):
             p = torch.where(s == -1e30, 0.0, torch.exp(s - m_new[..., None]))
             l = l * alpha + p.sum(-1)
             acc = (acc * alpha[..., None]
-                   + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + 128])
+                   + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + bkv])
             m = m_new
         out[:, q0:q0 + 128] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
@@ -271,6 +272,29 @@ def test_torch_flash_wgmma_numerics_match_the_reference(S, block):
             jq, jk, jv, block_q=block, block_kv=block, causal=True,
             interpret=True))
     assert got.dtype == torch.bfloat16 and got.shape == (2, S, 128)
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("S,block", [(64, 64), (130, None), (256, 128)])
+def test_torch_flash_wgmma_hd256_numerics_match_the_reference(S, block):
+    """The wgmma kernel's numerics at gemma-7b's hd 256, with its 64-key kv
+    tiles, against the JAX ``attention_ref`` and, where S tiles evenly, the
+    Pallas kernel in interpret mode at hd 256, within 2e-2; 128-key tiles
+    give the same function within the same tolerance."""
+    q, k, v = _planes(_seed("flash-wgmma-256", S), (2, S, 256), 3)
+    tq, tk, tv = (_to_torch(x, torch.bfloat16) for x in (q, k, v))
+    got = _wgmma_model(tq, tk, tv, bkv=64)
+    jq, jk, jv = (_to_jax(x, jnp.bfloat16) for x in (q, k, v))
+    wants = [fa_ref.attention_ref(jq, jk, jv, causal=True)]
+    if block is not None:
+        wants.append(fa_kernel.flash_attention_bhsd(
+            jq, jk, jv, block_q=block, block_kv=block, causal=True,
+            interpret=True))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, S, 256)
+    wants.append(_wgmma_model(tq, tk, tv, bkv=128).float())
     for want in wants:
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
@@ -330,13 +354,14 @@ def _tf32x3_model(q, k, v, products=3):
     return out
 
 
-@pytest.mark.parametrize("S,hd", [(64, 16), (128, 32), (32, 8), (130, 128)])
+@pytest.mark.parametrize("S,hd", [(64, 16), (128, 32), (32, 8), (130, 128),
+                                  (130, 256)])
 def test_torch_flash_tf32x3_numerics_match_the_reference(S, hd):
     """The tf32x3 kernel's numerics (split TF32 products), modelled here,
     against the JAX ``attention_ref`` and the Pallas kernel in interpret
     mode, within the fp32 tolerance of tests/test_kernels.py:136 (1e-5), at
-    ``chip_smoke.FLASH_SHAPES`` and a ragged S of 130 at hd 128 (a third q
-    and kv tile of 2 rows)."""
+    ``chip_smoke.FLASH_SHAPES`` and a ragged S of 130 at hd 128 and at
+    gemma-7b's hd 256 (a third q and kv tile of 2 rows)."""
     q, k, v = _planes(_seed("flash-tf32x3", S, hd), (4, S, hd), 3)
     got = _tf32x3_model(*(torch.from_numpy(x) for x in (q, k, v)))
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
@@ -376,12 +401,13 @@ def test_torch_tf32_rounding_is_to_nearest_ties_away():
 
 @pytest.mark.parametrize("dtype,hd,design", [
     (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "tf32x3"),
-    (torch.bfloat16, 32, "simt"), (torch.float32, 8, "tf32x3")])
+    (torch.bfloat16, 32, "simt"), (torch.float32, 8, "tf32x3"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "tf32x3")])
 def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
         dtype, hd, design):
-    """bf16 at hd 128 (the prefill) goes to the wgmma kernel, every fp32
-    call to the tf32x3 one, bf16 at the small head dims to the SIMT one; on
-    a CPU tensor each raises before counting."""
+    """bf16 at hd 128 and 256 (the prefills) goes to the wgmma kernel,
+    every fp32 call to the tf32x3 one, bf16 at the small head dims to the
+    SIMT one; on a CPU tensor each raises before counting."""
     assert t_fa_kernel.design_for(dtype, hd) == design
     t_kernels.reset_launch_counts()
     x = torch.ones((1, 4, 2, hd), dtype=dtype)
@@ -389,6 +415,19 @@ def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
         t_fa_kernel.flash_attention(x, x, x)
     assert t_fa_kernel.flash_attention.launches_by_design == {
         "wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert (design, hd) in t_fa_kernel.INSTANCES
+    assert not any(t_fa_kernel.flash_attention.launches_by_instance.values())
+
+
+def test_torch_flash_instances_are_the_built_pairs():
+    """The per-instance counter has one key a built (design, head dim)
+    pair: tf32x3 at every head dim, wgmma at 128 and 256, simt at the
+    small ones."""
+    want = {("tf32x3", hd) for hd in t_fa_kernel.HEAD_DIMS}
+    want |= {("wgmma", 128), ("wgmma", 256), ("simt", 8), ("simt", 16),
+             ("simt", 32)}
+    assert set(t_fa_kernel.INSTANCES) == want
+    assert set(t_fa_kernel.flash_attention.launches_by_instance) == want
 
 
 @pytest.mark.parametrize("hd", t_fa_kernel.HEAD_DIMS)
@@ -397,12 +436,26 @@ def test_torch_flash_every_fp32_call_goes_to_tf32x3(hd):
     assert t_fa_kernel.design_for(torch.float32, hd) == "tf32x3"
 
 
+@pytest.mark.parametrize("hd", [64, 96, 512])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_torch_flash_unbuilt_head_dim_raises(hd, dtype):
+    """No kernel is built at hd 64 (ROADMAP Queue 2 item 6: the first hd-64
+    arch brings it) or at any other head dim outside ``HEAD_DIMS``:
+    ``design_for`` raises ``ValueError`` instead of picking one."""
+    assert hd not in t_fa_kernel.HEAD_DIMS
+    with pytest.raises(ValueError, match=f"head_dim {hd} not built"):
+        t_fa_kernel.design_for(dtype, hd)
+
+
 def test_torch_reset_launch_counts_resets_the_designs():
     t_fa_kernel.flash_attention.launches_by_design["wgmma"] = 3
     t_fa_kernel.flash_attention.launches_by_design["tf32x3"] = 2
+    t_fa_kernel.flash_attention.launches_by_instance["wgmma", 256] = 3
     t_kernels.reset_launch_counts()
     assert t_fa_kernel.flash_attention.launches_by_design == {
         "wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert t_fa_kernel.flash_attention.launches_by_instance == dict.fromkeys(
+        t_fa_kernel.INSTANCES, 0)
 
 
 # -- dispatch ------------------------------------------------------------------
@@ -511,6 +564,8 @@ def test_torch_build_reuses_library_until_a_source_changes(tmp_path):
     ("flash_attention", "Bound: operations, at the fp32 FMA rate"),
     ("flash_attention_wgmma", "Bound: device memory"),
     ("flash_attention_wgmma", "wgmma.m64n128k16"),
+    ("flash_attention_wgmma", "wgmma.mma_async.sync.aligned.m64n64k16"),
+    ("flash_attention_wgmma", "wgmma.mma_async.sync.aligned.m64n256k16"),
     ("flash_attention_tf32x3", "Bound: operations"),
     ("flash_attention_tf32x3", "mma.sync.aligned.m16n8k8.row.col.f32.tf32"),
 ])
