@@ -39,17 +39,18 @@ Phases, each fatal on failure:
      256); then a profile of one of its batches: device time and idle
      share;
   9. ptxas's registers, shared memory and spills of the ART kernel and
-     the two tensor-core flash kernels (each instance, hd 128 and 256),
-     the HGMMA count of each wgmma instance's SASS and the TF32 HMMA count
-     of the tf32x3 kernel's at hd 128 and 256; then the three
+     the two tensor-core flash kernels (each instance, hd 64, 128 and
+     256), the HGMMA count of each wgmma instance's SASS and the TF32 HMMA
+     count of the tf32x3 kernel's at hd 64, 128 and 256; then the three
      flash-attention kernels against their plain version on the card: at
      the shapes of tests/test_kernels.py the tf32x3 kernel (fp32) and the
-     SIMT kernel (bf16); at hd 128 and at hd 256 the tf32x3 kernel (every
+     SIMT kernel (bf16); at hd 64, 128 and 256 the tf32x3 kernel (every
      fp32 call) and the wgmma kernel (every bf16 call) at S 64 and 130
      (one tile, a ragged last one), 1,000 through ``ops`` and the prefill
      shape (B 4, S 1,024, H 16: internlm2-1.8b's at hd 128, gemma-7b's at
-     hd 256), each timed there beside its bound and PyTorch's
-     ``scaled_dot_product_attention`` (timed for the table only); the
+     hd 256, B·H 64 at hd 64), each timed there beside its bound and
+     PyTorch's ``scaled_dot_product_attention`` (timed for the table
+     only), and at hd 64 granite-moe-3b-a800m's prefill shape (H 24); the
      SIMT kernel timed at the model's batch and sequence in bf16 at hd 32;
  10. internlm2-1.8b at full width on the card from the seed: a 4 x 1,024
      prompt batch prefilled with the kernel (every launch on the wgmma
@@ -147,19 +148,39 @@ Phases, each fatal on failure:
      the bf16 ones left the card; where a prefill's and 7 decode steps'
      device time goes (flash, GEMMs, the rest, by the profiler); each
      model's time and peak device memory.
-It then prints a JSON line of the kernels (the ART row's
+ 20. the MoE family: granite-moe-3b-a800m at full width (32 layers, 24/8
+     heads of hd 64, 40 experts of 512, top 8) drawn in bf16 from the
+     seed: a 4 x 1,024 prompt batch prefilled with the kernel (one wgmma
+     launch a layer at hd 64) and with the naive attention, both timed;
+     each layer's attention output held, kernel against naive on that
+     layer's input from the naive run, within the bf16 FLASH_TOL; the
+     last-token logits' difference and the share of routing decisions that
+     differ between the two runs reported, not held (top-k routing is
+     discontinuous: see ``moe_prefill_check``); the serve stream through
+     ``run_serve`` at the published capacity factor (8 requests of 1,024
+     tokens in batches of 4, 16 out; every flash launch on the wgmma kernel
+     at hd 64); the prefill's and 7 decode steps' device time (flash,
+     GEMMs, the MoE dispatch, the rest); the fp32 serve invariant (B 2, S
+     256, 4 tokens, capacity factor 5.0, drop-free; every launch on the
+     tf32x3 kernel at hd 64); the peak device memory.
+Each phase prints its own wall time when it ends. It then prints a JSON
+line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count; the modulus, overlap and
 raar rows carry ``launches_group_ranks``, ``launches_elastic_stream`` and
 ``launches_recovery``, phases 16-18's; the flash rows at hd 256 carry
 phase 19's counts, gemma-7b's serve stream as ``launches`` and its fp32
 invariant as ``launches_fp32_invariant``, and the wgmma row at hd 128
 ``launches_dense_configs``, minitron-8b's and starcoder2-3b's served
-batches), the nvidia-smi line again,
+batches; the flash rows at hd 64 carry phase 20's, its serve stream as
+``launches`` and its fp32 invariant as ``launches_fp32_invariant``; every
+flash row carries phase 9's own launches of its instances as
+``launches_kernel_checks``), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -226,16 +247,19 @@ REF_SLICE_ERROR = (0.6561629934299793, 0.6542791921408858,
 REF_TOL = 1e-3
 FLASH_SHAPES = ((64, 16), (128, 32), (32, 8))    # tests/test_kernels.py:124
 FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # tests/test_kernels.py:136
-TC_HEAD_DIMS = (128, 256)       # the tensor-core kernels' instances
+TC_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernels' instances
 # the flash rows of the kernels line, (design, the head dims whose launches
-# the row counts) -> name: one row a design up to hd 128, as before, and
-# one row each tensor-core instance at hd 256 (gemma-7b); together they
-# cover every built (design, hd) instance of the wrapper
+# the row counts) -> name: one row a design up to hd 128 but hd 64, as
+# before, and one row each tensor-core instance at hd 256 (gemma-7b) and
+# at hd 64 (granite-moe-3b-a800m); together they cover every built
+# (design, hd) instance of the wrapper
 FLASH_ROWS = {("wgmma", (128,)): "wgmma, bf16 hd 128",
               ("tf32x3", (8, 16, 32, 128)): "tf32x3, fp32",
               ("simt", (8, 16, 32)): "simt, bf16 hd 8/16/32 only",
               ("wgmma", (256,)): "wgmma, bf16 hd 256",
-              ("tf32x3", (256,)): "tf32x3, fp32 hd 256"}
+              ("tf32x3", (256,)): "tf32x3, fp32 hd 256",
+              ("wgmma", (64,)): "wgmma, bf16 hd 64",
+              ("tf32x3", (64,)): "tf32x3, fp32 hd 64"}
 MODEL_B, MODEL_S, MODEL_H, MODEL_HD = 4, 1024, 16, 128
 ARCH = "internlm2-1.8b"
 # bf16 prefill of the 4 x 1,024 batch, kernel against naive attention: the
@@ -253,6 +277,14 @@ DENSE_SERVE_ARGS = {
     "starcoder2-3b": ["--requests", "4", "--batch", "4", "--prompt-len",
                       "1024", "--gen", "8", "--seed", str(SEED)],
 }
+# phase 20: the MoE family, granite-moe-3b-a800m served at full width
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_H = 24                          # its query heads, at hd 64
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH, "--requests", "8", "--batch", "4",
+                  "--prompt-len", "1024", "--gen", "16", "--seed", str(SEED)]
+# PyTorch's kernels of the MoE dispatch: the sorts, searchsorted, the
+# scatter into the capacity buffer and the gathers out of it
+DISPATCH_MARKERS = ("sort", "searchsorted", "index", "scatter", "gather")
 
 
 def _nvidia_smi() -> str:
@@ -1200,18 +1232,21 @@ def sdpa_kernels(torch, dev) -> dict[str, str]:
 def flash_phase(torch, dev, flush) -> list[dict]:
     """The three flash kernels against their plain version (held to
     FLASH_TOL): at the test shapes (fp32 on the tf32x3 kernel, bf16 on the
-    SIMT one); at hd 128 and 256 the wgmma kernel (bf16) and the tf32x3
+    SIMT one); at hd 64, 128 and 256 the wgmma kernel (bf16) and the tf32x3
     kernel (fp32) at S 64 and 130 (one tile, a ragged last one), 1,000
     through ``ops`` and the prefill shape (B 4, S 1,024, H 16: internlm2's
-    at hd 128, gemma-7b's at hd 256). At the prefill shape each is timed
-    beside its bound and PyTorch's ``scaled_dot_product_attention`` (timed
-    for the table only), the tf32x3 kernel also beside the fp32-FMA bound;
-    the SIMT kernel is timed at the model's batch and sequence in bf16 at
-    hd 32. Returns the rows of the kernels line, by their ``FLASH_ROWS``
-    key."""
+    at hd 128, gemma-7b's at hd 256, B·H 64 at hd 64), and at hd 64 also
+    granite-moe-3b-a800m's prefill (B 4, S 1,024, H 24). At the prefill
+    shape each is timed beside its bound and PyTorch's
+    ``scaled_dot_product_attention`` (timed for the table only), the tf32x3
+    kernel also beside the fp32-FMA bound; the SIMT kernel is timed at the
+    model's batch and sequence in bf16 at hd 32. Returns the rows of the
+    kernels line, by their ``FLASH_ROWS`` key, each with the launches this
+    phase made of its instances (``launches_kernel_checks``)."""
     import numpy as np
     import torch.nn.functional as F
 
+    from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as fo
     from repro_torch.kernels.flash_attention import ref as fr
@@ -1223,6 +1258,7 @@ def flash_phase(torch, dev, flush) -> list[dict]:
         raise AssertionError(f"the flash rows {list(FLASH_ROWS)} do not "
                              f"cover the wrapper's instances {fk.INSTANCES}")
     rng = np.random.default_rng(SEED)
+    kernels.reset_launch_counts()
 
     def qkv(shape, dtype):
         return [torch.from_numpy(rng.standard_normal(shape).astype(
@@ -1278,6 +1314,15 @@ def flash_phase(torch, dev, flush) -> list[dict]:
             variants[_flash_row(design, hd)].append(check(
                 f"{design} through ops, B 1, S 1000, H {MODEL_H}, hd {hd}",
                 dtype, got, fo.flash_attention(q, k, v, use_kernel=False)))
+        for dtype in FLASH_TOL if hd == 64 else ():   # granite's prefill
+            design = fk.design_for(getattr(torch, dtype), hd)
+            q, k, v = qkv((MODEL_B, MODEL_S, MOE_H, hd), dtype)
+            got = designed(design, hd, lambda: fk.flash_attention(q, k, v))
+            variants[_flash_row(design, hd)].append(check(
+                f"{design}, B {MODEL_B}, S {MODEL_S}, H {MOE_H}, hd {hd} "
+                f"({MOE_ARCH}'s prefill)", dtype, got,
+                fo.flash_attention(q, k, v, use_kernel=False)))
+            del q, k, v, got
     rows = {}
     # the prefills at hd 128 and 256, and the SIMT kernel's largest head
     # dim at the model's batch and sequence
@@ -1337,10 +1382,14 @@ def flash_phase(torch, dev, flush) -> list[dict]:
                "tf32x3": "src/repro_torch/csrc/flash_attention_tf32x3.cu",
                "simt": "src/repro_torch/csrc/flash_attention.cu"}
     replaces = "src/repro/kernels/flash_attention/kernel.py:79"
+    checks = dict(fk.flash_attention.launches_by_instance)
+    print(f"  launches of this phase by instance: {_launched(checks)}",
+          flush=True)
     return {key: dict(rows[key], name=f"flash_attention ({name})",
                       route="cuda", source=sources[key[0]],
                       replaces=replaces, launches=0,
                       max_abs_err=max(v["max_abs_err"] for v in variants[key]),
+                      launches_kernel_checks=_row_launches(checks, key),
                       variants=variants[key])
             for key, name in FLASH_ROWS.items()}
 
@@ -1381,9 +1430,11 @@ def _draw(torch, dev, config):
     torch.cuda.synchronize()
     n = _param_count(params)
     size = n * torch.finfo(config.parameter_dtype).bits / 8
+    experts = (f" a expert, {config.num_experts} experts top "
+               f"{config.experts_per_token}" if config.num_experts else "")
     print(f"  {config.name}: {config.num_layers} layers, d_model "
           f"{config.d_model}, {config.num_heads}/{config.num_kv_heads} heads "
-          f"of {config.resolved_head_dim}, d_ff {config.d_ff}, vocab "
+          f"of {config.resolved_head_dim}, d_ff {config.d_ff}{experts}, vocab "
           f"{config.vocab_size}: {n / 1e9:.3f} B parameters, "
           f"{size / 1e9:.2f} GB in {config.param_dtype}, drawn on the card "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1570,27 +1621,34 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, params=None) -> dict:
     return by_instance
 
 
-def _split_ms(torch, prof) -> tuple[float, float, float, int]:
-    """A trace's device time in ms: all, the flash kernels', the GEMMs';
-    and the flash launches it saw."""
+def _split_ms(torch, prof) -> tuple[float, float, float, float, int]:
+    """A trace's device time in ms: all, the flash kernels', the GEMMs'
+    (cuBLAS, the experts' ``bmm`` included), the MoE dispatch's (sorts,
+    searchsorted, scatters, gathers: ``DISPATCH_MARKERS``, which in a dense
+    model also match the embedding's gather); and the flash launches it
+    saw."""
     by_kernel = _device_us(torch, prof)
     flash = {n: us for n, us in by_kernel.items()
              if any(k in n for k in FLASH_KERNELS)}
-    gemm = sum(us for n, us in by_kernel.items() if n not in flash
-               and any(m in n.lower() for m in GEMM_MARKERS))
+    gemm = {n: us for n, us in by_kernel.items() if n not in flash
+            and any(m in n.lower() for m in GEMM_MARKERS)}
+    dispatch = sum(us for n, us in by_kernel.items()
+                   if n not in flash and n not in gemm
+                   and any(m in n.lower() for m in DISPATCH_MARKERS))
     seen = sum(1 for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA
                and any(k in ev.name for k in FLASH_KERNELS))
     return (sum(by_kernel.values()) / 1e3, sum(flash.values()) / 1e3,
-            gemm / 1e3, seen)
+            sum(gemm.values()) / 1e3, dispatch / 1e3, seen)
 
 
 def dense_profile(torch, dev, config, params, steps: int = 7) -> None:
     """Where a bf16 prefill of MODEL_B x MODEL_S tokens and the ``steps``
     decode steps after it spend the device's time: flash kernel, GEMMs and
-    the rest, by the profiler, beside each one's wall time (profiled; the
-    host clock around work that ends in a synchronize). Reported: a trace
-    that misses launches says so."""
+    the rest (for an MoE model also its dispatch, and the prefill's ten
+    largest kernels), by the profiler, beside each one's wall time
+    (profiled; the host clock around work that ends in a synchronize).
+    Reported: a trace that misses launches says so."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1610,6 +1668,7 @@ def dense_profile(torch, dev, config, params, steps: int = 7) -> None:
             torch.cuda.synchronize()
             wall_p = (time.perf_counter() - t0) * 1e3
         split_p = _split_ms(torch, prof)
+        top_p = sorted(_device_us(torch, prof).items(), key=lambda kv: -kv[1])
         tok = logits[:, -1:].argmax(-1)
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -1620,18 +1679,26 @@ def dense_profile(torch, dev, config, params, steps: int = 7) -> None:
             torch.cuda.synchronize()
             wall_d = (time.perf_counter() - t0) * 1e3
         split_d = _split_ms(torch, prof)
-    for what, wall, (busy, flash, gemm, seen), n_flash in (
+    moe = config.num_experts > 0
+    for what, wall, (busy, flash, gemm, disp, seen), n_flash in (
             ("prefill", wall_p, split_p, config.num_layers),
             (f"{steps} decode steps", wall_d, split_d, 0)):
         if busy == 0:
             print(f"  {config.name} {what}: the trace came back empty; "
                   f"its device time not measured", flush=True)
             continue
+        if not moe:
+            disp = 0.0
         print(f"  {config.name} {what} (profiled): wall {wall:.2f} ms, "
               f"device busy {busy:.2f} ms, idle share "
               f"{max(0.0, 1 - busy / wall):.3f}; flash {flash:.2f} ms "
-              f"({seen} of {n_flash} launches seen), GEMMs {gemm:.2f} ms, "
-              f"the rest {busy - flash - gemm:.2f} ms", flush=True)
+              f"({seen} of {n_flash} launches seen), GEMMs {gemm:.2f} ms"
+              + (f", MoE dispatch {disp:.2f} ms" if moe else "")
+              + f", the rest {busy - flash - gemm - disp:.2f} ms",
+              flush=True)
+    for name, us in top_p[:10] if moe and split_p[0] else ():
+        print(f"    {us / 1e3:9.3f} ms {100 * us / 1e3 / split_p[0]:5.1f}%  "
+              f"{name[:90]}", flush=True)
 
 
 def dense_phase(torch, dev, smi: str) -> dict:
@@ -1678,6 +1745,154 @@ def dense_phase(torch, dev, smi: str) -> dict:
           f"{_launched(out['invariant'])}, in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+@contextlib.contextmanager
+def _capture(module, name: str):
+    """Records the first argument of every call of ``module.name`` inside
+    the block (the model modules call each other through their module
+    attributes)."""
+    seen, fn = [], getattr(module, name)
+
+    def recording(x, *args, **kw):
+        seen.append(x)
+        return fn(x, *args, **kw)
+
+    setattr(module, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def moe_prefill_check(torch, dev, config, params, rng) -> None:
+    """The bf16 prefill of MODEL_B x MODEL_S tokens drawn from ``rng``, with
+    the kernel (one wgmma launch a layer at the config's head dim) and with
+    the naive attention, both timed. Held: each layer's attention output,
+    the kernel against naive on that layer's normed input from the naive
+    run (the model's own q, k and v), within the bf16 FLASH_TOL, at every
+    layer. Reported, not held: the last-token logits' difference, and the
+    share of routing decisions (a token's top-k set of experts at a layer)
+    that differ between the two runs. Top-k routing is discontinuous: a
+    bf16 rounding difference upstream flips a near-tied expert, and the
+    layers after it see another sum of experts. That is the model's
+    discontinuity, not the kernel's error, so for this family the per-layer
+    attention check takes the place of the dense phases'
+    MAX_PREFILL_LOGIT_DIFF."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import attention, moe, transformer
+
+    tokens = torch.from_numpy(rng.integers(
+        0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
+    naive = config.replace(attention_impl="naive")
+    batch = {"tokens": tokens}
+    T, K = MODEL_B * MODEL_S, config.experts_per_token
+    with torch.inference_mode():
+        with _capture(attention, "attention_layer") as attn_in, \
+                _capture(moe, "moe_layer") as moe_in_n:
+            ln, _ = transformer.prefill(params, batch, naive)
+        kernels.reset_launch_counts()
+        with _capture(moe, "moe_layer") as moe_in_k:
+            lk, _ = transformer.prefill(params, batch, config)
+        launched = kernels.launch_counts()["flash_attention"]
+        by_instance = _launched(fk.flash_attention.launches_by_instance)
+        ms_k = _time_ms(torch, lambda: transformer.prefill(
+            params, batch, config), reps=3, warmup=1)
+        ms_n = _time_ms(torch, lambda: transformer.prefill(
+            params, batch, naive), reps=3, warmup=1)
+        positions = torch.arange(MODEL_S, device=dev).expand(MODEL_B,
+                                                             MODEL_S)
+        tol = FLASH_TOL["bfloat16"]
+        worst = (0.0, -1)
+        for i, h in enumerate(attn_in):
+            p = params["layers"][i]["attn"]
+            ok, _ = attention.attention_layer(h, p, config, positions)
+            on, _ = attention.attention_layer(h, p, naive, positions)
+            err = _max_err(torch, ok.float(), on.float())
+            worst = max(worst, (err, i))
+            torch.testing.assert_close(ok.float(), on.float(), rtol=tol,
+                                       atol=tol)
+        by_layer = []
+        for i, (xk, xn) in enumerate(zip(moe_in_k, moe_in_n)):
+            router = params["layers"][i]["moe"]["router"]
+            ek = moe.route(xk.reshape(T, -1), router, K)[2].sort(-1).values
+            en = moe.route(xn.reshape(T, -1), router, K)[2].sort(-1).values
+            by_layer.append(int((ek != en).any(-1).sum()))
+        flips = sum(by_layer)
+    if not (torch.isfinite(lk).all() and torch.isfinite(ln).all()):
+        raise AssertionError("non-finite prefill logits")
+    if lk.shape != (MODEL_B, 1, config.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    n_layers = config.num_layers
+    if len(attn_in) != n_layers or len(moe_in_k) != n_layers:
+        raise AssertionError(f"captured {len(attn_in)} attention and "
+                             f"{len(moe_in_k)} MoE inputs of {n_layers} "
+                             f"layers")
+    diff = _max_err(torch, lk.float(), ln.float())
+    agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
+    print(f"  bf16 prefill of {MODEL_B} x {MODEL_S} tokens: kernel "
+          f"({launched} launches, {by_instance}) against naive attention: "
+          f"each layer's attention output on the naive run's input within "
+          f"{tol} at all {n_layers} layers (largest max|diff| "
+          f"{worst[0]:.4g}, layer {worst[1]}); reported: last-token logits "
+          f"max|diff| {diff:.4g} (max|logit| "
+          f"{float(ln.float().abs().max()):.3g}), greedy tokens agree "
+          f"{agree}/{MODEL_B}, routing decisions that differ {flips} of "
+          f"{n_layers * T} (layers x tokens, share "
+          f"{flips / (n_layers * T):.4g}; by layer {by_layer}: a flip "
+          f"changes the token's later layers and, through attention, the "
+          f"later tokens); prefill {ms_k:.2f} ms with the kernel, "
+          f"{ms_n:.2f} ms naive", flush=True)
+    want = {("wgmma", config.resolved_head_dim): n_layers}
+    if by_instance != want:
+        raise AssertionError(f"flash launches {by_instance} in a bf16 "
+                             f"prefill of {n_layers} layers, expected {want}")
+
+
+def moe_phase(torch, dev, smi: str) -> dict:
+    """Phase 20: granite-moe-3b-a800m at full width, drawn from the seed in
+    bf16: the prefill check (``moe_prefill_check``), the serve stream
+    through ``run_serve`` at the published capacity factor (MOE_SERVE_ARGS,
+    every flash launch on the wgmma kernel at hd 64), where its prefill and
+    7 decode steps spend the device's time, then the fp32 serve invariant
+    on the tf32x3 kernel at hd 64 on fp32 parameters drawn after the bf16
+    ones left, at capacity factor E/k (5.0), drop-free at any T because a
+    token picks an expert at most once; its tokens drawn in turn from one
+    generator seeded with SEED. Returns the flash launches by instance of
+    the serve stream ("served") and of the invariant ("invariant")."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize(dev)         # the context up before its stats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = get_config(MOE_ARCH)
+    batch = int(MOE_SERVE_ARGS[MOE_SERVE_ARGS.index("--batch") + 1])
+    print(f"  capacity a expert at factor {config.capacity_factor}: "
+          f"{capacity(MODEL_B * MODEL_S, config)} slots in a prefill of "
+          f"{MODEL_B} x {MODEL_S} tokens, {capacity(batch, config)} in a "
+          f"decode step of {batch} (the reference's drops, reproduced)",
+          flush=True)
+    rng = np.random.default_rng(SEED)
+    params = _draw(torch, dev, config)
+    moe_prefill_check(torch, dev, config, params, rng)
+    served = serve_phase(torch, dev, MOE_SERVE_ARGS, params=params)
+    dense_profile(torch, dev, config, params)
+    del params
+    torch.cuda.empty_cache()
+    free = config.replace(
+        capacity_factor=config.num_experts / config.experts_per_token)
+    invariant = invariant_check(torch, dev, free, rng)
+    print(f"  {MOE_ARCH} at full width: flash launches served "
+          f"{_launched(served)}, in the fp32 invariant (capacity factor "
+          f"{free.capacity_factor}) {_launched(invariant)}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"{time.perf_counter() - t0:.1f} s, on {smi}", flush=True)
+    return {"served": served, "invariant": invariant}
 
 
 def serve_profile_phase(torch, dev) -> None:
@@ -1734,7 +1949,7 @@ def serve_profile_phase(torch, dev) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             run_serve(args, device=dev, params=params)
         launched = kernels.launch_counts()["flash_attention"] - before
-        busy_ms, flash_ms, gemm_ms, seen = _split_ms(torch, prof)
+        busy_ms, flash_ms, gemm_ms, _, seen = _split_ms(torch, prof)
         if seen == launched:
             break
         print(f"  profile {attempt}: the profiler saw {seen} of the "
@@ -2336,6 +2551,15 @@ def recovery_phase(torch, dev, smi: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def _phase(label: str, title: str):
+    """Prints a phase's header, and its own wall time when it ends."""
+    print(f"[{label}] {title}", flush=True)
+    t0 = time.perf_counter()
+    yield
+    print(f"[{label}] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print("chip_smoke: no src/repro_torch next to this script; run it "
@@ -2350,126 +2574,140 @@ def main() -> int:
     from repro_torch.apps.ptycho.sim import simulate
     from repro_torch.kernels import _build
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = _nvidia_smi()
     print(f"[1] card: {smi}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda})", flush=True)
 
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.load_library()
-    print(f"[2] {lib.relative_to(ROOT)} loaded in "
-          f"{time.perf_counter() - t0:.2f} s, nvcc's build included when "
-          f"the log line above says it built", flush=True)
-    library_kernels = sdpa_kernels(torch, dev)
+    with _phase("2", "the kernels' build, and SDPA's kernels:"):
+        t0 = time.perf_counter()
+        lib = _build.build()
+        _build.load_library()
+        print(f"  {lib.relative_to(ROOT)} loaded in "
+              f"{time.perf_counter() - t0:.2f} s, nvcc's build included when "
+              f"the log line above says it built", flush=True)
+        library_kernels = sdpa_kernels(torch, dev)
 
     # a 256 MB buffer zeroed between timed calls empties the 50 MB L2, and
     # keeps the device busy while the host enqueues the next call
-    l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    print(f"[3] kernels against their plain versions at {F}x{H}x{W} "
-          f"(tol 1e-6, overlap against the complex form 1e-5):", flush=True)
-    rows = kernel_phase(torch, dev, l2_flush.zero_)
-    del l2_flush
+    with _phase("3", f"kernels against their plain versions at {F}x{H}x{W} "
+                     f"(tol 1e-6, overlap against the complex form 1e-5):"):
+        l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        rows = kernel_phase(torch, dev, l2_flush.zero_)
+        del l2_flush
 
-    problem = simulate(256, 64, 8, device=dev)
-    print("[4] raar_step at paper size, kernels against the plain path:",
-          flush=True)
-    step_phase(torch, dev, problem)
+    with _phase("4", "raar_step at paper size, kernels against the plain "
+                     "path:"):
+        problem = simulate(256, 64, 8, device=dev)
+        step_phase(torch, dev, problem)
 
-    print("[5] the stream at paper size:", flush=True)
-    counts = stream_phase(torch, dev)
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    with _phase("5", "the stream at paper size:"):
+        counts = stream_phase(torch, dev)
+        for row in rows:
+            row["launches"] = counts[row["name"]]
 
-    print("[6] where a RAAR step's device time goes:", flush=True)
-    profile_phase(torch, dev, problem)
-    del problem
+    with _phase("6", "where a RAAR step's device time goes:"):
+        profile_phase(torch, dev, problem)
+        del problem
 
-    print("[7] the ART kernel against its plain version (float32, tol 1e-4; "
-          "float64 reported):", flush=True)
-    l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    art_row = art_phase(torch, dev, l2_flush.zero_)
-    del l2_flush
-    rows.append(art_row)
+    with _phase("7", "the ART kernel against its plain version (float32, "
+                     "tol 1e-4; float64 reported):"):
+        l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        art_row = art_phase(torch, dev, l2_flush.zero_)
+        del l2_flush
+        rows.append(art_row)
 
-    print("[8] the tomography stream at full width:", flush=True)
-    art_row["launches"], tomo_volume = tomo_phase(torch, dev, art_row["ms"])
-    tomo_profile_phase(torch, dev)
+    with _phase("8", "the tomography stream at full width:"):
+        art_row["launches"], tomo_volume = tomo_phase(torch, dev,
+                                                      art_row["ms"])
+        tomo_profile_phase(torch, dev)
 
     # before the cache is cleared: the two consumers share phase 8's system
-    print("[14] a §IV consumer-group handoff at full width:", flush=True)
-    art_row["launches_group_handoff"] = group_phase(torch, dev, tomo_volume,
-                                                    smi)
-    del tomo_volume
-    from repro_torch.apps.tomo.solver import clear_system_cache
-    clear_system_cache()            # the 4.75 GiB system off the card
-    torch.cuda.empty_cache()
+    with _phase("14", "a §IV consumer-group handoff at full width:"):
+        art_row["launches_group_handoff"] = group_phase(torch, dev,
+                                                        tomo_volume, smi)
+        del tomo_volume
+        from repro_torch.apps.tomo.solver import clear_system_cache
+        clear_system_cache()            # the 4.75 GiB system off the card
+        torch.cuda.empty_cache()
 
-    print("[9] the flash-attention kernels against their plain version (fp32 "
-          "tol 1e-5, bf16 2e-2):", flush=True)
-    l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
-    flash_rows = flash_phase(torch, dev, l2_flush.zero_)
-    del l2_flush
+    with _phase("9", "the flash-attention kernels against their plain "
+                     "version (fp32 tol 1e-5, bf16 2e-2):"):
+        l2_flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        flash_rows = flash_phase(torch, dev, l2_flush.zero_)
+        del l2_flush
     rows += flash_rows.values()
-    # the rows of one design up to hd 128, and of each instance at hd 256
-    base_rows = [k for k in FLASH_ROWS if 256 not in k[1]]
+    # the rows of one design up to hd 128 but hd 64, and of each instance
+    # at hd 256 and at hd 64
     hd256_rows = [k for k in FLASH_ROWS if 256 in k[1]]
+    hd64_rows = [k for k in FLASH_ROWS if 64 in k[1]]
+    base_rows = [k for k in FLASH_ROWS
+                 if k not in hd256_rows and k not in hd64_rows]
     flash_rows["wgmma", (128,)]["library_kernels"] = library_kernels[
         "bfloat16"]
     flash_rows["tf32x3", (8, 16, 32, 128)]["library_kernels"] = (
         library_kernels["float32"])
 
-    print(f"[10] {ARCH} at full width:", flush=True)
-    # the fp32 invariant's direct prefill/decode_step loop, not the served
-    # path: under a name of its own
-    invariant = model_phase(torch, dev)
-    for key in base_rows:
-        flash_rows[key]["launches_fp32_invariant"] = _row_launches(invariant,
-                                                                   key)
+    with _phase("10", f"{ARCH} at full width:"):
+        # the fp32 invariant's direct prefill/decode_step loop, not the
+        # served path: under a name of its own
+        invariant = model_phase(torch, dev)
+        for key in base_rows:
+            flash_rows[key]["launches_fp32_invariant"] = _row_launches(
+                invariant, key)
 
-    print("[11] the serve stream at full width:", flush=True)
-    served = serve_phase(torch, dev)
-    for key in base_rows:
-        flash_rows[key]["launches"] = _row_launches(served, key)
-    serve_profile_phase(torch, dev)
+    with _phase("11", "the serve stream at full width:"):
+        served = serve_phase(torch, dev)
+        for key in base_rows:
+            flash_rows[key]["launches"] = _row_launches(served, key)
+        serve_profile_phase(torch, dev)
 
-    print("[12] the §III restart at Table II size:", flush=True)
-    restart_phase(torch, dev, smi)
+    with _phase("12", "the §III restart at Table II size:"):
+        restart_phase(torch, dev, smi)
 
-    print("[13] the remote ingest at the §III frame shape:", flush=True)
-    remote_phase(torch, dev, smi)
+    with _phase("13", "the remote ingest at the §III frame shape:"):
+        remote_phase(torch, dev, smi)
 
-    print("[15] broker HA under the card's consumer at the §III frame "
-          "shape:", flush=True)
-    ha_phase(torch, dev, smi)
+    with _phase("15", "broker HA under the card's consumer at the §III "
+                      "frame shape:"):
+        ha_phase(torch, dev, smi)
 
-    print("[16] the Spark-MPI bridge: NCCL at world 1, then two processes "
-          "on gloo:", flush=True)
     by_row = {row["name"]: row for row in rows}
-    for name, n in bridge_phase(torch, dev, smi).items():
-        by_row[name]["launches_group_ranks"] = n
-    print("[17] the §III stream with --elastic at Table II size:",
-          flush=True)
-    for name, n in elastic_phase(torch, dev, smi).items():
-        if name in OWN_ROWS:
-            by_row[name]["launches_elastic_stream"] = n
-    print("[18] elastic checkpoint/restart of the §III solver on the card:",
-          flush=True)
-    for name, n in recovery_phase(torch, dev, smi).items():
-        if name in OWN_ROWS:
-            by_row[name]["launches_recovery"] = n
+    with _phase("16", "the Spark-MPI bridge: NCCL at world 1, then two "
+                      "processes on gloo:"):
+        for name, n in bridge_phase(torch, dev, smi).items():
+            by_row[name]["launches_group_ranks"] = n
+    with _phase("17", "the §III stream with --elastic at Table II size:"):
+        for name, n in elastic_phase(torch, dev, smi).items():
+            if name in OWN_ROWS:
+                by_row[name]["launches_elastic_stream"] = n
+    with _phase("18", "elastic checkpoint/restart of the §III solver on "
+                      "the card:"):
+        for name, n in recovery_phase(torch, dev, smi).items():
+            if name in OWN_ROWS:
+                by_row[name]["launches_recovery"] = n
 
-    print("[19] the dense configs at full width: gemma-7b (hd 256), "
-          "minitron-8b and starcoder2-3b:", flush=True)
-    dense = dense_phase(torch, dev, smi)
-    for key in hd256_rows:
-        flash_rows[key]["launches"] = _row_launches(dense["served"], key)
-        flash_rows[key]["launches_fp32_invariant"] = _row_launches(
-            dense["invariant"], key)
-    for key in base_rows:
-        flash_rows[key]["launches_dense_configs"] = _row_launches(
-            dense["served"], key)
+    with _phase("19", "the dense configs at full width: gemma-7b (hd 256), "
+                      "minitron-8b and starcoder2-3b:"):
+        dense = dense_phase(torch, dev, smi)
+        for key in hd256_rows:
+            flash_rows[key]["launches"] = _row_launches(dense["served"], key)
+            flash_rows[key]["launches_fp32_invariant"] = _row_launches(
+                dense["invariant"], key)
+        for key in base_rows:
+            flash_rows[key]["launches_dense_configs"] = _row_launches(
+                dense["served"], key)
 
+    with _phase("20", f"the MoE family: {MOE_ARCH} at full width (hd 64):"):
+        moe = moe_phase(torch, dev, smi)
+        for key in hd64_rows:
+            flash_rows[key]["launches"] = _row_launches(moe["served"], key)
+            flash_rows[key]["launches_fp32_invariant"] = _row_launches(
+                moe["invariant"], key)
+
+    print(f"all phases in {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

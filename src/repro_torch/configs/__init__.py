@@ -15,16 +15,19 @@ ARCHS: dict[str, str] = {
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
 }
-# the reference's other archs, which wait for ROADMAP Queue 1 item 8
-WAITING = ("llava-next-34b", "whisper-medium", "recurrentgemma-2b",
-           "rwkv6-7b", "kimi-k2-1t-a32b", "granite-moe-3b-a800m")
+# the reference's other archs, each with the ROADMAP Queue 1 item it waits
+# for
+WAITING = {"recurrentgemma-2b": 3, "whisper-medium": 4, "rwkv6-7b": 5,
+           "llava-next-34b": 6}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     if arch in WAITING:
-        raise KeyError(f"arch {arch!r} waits for ROADMAP Queue 1 item 8; "
-                       f"ported: {sorted(ARCHS)}")
+        raise KeyError(f"arch {arch!r} waits for ROADMAP Queue 1 item "
+                       f"{WAITING[arch]}; ported: {sorted(ARCHS)}")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; ported: {sorted(ARCHS)}")
     mod = importlib.import_module(ARCHS[arch])

@@ -1,21 +1,25 @@
-"""Model configuration, trimmed to what the dense serve path reads.
+"""Model configuration, trimmed to what the dense and MoE serve paths
+read.
 
 The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
 names and defaults for the fields kept, but ``attention_impl``, whose
 values are the port's own (below), and one field of the port's own,
 ``embed_scale``. The reference keeps dtypes as strings (``dtype``,
 ``param_dtype``); ``DTYPES`` maps them to torch dtypes. Kept are the
-fields the dense archs set: the MLP's activation and gating, RMSNorm (with
-gemma's (1 + w) offset) or LayerNorm, tied embeddings, RoPE's theta. The
+fields the dense and MoE archs set: the MLP's activation and gating,
+RMSNorm (with gemma's (1 + w) offset) or LayerNorm, tied embeddings,
+RoPE's theta, and the MoE block's experts, top-k, capacity factor and
+aux-loss weight. The
 reference scales gemma's embeddings by sqrt(d_model) on a test of the
 arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
 the arch's config file. The reference's ``pad_attention_heads`` pads the
 heads to a mesh's tensor-parallel degree and pads 0 heads without a mesh;
 the port has no mesh yet, so the field comes with the mesh (ROADMAP Queue
-1 item 10). The options of the archs that wait (learned
-positions, the logit soft cap) and the fields of MoE, recurrent, audio and
-VLM blocks, sharding, remat and scan come with the slice that ports an
-arch setting them. ``local_window`` and ``is_encoder_decoder`` stay so
+1 item 9), as do ``sharding_overrides`` (kimi-k2's expert and embedding
+sharding) and the all-to-all MoE path they select. The options of the
+archs that wait (learned positions, the logit soft cap) and the fields of
+recurrent, audio and VLM blocks, remat and scan come with the slice that
+ports an arch setting them. ``local_window`` and ``is_encoder_decoder`` stay so
 that a config asking for a sliding window or cross-attention is refused,
 not served as something else.
 """
@@ -35,7 +39,7 @@ DTYPES: dict[str, torch.dtype] = {
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported)
+    family: str                    # dense | moe (the families ported)
     num_layers: int
     d_model: int
     num_heads: int                 # query heads
@@ -51,6 +55,11 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     embed_scale: bool = False      # embeddings x sqrt(d_model) (gemma)
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
     local_window: int = 0          # sliding window: not ported, refused
     is_encoder_decoder: bool = False   # cross-attention: not ported, refused
     # numerics / execution

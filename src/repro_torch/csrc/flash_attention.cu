@@ -23,7 +23,7 @@
 //
 // This kernel takes bf16 at hd 8, 16 and 32, the small head dims of the
 // kernel tests; every fp32 call goes to csrc/flash_attention_tf32x3.cu and
-// every bf16 call at hd 128 and 256, the models' prefills, to
+// every bf16 call at hd 64, 128 and 256, the models' prefills, to
 // csrc/flash_attention_wgmma.cu, both on the tensor cores.
 //
 // Bound: operations, at the fp32 FMA rate, the pipe its products run on

@@ -6,9 +6,8 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
 // flash_attention_bhsd (body _make_kernel) for every fp32 call, at hd 8, 16,
-// 32, 128 and 256; csrc/flash_attention_wgmma.cu takes bf16 at hd 128 and
-// 256 and
-// csrc/flash_attention.cu bf16 at the small head dims. It computes what the
+// 32, 64, 128 and 256; csrc/flash_attention_wgmma.cu takes bf16 at hd 64,
+// 128 and 256 and csrc/flash_attention.cu bf16 at the small head dims. It computes what the
 // TPU kernel computes: scores in fp32 scaled by 1/sqrt(hd), the top-left
 // causal mask kpos <= qpos with NEG_INF = -1e30, an online softmax with the
 // running max, denominator and accumulator in fp32, the denominator clamped
@@ -66,7 +65,9 @@
 // addresses step by a constant; positions are 32-bit. Row pitches keep a
 // warp's fragment reads on 32 distinct banks: Q and K rows are a multiple
 // of 16 plus 8 floats apart (the float2 reads of 16 lanes), V rows 4 more
-// than a multiple of 8 (rows 2t, 2t+1 of 4 lanes). Shared memory at hd 128:
+// than a multiple of 8 (rows 2t, 2t+1 of 4 lanes). Shared memory at hd 64
+// (granite-moe-3b-a800m): Q, K and V rows of 72, 72 and 68 floats, 54,272
+// bytes a CTA, two CTAs an SM, O 32 registers a thread. At hd 128:
 // Q, K and V 34, 34 and 33 KB, 101 KB a CTA. At hd 256 (gemma-7b) the
 // same design holds twice the columns: Q, K and V 68, 68 and 67 KB, 202 KB,
 // so one CTA an SM (4 warps) where hd 128 has two, and O's accumulator is
@@ -408,8 +409,8 @@ int launch(const float* q, const float* k, const float* v, float* o,
 }  // namespace
 
 // q, k, v, o: (B, S, H, hd) fp32, contiguous and 16-byte aligned on the
-// current device; o aliases none of the inputs. hd is 8, 16, 32, 128 or
-// 256.
+// current device; o aliases none of the inputs. hd is 8, 16, 32, 64, 128
+// or 256.
 // Launches one CTA of 128 threads per (tile of 64 query rows, head, batch)
 // on `stream` and returns cudaGetLastError(), or cudaErrorInvalidValue for
 // a shape or an alignment it does not take.
@@ -432,6 +433,7 @@ extern "C" int flash_attention_tf32x3_launch(const void* q, const void* k,
     case 8: return launch<8>(qf, kf, vf, of, B, S, H, s);
     case 16: return launch<16>(qf, kf, vf, of, B, S, H, s);
     case 32: return launch<32>(qf, kf, vf, of, B, S, H, s);
+    case 64: return launch<64>(qf, kf, vf, of, B, S, H, s);
     case 128: return launch<128>(qf, kf, vf, of, B, S, H, s);
     case 256: return launch<256>(qf, kf, vf, of, B, S, H, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

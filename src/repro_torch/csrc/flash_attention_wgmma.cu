@@ -1,13 +1,14 @@
-// Causal flash attention on Hopper's tensor cores, bf16 at head dims 128
-// and 256: the prefill of the serving path,
+// Causal flash attention on Hopper's tensor cores, bf16 at head dims 64,
+// 128 and 256: the prefill of the serving path,
 //
 //     o[b, s, h] = sum over t <= s of softmax_t(q[b,s,h] . k[b,t,h] * scale)
 //                  * v[b, t, h],                  scale = 1 / sqrt(hd)
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
-// flash_attention_bhsd (body _make_kernel) for every bf16 call at hd 128
-// (internlm2-1.8b, minitron-8b, starcoder2-3b) and hd 256 (gemma-7b);
-// csrc/flash_attention.cu keeps bf16 at hd 8/16/32. It computes what the
+// flash_attention_bhsd (body _make_kernel) for every bf16 call at hd 64
+// (granite-moe-3b-a800m), hd 128 (internlm2-1.8b, minitron-8b,
+// starcoder2-3b) and hd 256 (gemma-7b); csrc/flash_attention.cu keeps bf16
+// at hd 8/16/32. It computes what the
 // TPU kernel computes: scores in fp32, the top-left causal mask kpos <= qpos
 // with NEG_INF = -1e30, an online softmax with the running max and
 // denominator in fp32, the denominator clamped at 1e-30, kv tiles past
@@ -20,10 +21,11 @@
 // steps of the output. Q.K^T multiplies bf16 values exactly in fp32; only
 // the summation order differs.
 //
-// Bound: device memory at hd 128, about even at hd 256. At the prefill
-// (B*H = 64, S = 1,024) q, k, v and o once are 67.1 MB at hd 128, 0.020 ms
-// at 3.35 TB/s, above the 17.2 GFLOP of the causal half at 989 TFLOP/s on
-// the tensor cores (0.017 ms); at hd 256 134 MB, 0.040 ms, beside 34.4
+// Bound: device memory at hd 64 and 128, about even at hd 256. At the
+// prefill (B*H = 64, S = 1,024) q, k, v and o once are 33.6 MB at hd 64,
+// 0.010 ms at 3.35 TB/s, above the 8.6 GFLOP of the causal half at 989
+// TFLOP/s on the tensor cores (0.0087 ms); 67.1 MB at hd 128, 0.020 ms,
+// above 17.2 GFLOP (0.017 ms); at hd 256 134 MB, 0.040 ms, beside 34.4
 // GFLOP, 0.035 ms. A kernel without overlap of softmax and products reaches
 // neither; this one keeps the loads off the critical path and the products
 // on wgmma.
@@ -44,6 +46,10 @@
 // N is hd; O a 64 x hd fp32 accumulator. Then O / max(l, 1e-30) rounded to
 // bf16 and stored for rows < S. The kv tile is what the 227 KB of shared
 // memory and the consumers' registers leave room for:
+//   hd 64:  128-key tiles of 16 KB (one box a row), Q 16 KB, 81 KB in all;
+//           S by wgmma.m64n128k16 over 4 k-steps, P.V by m64n64k16 over
+//           8; S, P and O take 64 + 32 + 32 registers a thread; scale
+//           1/8 exactly;
 //   hd 128: 128-key tiles of 32 KB, Q 32 KB, 161 KB in all; S by
 //           wgmma.m64n128k16 over 8 k-steps, P.V by m64n128k16 over 8;
 //           S, P and O take 64 + 32 + 64 registers a thread;
@@ -72,14 +78,15 @@ constexpr int kRow = 128;                  // bytes: a box row, 64 bf16
 // columns (128 bytes, the swizzle's span), each box its rows in a block.
 template <int HD>
 struct Tiles {
-  static_assert(HD == 128 || HD == 256, "built at hd 128 and 256");
-  static constexpr int kBKV = HD == 128 ? 128 : 64;  // key/value rows a tile
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "built at hd 64, 128 and 256");
+  static constexpr int kBKV = HD == 256 ? 64 : 128;  // key/value rows a tile
   static constexpr int kBoxes = HD / 64;
   static constexpr int kQBox = kBQ * kRow;           // 16 KB
   static constexpr int kKVBox = kBKV * kRow;         // 16 or 8 KB
-  static constexpr int kQTile = kBoxes * kQBox;      // 32 or 64 KB
-  static constexpr int kKVTile = kBoxes * kKVBox;    // 32 KB
-  // Q and kStages of K and V, + 1 KB to align: 161 or 193 KB
+  static constexpr int kQTile = kBoxes * kQBox;      // 16, 32 or 64 KB
+  static constexpr int kKVTile = kBoxes * kKVBox;    // 16 or 32 KB
+  // Q and kStages of K and V, + 1 KB to align: 81, 161 or 193 KB
   static constexpr int kSmem = kQTile + 2 * kStages * kKVTile + 1024;
 };
 constexpr float kNegInf = -1e30f;
@@ -228,9 +235,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d += A.B, m64nNk16 with N = 2 x d's length (128 or 256 here), A (4
+// d += A.B, m64nNk16 with N = 2 x d's length (64, 128 or 256 here), A (4
 // registers of bf16 pairs a thread) from registers, B MN-major
 // (transposed) in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint64_t b) {
@@ -544,18 +561,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
 }  // namespace
 
 // q, k, v, o: (B, S, H, hd) bf16, contiguous and 16-byte aligned on the
-// current device; o aliases none of the inputs; hd is 128 or 256. Launches
-// one CTA per (tile of 128 query rows, head, batch) on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a shape it does not take
-// and cudaErrorNotSupported when the driver gives no cuTensorMapEncodeTiled
-// or refuses a map.
+// current device; o aliases none of the inputs; hd is 64, 128 or 256.
+// Launches one CTA per (tile of 128 query rows, head, batch) on `stream`
+// and returns cudaGetLastError(), or cudaErrorInvalidValue for a shape it
+// does not take and cudaErrorNotSupported when the driver gives no
+// cuTensorMapEncodeTiled or refuses a map.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
                                             const void* v, void* o,
                                             int64_t B, int64_t S, int64_t H,
                                             int64_t hd, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (B > 65535 || H > 65535 || S > 0x7fffffff - kBQ ||
-      (hd != 128 && hd != 256))
+      (hd != 64 && hd != 128 && hd != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   for (const void* p : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<uintptr_t>(p) & 15u)
@@ -563,6 +580,9 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
   if (encode_tiled() == nullptr)
     return static_cast<int>(cudaErrorNotSupported);
   const auto s = static_cast<cudaStream_t>(stream);
-  return hd == 128 ? launch<128>(q, k, v, o, B, S, H, s)
-                   : launch<256>(q, k, v, o, B, S, H, s);
+  switch (hd) {
+    case 64: return launch<64>(q, k, v, o, B, S, H, s);
+    case 128: return launch<128>(q, k, v, o, B, S, H, s);
+    default: return launch<256>(q, k, v, o, B, S, H, s);
+  }
 }

@@ -1,26 +1,26 @@
 """Launch wrapper of the three CUDA flash-attention kernels, the
 counterparts of ``repro/kernels/flash_attention/kernel.py:
 flash_attention_bhsd``: ``csrc/flash_attention_wgmma.cu`` (``wgmma`` on
-Hopper's tensor cores) takes every bf16 call at head dims 128 and 256, the
-models' prefill; ``csrc/flash_attention_tf32x3.cu`` (split TF32 on
+Hopper's tensor cores) takes every bf16 call at head dims 64, 128 and 256,
+the models' prefill; ``csrc/flash_attention_tf32x3.cu`` (split TF32 on
 ``mma.sync``, as close to float64 as fp32 FMAs) takes every fp32 call; and
-``csrc/flash_attention.cu`` (fp32 FMAs) bf16 at the small head dims. hd 64
-is not built yet (ROADMAP Queue 2 item 6): no ported arch has it."""
+``csrc/flash_attention.cu`` (fp32 FMAs) bf16 at the small head dims. Any
+other head dim is refused: no kernel is built at it."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (8, 16, 32, 128, 256)      # the kernels' instantiations
-WGMMA_HEAD_DIMS = (128, 256)
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)  # the kernels' instantiations
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 DESIGNS = ("wgmma", "tf32x3", "simt")
 
 
 def design_for(dtype: torch.dtype, hd: int) -> str:
     """The kernel that takes a call: "tf32x3" for every fp32 call, "wgmma"
-    for bf16 at hd 128 and 256, "simt" for bf16 at the small head dims.
+    for bf16 at hd 64, 128 and 256, "simt" for bf16 at the small head dims.
     Raises ``ValueError`` for a head dim no kernel is built at."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not built; the "

@@ -12,12 +12,15 @@ The reference's ``--reduced`` cannot be turned off (``store_true`` with
 ``default=True``), so it always serves the 2-layer, 64-wide toy; here it is
 off unless given, and the entry point serves the full model. The weights
 are random, drawn from ``--seed`` (nothing pretrained can be fetched).
-``--arch`` is one of the ported dense archs: internlm2-1.8b (the
-default), gemma-7b, minitron-8b and starcoder2-3b (``repro_torch.configs
-.ARCHS``); the others name the ROADMAP item they wait for.
+``--arch`` is one of the ported archs (``repro_torch.configs.ARCHS``): the
+dense internlm2-1.8b (the default), gemma-7b, minitron-8b and
+starcoder2-3b, and the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about
+1 T parameters, is served at ``--reduced`` only: it does not fit one
+card); the others name the ROADMAP item they wait for.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-7b \\
-        --requests 8 --batch 4 --prompt-len 1024 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --requests 8 --batch 4 \\
+        --prompt-len 1024 --gen 16
 """
 from __future__ import annotations
 

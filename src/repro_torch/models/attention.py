@@ -1,8 +1,8 @@
 """Attention: GQA/MQA/MHA with RoPE, causal self-attention, and the serve
 path's KV cache.
 
-The counterpart of ``repro/models/attention.py``, trimmed to the dense
-serve path. Two implementations of the same function:
+The counterpart of ``repro/models/attention.py``, trimmed to the
+decoder's serve path. Two implementations of the same function:
 
 * ``naive`` — the full score matrix in fp32; the oracle, and what every
               call that is not a causal prefill takes (decode, Sq = 1).
@@ -15,12 +15,13 @@ serve path. Two implementations of the same function:
 ``attention_impl`` is ``"flash"`` (the default) or ``"naive"`` (naive
 everywhere, so one model runs with and without the kernel). The
 reference's ``blocked`` and ``triangular`` schedules compute the naive
-function in tiles for XLA; they, cross-attention and the sliding-window
-cache wait for ROADMAP Queue 1 item 8, and a config that asks for one is
-refused rather than served otherwise. The reference's head padding
+function in tiles for XLA (ROADMAP Queue 1 item 7); the sliding-window
+cache comes with recurrentgemma (item 3) and cross-attention with whisper
+(item 4). A config that asks for one is refused, naming its item, rather
+than served otherwise. The reference's head padding
 (``pad_attention_heads``) pads H to a mesh's tensor-parallel degree and
 pads 0 heads without one (``attention.py:317-320``); it comes with the
-port's mesh (ROADMAP Queue 1 item 10).
+port's mesh (ROADMAP Queue 1 item 9).
 
 GQA: K/V are repeated to the full H query heads after RoPE, as the
 reference does, so every attention tensor is (B, S, H, hd).
@@ -36,7 +37,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, normal_init
 
 NEG_INF = -1e30
-_WAITS = "waits for ROADMAP Queue 1 item 8"
+_WAITS = "waits for ROADMAP Queue 1 item"
 
 
 # -- params ----------------------------------------------------------------------
@@ -89,7 +90,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int = 0) -> torch.Tensor:
     impl = config.attention_impl
     if impl not in ("flash", "naive"):
-        raise NotImplementedError(f"attention_impl={impl!r} {_WAITS}")
+        raise NotImplementedError(f"attention_impl={impl!r} {_WAITS} 7")
     if (impl == "flash" and causal and window == 0 and q.shape[1] > 1
             and q.is_cuda):
         # like the reference's Pallas call, qpos/kpos are not read: the
@@ -111,9 +112,9 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     sequence, then fills the cache; decode (S == 1) writes its slot, then
     attends over the filled slots."""
     if config.local_window > 0:
-        raise NotImplementedError(f"sliding-window attention {_WAITS}")
+        raise NotImplementedError(f"sliding-window attention {_WAITS} 3")
     if config.is_encoder_decoder:
-        raise NotImplementedError(f"cross-attention {_WAITS}")
+        raise NotImplementedError(f"cross-attention {_WAITS} 4")
     B, S, _ = x.shape
     h, kh = config.num_heads, config.num_kv_heads
     hd = config.resolved_head_dim
@@ -167,7 +168,7 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
     """One layer's cache: 'k', 'v' (batch, max_len, KH, hd) zeros and
     'pos' 0."""
     if config.local_window > 0:
-        raise NotImplementedError(f"the sliding-window cache {_WAITS}")
+        raise NotImplementedError(f"the sliding-window cache {_WAITS} 3")
     shape = (batch, max_len, config.num_kv_heads, config.resolved_head_dim)
     dtype = dtype or config.activation_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -7,8 +7,10 @@ dicts. The caller passes the reference's tree with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves
 arrive as ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so
 every leaf keeps its dtype and value. The walk follows whatever keys the
-tree has, so a tied tree (no ``lm_head``), a LayerNorm's ``bias`` and an
-ungated MLP (no ``w_gate``) arrive as they are.
+tree has, so a tied tree (no ``lm_head``), a LayerNorm's ``bias``, an
+ungated MLP (no ``w_gate``) and an MoE block arrive as they are: the
+reference stacks the router on L as (L, D, E) in fp32 and the experts as
+(L, E, D, F) and (L, E, F, D), and each layer takes its slice.
 """
 from __future__ import annotations
 
@@ -39,8 +41,9 @@ def _tree(node: Any, fn) -> Any:
 
 def params_from_jax(tree: dict, config: ModelConfig,
                     device: str | torch.device = "cpu") -> dict:
-    """The reference's dense-transformer parameters (numpy leaves, layer
-    leaves stacked on a leading L axis) as the port's, on ``device``."""
+    """The reference's transformer parameters, dense or MoE (numpy
+    leaves, layer leaves stacked on a leading L axis), as the port's, on
+    ``device``."""
     n = config.num_layers
 
     def layer(i: int) -> dict:

@@ -1,7 +1,7 @@
 """Model registry: family -> module implementing the serve API.
 
-The counterpart of ``repro/models/registry.py``, with the dense family
-only. API of a family module:
+The counterpart of ``repro/models/registry.py``, with the dense and MoE
+families, both served by the transformer. API of a family module:
     init(gen, config) -> params
     prefill(params, batch, config, max_len) -> (last_logits, cache)
     decode_step(params, tokens, cache, config) -> (logits, cache)
@@ -14,15 +14,18 @@ from types import ModuleType
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 
-_FAMILIES: dict[str, ModuleType] = {"dense": transformer}
-# the reference's other families, which wait for ROADMAP Queue 1 item 8
-_WAITING = ("moe", "vlm", "audio", "ssm", "hybrid")
+_FAMILIES: dict[str, ModuleType] = {"dense": transformer,
+                                     "moe": transformer}
+# the reference's other families, each with the ROADMAP Queue 1 item it
+# waits for
+_WAITING = {"hybrid": 3, "audio": 4, "ssm": 5, "vlm": 6}
 
 
 def get_model(config: ModelConfig) -> ModuleType:
     if config.family in _WAITING:
-        raise NotImplementedError(f"model family {config.family!r} waits "
-                                  "for ROADMAP Queue 1 item 8")
+        raise NotImplementedError(
+            f"model family {config.family!r} waits for ROADMAP Queue 1 item "
+            f"{_WAITING[config.family]}")
     try:
         return _FAMILIES[config.family]
     except KeyError:

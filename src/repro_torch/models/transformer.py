@@ -1,14 +1,18 @@
-"""Decoder-only transformer LM, the dense family: init and the serve path.
+"""Decoder-only transformer LM, the dense and MoE families: init and the
+serve path.
 
-The counterpart of ``repro/models/transformer.py`` for ``family="dense"``.
+The counterpart of ``repro/models/transformer.py`` for ``family="dense"``
+and ``"moe"``: a block with ``num_experts > 0`` has an MoE layer
+(``models/moe.py``) where a dense block has its MLP.
 The reference scans a stacked (L, ...) parameter tree under ``jax.lax.scan``
 with a remat policy, both compile devices for XLA; here the layers are a
 Python list of per-layer dicts, run in a loop. The serve path keeps the
 reference's API: ``prefill`` runs the prompt, fills the cache and returns
 last-token logits; ``decode_step`` appends one token. The cache keeps the
 reference's (L, B, Smax, KH, hd) layout and its scalar ``pos`` (an int
-here), and is updated in place. MoE layers, the VLM image prefix and the
-training loss wait for ROADMAP Queue 1 items 8-9.
+here), and is updated in place. The layers sum the MoE aux loss as the
+reference's do; the serve path drops it, and the training loss that reads
+it waits for ROADMAP Queue 1 item 8, the VLM image prefix for item 6.
 """
 from __future__ import annotations
 
@@ -17,15 +21,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 # -- init ----------------------------------------------------------------------
 def _init_block(gen: torch.Generator, config: ModelConfig,
                 dtype: torch.dtype) -> dict:
-    return {"attn": attn.init_attention(gen, config, dtype),
-            "mlp": L.init_mlp(gen, config, dtype),
-            "norm1": L.init_norm(config, dtype, gen.device),
-            "norm2": L.init_norm(config, dtype, gen.device)}
+    params = {"attn": attn.init_attention(gen, config, dtype)}
+    if config.num_experts > 0:
+        params["moe"] = moe_lib.init_moe(gen, config, dtype)
+    else:
+        params["mlp"] = L.init_mlp(gen, config, dtype)
+    params["norm1"] = L.init_norm(config, dtype, gen.device)
+    params["norm2"] = L.init_norm(config, dtype, gen.device)
+    return params
 
 
 def init(gen: torch.Generator, config: ModelConfig) -> dict:
@@ -33,7 +42,8 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
     its device: {'embed': {...}, 'layers': [per-layer dicts],
     'final_norm': {...}}, the trees the reference's ``init`` builds: no
     ``lm_head`` when the embeddings are tied, no ``w_gate`` in an ungated
-    MLP, a ``bias`` beside each LayerNorm's ``scale``."""
+    MLP, a ``bias`` beside each LayerNorm's ``scale``, ``moe`` in place of
+    ``mlp`` when the config has experts."""
     dtype = config.parameter_dtype
     embed = L.init_embedding(gen, config, dtype)
     layers = [_init_block(gen, config, dtype)
@@ -45,30 +55,41 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
 # -- one transformer block -------------------------------------------------------
 def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
            positions: torch.Tensor, cache: dict | None
-           ) -> tuple[torch.Tensor, dict | None]:
+           ) -> tuple[torch.Tensor, torch.Tensor | None, dict | None]:
+    """One block: (x, the MoE layer's aux loss or None for a dense block,
+    the cache)."""
     h = L.apply_norm(x, block_params["norm1"], config)
     a, new_cache = attn.attention_layer(h, block_params["attn"], config,
                                         positions, cache=cache)
     x = x + a
     h = L.apply_norm(x, block_params["norm2"], config)
-    x = x + L.mlp(h, block_params["mlp"], config)
-    return x, new_cache
+    if config.num_experts > 0:
+        m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
+    else:
+        m, aux = L.mlp(h, block_params["mlp"], config), None
+    return x + m, aux, new_cache
 
 
 def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
                 positions: torch.Tensor, cache: dict | None
-                ) -> tuple[torch.Tensor, dict | None]:
-    """The blocks in order, each with its layer's slice of the cache."""
+                ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+    """The blocks in order, each with its layer's slice of the cache;
+    returns (x, the aux losses summed in layer order from an fp32 zero, the
+    cache). A dense block adds nothing, where the reference adds a zero."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block_params in enumerate(params["layers"]):
         layer_cache = None
         if cache is not None:
             layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
                            "pos": cache["pos"]}
-        x, _ = _block(x, block_params, config, positions, layer_cache)
+        x, aux_i, _ = _block(x, block_params, config, positions,
+                             layer_cache)
+        if aux_i is not None:
+            aux = aux + aux_i
     if cache is None:
-        return x, None
-    return x, {"k": cache["k"], "v": cache["v"],
-               "pos": cache["pos"] + positions.shape[1]}
+        return x, aux, None
+    return x, aux, {"k": cache["k"], "v": cache["v"],
+                    "pos": cache["pos"] + positions.shape[1]}
 
 
 # -- input embedding -------------------------------------------------------------
@@ -99,7 +120,7 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     x, positions = _embed_inputs(params, tokens, config)
     cache = init_cache(config, tokens.shape[0], max_len or x.shape[1],
                        tokens.device)
-    x, cache = _run_layers(x, params, config, positions, cache)
+    x, _, cache = _run_layers(x, params, config, positions, cache)
     x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache
 
@@ -109,6 +130,6 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     """tokens: (B, 1) -> (logits (B, 1, V), the cache one token on)."""
     x, positions = _embed_inputs(params, tokens, config,
                                  start_pos=cache["pos"])
-    x, cache = _run_layers(x, params, config, positions, cache)
+    x, _, cache = _run_layers(x, params, config, positions, cache)
     x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x, params["embed"], config), cache

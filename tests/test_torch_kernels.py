@@ -227,7 +227,7 @@ def test_torch_flash_attention_ref_keeps_the_bottom_right_mask():
 def _wgmma_model(q, k, v, bkv=128):
     """The arithmetic of csrc/flash_attention_wgmma.cu on (BH, S, hd)
     tensors: 128-row q tiles, ``bkv``-row kv tiles up to causal reach (128
-    at hd 128, 64 at hd 256), scores in fp32 scaled and masked (top-left,
+    at hd 64 and 128, 64 at hd 256), scores in fp32 scaled and masked (top-left,
     and the tail past S), the online max and sum in fp32, P rounded to bf16
     before P.V (fp32 products and sums), the sum clamped at 1e-30, the
     output rounded once to bf16."""
@@ -301,6 +301,27 @@ def test_torch_flash_wgmma_hd256_numerics_match_the_reference(S, block):
                                    rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("S,block", [(64, 64), (130, None), (256, 128)])
+def test_torch_flash_wgmma_hd64_numerics_match_the_reference(S, block):
+    """The wgmma kernel's numerics at granite-moe-3b-a800m's hd 64, with
+    128-key kv tiles, against the JAX ``attention_ref`` and, where S tiles
+    evenly, the Pallas kernel in interpret mode at hd 64, within 2e-2."""
+    q, k, v = _planes(_seed("flash-wgmma-64", S), (2, S, 64), 3)
+    tq, tk, tv = (_to_torch(x, torch.bfloat16) for x in (q, k, v))
+    got = _wgmma_model(tq, tk, tv, bkv=128)
+    jq, jk, jv = (_to_jax(x, jnp.bfloat16) for x in (q, k, v))
+    wants = [fa_ref.attention_ref(jq, jk, jv, causal=True)]
+    if block is not None:
+        wants.append(fa_kernel.flash_attention_bhsd(
+            jq, jk, jv, block_q=block, block_kv=block, causal=True,
+            interpret=True))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, S, 64)
+    for want in wants:
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+
+
 def _tf32(x):
     """``cvt.rna.tf32.f32``: fp32 rounded to 10 mantissa bits, to nearest
     with ties away from zero (the bits are sign and magnitude, so adding
@@ -355,13 +376,14 @@ def _tf32x3_model(q, k, v, products=3):
 
 
 @pytest.mark.parametrize("S,hd", [(64, 16), (128, 32), (32, 8), (130, 128),
-                                  (130, 256)])
+                                  (130, 256), (130, 64)])
 def test_torch_flash_tf32x3_numerics_match_the_reference(S, hd):
     """The tf32x3 kernel's numerics (split TF32 products), modelled here,
     against the JAX ``attention_ref`` and the Pallas kernel in interpret
     mode, within the fp32 tolerance of tests/test_kernels.py:136 (1e-5), at
-    ``chip_smoke.FLASH_SHAPES`` and a ragged S of 130 at hd 128 and at
-    gemma-7b's hd 256 (a third q and kv tile of 2 rows)."""
+    ``chip_smoke.FLASH_SHAPES`` and a ragged S of 130 at hd 128, at
+    gemma-7b's hd 256 and at granite-moe-3b-a800m's hd 64 (a third q and
+    kv tile of 2 rows)."""
     q, k, v = _planes(_seed("flash-tf32x3", S, hd), (4, S, hd), 3)
     got = _tf32x3_model(*(torch.from_numpy(x) for x in (q, k, v)))
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
@@ -402,10 +424,11 @@ def test_torch_tf32_rounding_is_to_nearest_ties_away():
 @pytest.mark.parametrize("dtype,hd,design", [
     (torch.bfloat16, 128, "wgmma"), (torch.float32, 128, "tf32x3"),
     (torch.bfloat16, 32, "simt"), (torch.float32, 8, "tf32x3"),
-    (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "tf32x3")])
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "tf32x3"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "tf32x3")])
 def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
         dtype, hd, design):
-    """bf16 at hd 128 and 256 (the prefills) goes to the wgmma kernel,
+    """bf16 at hd 64, 128 and 256 (the prefills) goes to the wgmma kernel,
     every fp32 call to the tf32x3 one, bf16 at the small head dims to the
     SIMT one; on a CPU tensor each raises before counting."""
     assert t_fa_kernel.design_for(dtype, hd) == design
@@ -421,11 +444,11 @@ def test_torch_flash_wrapper_picks_the_kernel_by_type_and_head_dim(
 
 def test_torch_flash_instances_are_the_built_pairs():
     """The per-instance counter has one key a built (design, head dim)
-    pair: tf32x3 at every head dim, wgmma at 128 and 256, simt at the
+    pair: tf32x3 at every head dim, wgmma at 64, 128 and 256, simt at the
     small ones."""
     want = {("tf32x3", hd) for hd in t_fa_kernel.HEAD_DIMS}
-    want |= {("wgmma", 128), ("wgmma", 256), ("simt", 8), ("simt", 16),
-             ("simt", 32)}
+    want |= {("wgmma", 64), ("wgmma", 128), ("wgmma", 256), ("simt", 8),
+             ("simt", 16), ("simt", 32)}
     assert set(t_fa_kernel.INSTANCES) == want
     assert set(t_fa_kernel.flash_attention.launches_by_instance) == want
 
@@ -436,12 +459,12 @@ def test_torch_flash_every_fp32_call_goes_to_tf32x3(hd):
     assert t_fa_kernel.design_for(torch.float32, hd) == "tf32x3"
 
 
-@pytest.mark.parametrize("hd", [64, 96, 512])
+@pytest.mark.parametrize("hd", [48, 96, 512])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_torch_flash_unbuilt_head_dim_raises(hd, dtype):
-    """No kernel is built at hd 64 (ROADMAP Queue 2 item 6: the first hd-64
-    arch brings it) or at any other head dim outside ``HEAD_DIMS``:
-    ``design_for`` raises ``ValueError`` instead of picking one."""
+    """No kernel is built at a head dim outside ``HEAD_DIMS`` (48, 96 and
+    512 here; no ported arch has one): ``design_for`` raises
+    ``ValueError`` instead of picking one."""
     assert hd not in t_fa_kernel.HEAD_DIMS
     with pytest.raises(ValueError, match=f"head_dim {hd} not built"):
         t_fa_kernel.design_for(dtype, hd)

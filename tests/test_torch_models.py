@@ -273,26 +273,27 @@ def test_torch_full_widths_one_layer():
 
 # -- what waits ----------------------------------------------------------------------
 def test_torch_unported_arch_names_its_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 8"):
-        get_config("granite-moe-3b-a800m")
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 5;"):
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("change", [
-    {"family": "moe"},
-    {"attention_impl": "blocked"},
-    {"attention_impl": "triangular"},
-    {"local_window": 64},
-    {"is_encoder_decoder": True},
+@pytest.mark.parametrize("change,item", [
+    ({"family": "ssm"}, 5),
+    ({"attention_impl": "blocked"}, 7),
+    ({"attention_impl": "triangular"}, 7),
+    ({"local_window": 64}, 3),
+    ({"is_encoder_decoder": True}, 4),
 ])
-def test_torch_unported_paths_are_refused(change):
+def test_torch_unported_paths_are_refused(change, item):
     """A config asking for a family, schedule or attention branch the port
-    has not taken up raises, naming the ROADMAP item, instead of serving
-    something else."""
+    has not taken up raises, naming the ROADMAP item that brings it,
+    instead of serving something else."""
     _, tcfg = _configs(**change)
     tok = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1 item {item}$"):
         model = get_model(tcfg)
         params = model.init(torch.Generator().manual_seed(0), tcfg)
         model.prefill(params, {"tokens": tok}, tcfg)
