@@ -32,9 +32,11 @@ Phases, each fatal on failure:
      version in float64, timed beside its bound and the dense sweep's
      bound; then a launch's time at 16, 128 and 256 slices;
   8. the §IV tomography stream at full width (256 slices of 256x256, 76
-     angles, 2 sweeps, 4 partitions) through ``run_stream``, with its
-     residual and volume error held to the JAX reference's, the ART
-     launches against the partitions processed, and the sink's keys, with
+     angles, 2 sweeps, 4 partitions) through ``run_stream``, its
+     partitions on the stream's ``TaskScheduler`` (4 executor threads,
+     speculation on), with its residual and volume error held to the JAX
+     reference's, the ART launches against the partitions processed (and
+     the speculative copies, if any), and the sink's keys, with
      ``--obs-port 0`` read back as in phase 5 (``stream_records_total``
      256); then a profile of one of its batches: device time and idle
      share;
@@ -163,9 +165,33 @@ Phases, each fatal on failure:
      GEMMs, the MoE dispatch, the rest); the fp32 serve invariant (B 2, S
      256, 4 tokens, capacity factor 5.0, drop-free; every launch on the
      tf32x3 kernel at hd 64); the peak device memory.
+ 21. (run right after phase 14, while phase 8's system is still on the
+     card) the §IV stream at full width through ``run_stream`` on a
+     ``TaskScheduler`` of 4 executors with speculation, as
+     ``examples/tomo_pipeline.py`` runs it: (a) clean, (b) with a
+     ``FailureInjector`` losing the first attempts at partitions 0 (the
+     first batch's broker read, replayed from its offsets) and 1 (an ART
+     partition) and making partition 2 a 1.5 s straggler in every batch;
+     each volume held to phase 8's slice by slice (1e-6 relative) and to
+     the JAX reference's residual and error (1e-3), the ART launches, read
+     once the abandoned attempts' threads ended, to the partitions' results
+     plus one a speculative copy, (b)'s retries >= 2, speculative copies >=
+     4 and their wins >= 4; stream and batch times beside phase 8's;
+ 22. recurrentgemma-2b at full width (26 layers, 2,560 wide, 10/1 heads of
+     hd 256, window 2,048, RG-LRU width 2,560, vocabulary 256,000) drawn
+     from the seed in bf16: (a) 8 requests of 2,560 tokens in batches of 4,
+     16 tokens out, through ``run_serve``: no kernel launched (the
+     windowed attention is naive, the reference's rule), per-batch prefill
+     and decode-step times, time to first token, tokens/s, peak memory,
+     and the first batch's tokens equal to the model's own loop; (c) a
+     profiled prefill of that batch split into GEMMs, naive attention, the
+     RG-LRU scan, the causal conv and the rest, with its idle share; (b)
+     the fp32 serve invariant (B 2, a 2,560-token prompt, 8 tokens, every
+     decode step past the window) on fp32 parameters.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
-``launches_group_handoff`` is phase 14's count; the modulus, overlap and
+``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
+``launches_scheduler_faults`` phase 21's; the modulus, overlap and
 raar rows carry ``launches_group_ranks``, ``launches_elastic_stream`` and
 ``launches_recovery``, phases 16-18's; the flash rows at hd 256 carry
 phase 19's counts, gemma-7b's serve stream as ``launches`` and its fp32
@@ -819,9 +845,28 @@ def art_phase(torch, dev, flush) -> dict:
                 variants=variants)
 
 
-def tomo_phase(torch, dev, kernel_ms: float) -> tuple[int, "np.ndarray"]:
-    """The §IV stream at full width; returns the ART launches it made and
-    the gathered volume."""
+def _join_pool_threads(before: set, timeout: float = 120.0) -> int:
+    """Joins the RDD scheduler's pool threads started since ``before`` (an
+    abandoned attempt runs on after its job returned); returns how many
+    there were. Fails if one is still alive after ``timeout`` s."""
+    import threading
+
+    deadline = time.perf_counter() + timeout
+    threads = [t for t in set(threading.enumerate()) - before
+               if t.name.startswith("ThreadPoolExecutor")]
+    for t in threads:
+        t.join(max(0.0, deadline - time.perf_counter()))
+        if t.is_alive():
+            raise AssertionError(f"pool thread {t.name} still running")
+    return len(threads)
+
+
+def tomo_phase(torch, dev, kernel_ms: float) -> tuple[int, dict]:
+    """The §IV stream at full width, on the stream's default scheduler (4
+    executors, speculation on); returns the ART launches it made and
+    ``run_stream``'s result."""
+    import threading
+
     import numpy as np
 
     from repro_torch import kernels
@@ -833,15 +878,23 @@ def tomo_phase(torch, dev, kernel_ms: float) -> tuple[int, "np.ndarray"]:
     out = OUT / "tomo"
     shutil.rmtree(out, ignore_errors=True)
     args = parse_args(TOMO_ARGS + ["--out", str(out), "--obs-port", "0"])
+    before = set(threading.enumerate())
     kernels.reset_launch_counts()
     res = run_stream(args, device=dev)
+    _join_pool_threads(before)
     counts = kernels.launch_counts()
     launches = counts["art_sweep"]
-    print(f"  partitions processed {res['partitions']}, launches {counts}")
-    if not launches == res["partitions"] == res["launches"] > 0:
+    sched = res["scheduler_metrics"]
+    print(f"  partitions processed {res['partitions']}, launches {counts}, "
+          f"scheduler metrics {sched}")
+    # a speculative copy launches the kernel, and so does the attempt it
+    # raced, so each one adds a launch
+    want = res["partitions"] + sched["speculative"]
+    if not launches == want == res["launches"] > 0:
         raise AssertionError(f"ART launches {launches} (run_stream reports "
                              f"{res['launches']}) != partitions processed "
-                             f"{res['partitions']}, or none")
+                             f"{res['partitions']} + speculative copies "
+                             f"{sched['speculative']}, or none")
     if any(n for name, n in counts.items() if name != "art_sweep"):
         raise AssertionError(f"other kernels launched: {counts}")
     if not np.isfinite(res["volume"]).all():
@@ -886,7 +939,7 @@ def tomo_phase(torch, dev, kernel_ms: float) -> tuple[int, "np.ndarray"]:
           f"x {kernel_ms:.1f} ms (phase 7, stream-launch shape) = "
           f"{launches * kernel_ms / 1e3 / res['stream_time']:.3f} of the "
           f"stream's wall time; {len(res['sink_keys'])} sink keys")
-    return launches, res["volume"]
+    return launches, res
 
 
 def tomo_profile_phase(torch, dev) -> None:
@@ -1138,6 +1191,116 @@ def group_phase(torch, dev, tomo_volume, smi: str) -> int:
             n for name, n in counts.items() if name != "art_sweep"):
         raise AssertionError(f"launches {counts} for {ranges_run} ranges")
     return launches
+
+
+# phase 21 (b): the first attempts at partition indices 0 (the first
+# batch's broker read) and 1 (an ART partition) fail, and every attempt at
+# index 2 that is not a speculative copy sleeps SCHED_SLOW_S first, far
+# over the speculation threshold (4 x the median task, ~0.3 s here)
+SCHED_FAIL = {0: 1, 1: 1}
+SCHED_SLOW_S = 1.5
+SCHED_VOLUME_RTOL = 1e-6
+
+
+def scheduler_phase(torch, dev, tomo: dict, smi: str) -> dict:
+    """Phase 21: the §IV stream at full width (TOMO_ARGS) through
+    ``run_stream`` on a ``TaskScheduler`` of PARTITIONS executors with
+    speculation, as ``examples/tomo_pipeline.py`` runs it, while phase 8's
+    system is still on the card: (a) clean, (b) with a ``FailureInjector``
+    losing partitions 0 and 1 once and slowing partition 2 in every batch.
+    Each run's volume is held to phase 8's (``tomo``) slice by slice
+    (relative 1e-6, bit-equal counted) and to the JAX reference's residual
+    and error; its ART launches, read after the abandoned attempts' pool
+    threads ended, to the partitions' results plus one launch per
+    speculative copy (the copy's or the attempt it raced, whichever lost);
+    (b)'s metrics to retries >= 2, speculative copies >= 4 and their wins
+    >= 4. A lineage replay that fails fails the phase. Returns each run's
+    ART launches."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.apps.tomo.stream import parse_args, run_stream
+    from repro_torch.core.rdd import FailureInjector, TaskScheduler
+
+    runs = {}
+    for label, injector in (
+            ("a", None),
+            ("b", FailureInjector(fail=dict(SCHED_FAIL),
+                                  slow={2: SCHED_SLOW_S}))):
+        out = OUT / f"tomo_scheduler_{label}"
+        shutil.rmtree(out, ignore_errors=True)
+        sched = TaskScheduler(num_executors=PARTITIONS, speculation=True,
+                              failure_injector=injector)
+        args = parse_args(TOMO_ARGS + ["--out", str(out)])
+        before = set(threading.enumerate())
+        kernels.reset_launch_counts()
+        res = run_stream(args, device=dev, scheduler=sched)
+        at_return = kernels.launch_counts()["art_sweep"]
+        threads = _join_pool_threads(before)
+        torch.cuda.synchronize(dev)
+        counts = kernels.launch_counts()
+        launches, m = counts["art_sweep"], res["scheduler_metrics"]
+        if any(n for name, n in counts.items() if name != "art_sweep"):
+            raise AssertionError(f"other kernels launched: {counts}")
+        recon = res["volume"]
+        if recon.shape != (NSLICE, NRAY, NRAY) or not np.isfinite(
+                recon).all():
+            raise AssertionError(f"volume of shape {recon.shape}, or not "
+                                 f"finite")
+        diff = np.linalg.norm((recon - tomo["volume"]).reshape(NSLICE, -1),
+                              axis=1)
+        ref = np.linalg.norm(tomo["volume"].reshape(NSLICE, -1), axis=1)
+        rel = diff / np.maximum(ref, 1e-30)
+        print(f"  ({label}) {'clean' if injector is None else 'faults'}: "
+              f"scheduler metrics {m}; {res['partitions']} partitions' "
+              f"results; residual {res['residual']:.6f}, volume error "
+              f"{res['error']:.6f} (JAX {REF_RESIDUAL:.6f}, {REF_ERROR:.6f})"
+              f"; to phase 8's volume, slice by slice: max relative "
+              f"difference {rel.max():.3g} (tol {SCHED_VOLUME_RTOL}), "
+              f"{int((diff == 0).sum())} of {NSLICE} slices bit-equal",
+              flush=True)
+        print(f"  ({label}) ART launches {launches} = {res['partitions']} "
+              f"partitions' results (of them {m['speculative_wins']} by "
+              f"speculative copies) + {launches - res['partitions']} "
+              f"attempts that lost a race and ran anyway; "
+              f"{launches - at_return} of them launched after run_stream "
+              f"returned, read once the {threads} pool threads left behind "
+              f"ended", flush=True)
+        print(f"  ({label}) stream {res['stream_time']:.3f} s (phase 8 "
+              f"{tomo['stream_time']:.3f} s), batch times (s) "
+              f"{[round(t, 4) for t in res['batch_times']]} (phase 8 "
+              f"{[round(t, 4) for t in tomo['batch_times']]}"
+              + ("" if label == "a" else
+                 f", (a) {[round(t, 4) for t in runs['a']['batch_times']]}")
+              + ")", flush=True)
+        if not rel.max() <= SCHED_VOLUME_RTOL:
+            raise AssertionError(f"({label}) volume off phase 8's by "
+                                 f"{rel.max()}")
+        if not (abs(res["residual"] - REF_RESIDUAL) <= REF_TOL
+                and abs(res["error"] - REF_ERROR) <= REF_TOL):
+            raise AssertionError(f"({label}) residual {res['residual']} or "
+                                 f"error {res['error']} off the JAX "
+                                 f"reference by more than {REF_TOL}")
+        if res["partitions"] != tomo["partitions"]:
+            raise AssertionError(f"({label}) {res['partitions']} partitions, "
+                                 f"phase 8 {tomo['partitions']}")
+        if launches != res["partitions"] + m["speculative"]:
+            raise AssertionError(f"({label}) ART launches {launches} != "
+                                 f"{res['partitions']} partitions + "
+                                 f"{m['speculative']} speculative copies")
+        res["art_launches"] = launches
+        runs[label] = res
+    m = runs["b"]["scheduler_metrics"]
+    if not (m["retries"] >= 2 and m["speculative"] >= 4
+            and m["speculative_wins"] >= 4):
+        raise AssertionError(f"(b) metrics {m}: expected retries >= 2, "
+                             f"speculative >= 4 and speculative_wins >= 4")
+    print(f"  the §IV stream on the TaskScheduler OK on {smi}: clean "
+          f"{runs['a']['art_launches']} ART launches, with faults "
+          f"{runs['b']['art_launches']}", flush=True)
+    return {label: res["art_launches"] for label, res in runs.items()}
 
 
 def _instance(mangled: str) -> str:
@@ -1422,11 +1585,11 @@ def _param_count(params) -> int:
 def _draw(torch, dev, config):
     """The config's parameters drawn on the card from SEED, printed with
     their count and size."""
-    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
 
     t0 = time.perf_counter()
-    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
-                              config)
+    params = get_model(config).init(
+        torch.Generator(device=dev).manual_seed(SEED), config)
     torch.cuda.synchronize()
     n = _param_count(params)
     size = n * torch.finfo(config.parameter_dtype).bits / 8
@@ -1435,7 +1598,7 @@ def _draw(torch, dev, config):
     print(f"  {config.name}: {config.num_layers} layers, d_model "
           f"{config.d_model}, {config.num_heads}/{config.num_kv_heads} heads "
           f"of {config.resolved_head_dim}, d_ff {config.d_ff}{experts}, vocab "
-          f"{config.vocab_size}: {n / 1e9:.3f} B parameters, "
+          f"{config.vocab_size}: {n:,} parameters ({n / 1e9:.3f} B), "
           f"{size / 1e9:.2f} GB in {config.param_dtype}, drawn on the card "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
     return params
@@ -1556,19 +1719,20 @@ def model_phase(torch, dev) -> dict:
 
 
 def _greedy(torch, params, config, prompts, gen: int):
-    """Greedy prefill + ``gen - 1`` decode steps: the tokens (B, gen) on the
-    host, and each token's logits (B, V) in fp32."""
-    from repro_torch.models import transformer
+    """Greedy prefill + ``gen - 1`` decode steps of the config's family:
+    the tokens (B, gen) on the host, and each token's logits (B, V) in
+    fp32."""
+    from repro_torch.models.registry import get_model
 
+    model = get_model(config)
     with torch.inference_mode():
-        logits, cache = transformer.prefill(
+        logits, cache = model.prefill(
             params, {"tokens": prompts}, config,
             max_len=prompts.shape[1] + gen)
         steps = [logits[:, -1].float()]
         for _ in range(gen - 1):
             tok = steps[-1].argmax(-1, keepdim=True)
-            logits, cache = transformer.decode_step(params, tok, cache,
-                                                    config)
+            logits, cache = model.decode_step(params, tok, cache, config)
             steps.append(logits[:, -1].float())
     return torch.stack([s.argmax(-1) for s in steps], 1).cpu(), steps
 
@@ -1893,6 +2057,250 @@ def moe_phase(torch, dev, smi: str) -> dict:
           f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
           f"{time.perf_counter() - t0:.1f} s, on {smi}", flush=True)
     return {"served": served, "invariant": invariant}
+
+
+# phase 22: recurrentgemma-2b, served at full width; the prompt is longer
+# than the 2,048-token window, so the prefill's mask matters, the cache
+# keeps the last 2,048 keys rotated, and every decode step wraps in place
+HYBRID_ARCH = "recurrentgemma-2b"
+HYBRID_PROMPT = 2560
+HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--requests", "8", "--batch",
+                     "4", "--prompt-len", str(HYBRID_PROMPT), "--gen", "16",
+                     "--seed", str(SEED)]
+HYBRID_INVARIANT_B, HYBRID_INVARIANT_STEPS = 2, 8
+# the profiled prefill's parts: the functions whose calls are labelled
+HYBRID_PARTS = {"naive attention": ("attention", "naive_attention"),
+                "RG-LRU scan": ("rglru", "_rg_lru"),
+                "causal conv": ("rglru", "_causal_conv")}
+
+
+@contextlib.contextmanager
+def _labelled(parts: dict):
+    """Every call of each part's function inside the block runs under a
+    ``record_function`` of the part's name, so the profiler ties the
+    kernels it launches to the part."""
+    import importlib
+
+    from torch.profiler import record_function
+
+    saved = []
+    for label, (mod, name) in parts.items():
+        module = importlib.import_module(f"repro_torch.models.{mod}")
+        fn = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*args, **kw)
+
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _split_by_part(torch, prof, labels) -> tuple[float, dict, dict, float]:
+    """On the device's timeline: the kernels' busy time in ms, the time of
+    the kernels that ran inside each label's spans (the profiler puts each
+    ``record_function`` on the device's timeline too, spanning the kernels
+    launched in it) with the GEMMs' share of each, and the GEMMs that ran
+    in no span. The spans themselves are not counted as busy time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {label: [] for label in labels}
+    kernels = []
+    for ev in prof.events():
+        if ev.device_type != cuda or ev.name.startswith("ProfilerStep"):
+            continue
+        if ev.name in spans:
+            spans[ev.name].append((ev.time_range.start, ev.time_range.end))
+        else:
+            kernels.append(ev)
+    part = dict.fromkeys(labels, 0.0)
+    part_gemm = dict.fromkeys(labels, 0.0)
+    busy = gemm = 0.0
+    for ev in kernels:
+        ms = ev.time_range.elapsed_us() / 1e3
+        busy += ms
+        t = ev.time_range.start
+        label = next((name for name, ivs in spans.items()
+                      if any(a <= t < b for a, b in ivs)), None)
+        is_gemm = any(m in ev.name.lower() for m in GEMM_MARKERS)
+        if label is not None:
+            part[label] += ms
+            part_gemm[label] += ms if is_gemm else 0.0
+        elif is_gemm:
+            gemm += ms
+    return busy, part, part_gemm, gemm
+
+
+def hybrid_profile(torch, dev, config, params, tokens) -> None:
+    """Where a bf16 prefill of ``tokens`` spends the device's time: GEMMs,
+    the naive attention, the RG-LRU scan, the causal conv and the rest, by
+    the profiler (each kernel given to the part whose span it ran in), with
+    the idle share against the prefill's wall time (profiled; the host
+    clock around work that ends in a synchronize). Reported: a trace that
+    comes back empty says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rglru
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        rglru.prefill(params, {"tokens": tokens}, config)       # warm
+        torch.cuda.synchronize()
+        with _labelled(HYBRID_PARTS), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rglru.prefill(params, {"tokens": tokens}, config)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    busy, part, part_gemm, gemm = _split_by_part(torch, prof, HYBRID_PARTS)
+    if busy == 0:
+        print(f"  (c) the profiled prefill's trace came back empty; its "
+              f"device time not measured", flush=True)
+        return
+    if sum(part.values()) == 0:
+        print("  (c) no kernel ran inside a part's span (the trace put no "
+              "span on the device's timeline); the split is not measured",
+              flush=True)
+    rest = busy - gemm - sum(part.values())
+    print(f"  (c) bf16 prefill of {tokens.shape[0]} x {tokens.shape[1]} "
+          f"tokens (profiled): wall {wall:.2f} ms, device busy {busy:.2f} ms,"
+          f" idle share {max(0.0, 1 - busy / wall):.3f}; GEMMs outside the "
+          f"parts {gemm:.2f} ms, "
+          + ", ".join(f"{k} {v:.2f} ms (GEMMs {part_gemm[k]:.2f})"
+                      for k, v in part.items())
+          + f", the rest {rest:.2f} ms", flush=True)
+    top = sorted(((n, us) for n, us in _device_us(torch, prof).items()
+                  if n not in HYBRID_PARTS), key=lambda kv: -kv[1])
+    for name, us in top[:8]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / 1e3 / busy:5.1f}%  "
+              f"{name[:90]}", flush=True)
+
+
+def hybrid_invariant(torch, dev, config) -> None:
+    """The serve invariant in full fp32 at full width, past the window:
+    greedy prefill of a HYBRID_PROMPT-token prompt and decode steps equal
+    the argmax of teacher-forced prefills, HYBRID_INVARIANT_STEPS tokens,
+    every decode step at a position past the window; on fp32 parameters
+    drawn here and released before it returns."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import rglru
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    config = config.replace(dtype="float32", param_dtype="float32")
+    params = _draw(torch, dev, config)
+    B, S, G = HYBRID_INVARIANT_B, HYBRID_PROMPT, HYBRID_INVARIANT_STEPS
+    rng = np.random.default_rng(SEED + 2)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                           (B, S))).to(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = rglru.prefill(params, {"tokens": tokens}, config,
+                                      max_len=S + G)
+        steps = [logits[:, -1]]
+        for _ in range(G - 1):
+            logits, cache = rglru.decode_step(
+                params, steps[-1].argmax(-1)[:, None], cache, config)
+            steps.append(logits[:, -1])
+        serve = [step.argmax(-1) for step in steps]
+        full, worst = tokens, 0.0
+        for g in range(G):
+            forced, _ = rglru.prefill(params, {"tokens": full}, config)
+            worst = max(worst, _max_err(torch, forced[:, -1], steps[g]))
+            nxt = forced[:, -1].argmax(-1)
+            if not torch.equal(nxt, serve[g]):
+                raise AssertionError(f"fp32 serve invariant broken at step "
+                                     f"{g}: {nxt.tolist()} != "
+                                     f"{serve[g].tolist()}")
+            full = torch.cat([full, nxt[:, None]], dim=1)
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"kernels launched: {counts}")
+    print(f"  (b) fp32 serve invariant at full width (B {B}, a {S}-token "
+          f"prompt over the {config.local_window}-token window, {G} tokens, "
+          f"decode at positions {S}-{S + G - 2}): greedy prefill + decode "
+          f"== teacher-forced prefills, tokens "
+          f"{torch.stack(serve, 1).tolist()}; reported: max |logit| "
+          f"difference, each step against its teacher-forced prefill, "
+          f"{worst:.3g}; in "
+          f"{time.perf_counter() - t0:.2f} s; launches {counts}", flush=True)
+    del params, cache, logits, forced
+    torch.cuda.empty_cache()
+
+
+def hybrid_phase(torch, dev, smi: str) -> dict:
+    """Phase 22: recurrentgemma-2b at full width (26 layers, d_model
+    2,560, 10/1 heads of hd 256, window 2,048, lru_width 2,560, vocabulary
+    256,000), drawn from the seed in bf16: (a) the serve stream through
+    ``run_serve`` (HYBRID_SERVE_ARGS: 2,560-token prompts, so each prefill
+    masks by the window and rotates its last 2,048 keys into the cache and
+    each decode step wraps), no kernel launched (the windowed attention
+    is naive, the reference's rule), the first batch's tokens equal to the
+    model's own prefill/decode_step loop; (c) the profiled prefill of that
+    batch; (b) the fp32 invariant past the window on fp32 parameters drawn
+    after the bf16 ones left. Returns the kernels' launches in (a)."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args, run_serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)         # the context up before its stats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = get_config(HYBRID_ARCH)
+    params = _draw(torch, dev, config)
+    args = parse_args(HYBRID_SERVE_ARGS)
+    kernels.reset_launch_counts()
+    res = run_serve(args, device=dev, params=params)
+    counts = kernels.launch_counts()
+    results, gen = res["results"], args.gen
+    if sorted(results) != list(range(args.requests)) or any(
+            len(t) != gen or not all(0 <= x < config.vocab_size for x in t)
+            for t in results.values()):
+        raise AssertionError(f"results {results}")
+    print(f"  (a) served {len(results)} requests of {args.prompt_len} tokens"
+          f" x {gen} out ({res['tokens']} tokens) in {res['stream_s']:.3f} s:"
+          f" {res['tokens_per_s']:.1f} tokens/s; per batch: prefill (s) "
+          f"{[round(x, 4) for x in res['prefill_s']]}, decode step (ms) "
+          f"{[round(1e3 * x / (gen - 1), 2) for x in res['decode_s']]}, time "
+          f"to first token (s) {[round(x, 4) for x in res['ttft_s']]}; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+          f"GB", flush=True)
+    print(f"  (a) launches {counts}: flash_attention 0, as the reference "
+          f"rules for a window (it takes its kernel at window 0 only, "
+          f"repro/models/attention.py:258), so the windowed prefill runs the "
+          f"naive attention in both packages", flush=True)
+    if any(counts.values()) or any(res["launches"].values()):
+        raise AssertionError(f"kernels launched: {counts}")
+    rng = np.random.default_rng(args.seed)      # run_serve's prompts
+    prompts = np.stack([rng.integers(0, config.vocab_size,
+                                     (args.prompt_len,), dtype=np.int32)
+                        for _ in range(args.batch)]).astype(np.int64)
+    batch0 = torch.from_numpy(prompts).to(dev)
+    direct, _ = _greedy(torch, params, config, batch0, gen)
+    served0 = torch.tensor([results[i] for i in range(args.batch)])
+    print(f"  (a) batch 0's tokens against the model's own prefill/"
+          f"decode_step loop: {int((direct == served0).all(1).sum())}/"
+          f"{args.batch} requests equal", flush=True)
+    if not torch.equal(direct, served0):
+        raise AssertionError(f"served {served0.tolist()} != the direct loop "
+                             f"{direct.tolist()}")
+    hybrid_profile(torch, dev, config, params, batch0)
+    del params
+    torch.cuda.empty_cache()
+    hybrid_invariant(torch, dev, config)
+    print(f"  {HYBRID_ARCH} at full width OK: peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+          f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
+    return counts
 
 
 def serve_profile_phase(torch, dev) -> None:
@@ -2619,15 +3027,19 @@ def main() -> int:
         rows.append(art_row)
 
     with _phase("8", "the tomography stream at full width:"):
-        art_row["launches"], tomo_volume = tomo_phase(torch, dev,
-                                                      art_row["ms"])
+        art_row["launches"], tomo = tomo_phase(torch, dev, art_row["ms"])
         tomo_profile_phase(torch, dev)
 
-    # before the cache is cleared: the two consumers share phase 8's system
+    # before the cache is cleared: phases 14 and 21 use phase 8's system
     with _phase("14", "a §IV consumer-group handoff at full width:"):
         art_row["launches_group_handoff"] = group_phase(torch, dev,
-                                                        tomo_volume, smi)
-        del tomo_volume
+                                                        tomo["volume"], smi)
+    with _phase("21", "the §IV stream on the TaskScheduler at full width, "
+                      "clean and with injected faults:"):
+        sched = scheduler_phase(torch, dev, tomo, smi)
+        art_row["launches_scheduler"] = sched["a"]
+        art_row["launches_scheduler_faults"] = sched["b"]
+        del tomo
         from repro_torch.apps.tomo.solver import clear_system_cache
         clear_system_cache()            # the 4.75 GiB system off the card
         torch.cuda.empty_cache()
@@ -2705,6 +3117,10 @@ def main() -> int:
             flash_rows[key]["launches"] = _row_launches(moe["served"], key)
             flash_rows[key]["launches_fp32_invariant"] = _row_launches(
                 moe["invariant"], key)
+
+    with _phase("22", f"the hybrid family: {HYBRID_ARCH} at full width "
+                      f"(window 2,048, {HYBRID_PROMPT}-token prompts):"):
+        hybrid_phase(torch, dev, smi)
 
     print(f"all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)

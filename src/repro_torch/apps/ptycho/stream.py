@@ -7,7 +7,8 @@ The port's counterpart of the main path of ``examples/ptycho_pipeline.py``:
      --> RAAR reconstruction on the accumulated frames (modulus, overlap
          and combine as CUDA kernels on the card)
      --> sinks: NpzDirectorySink artifacts + MetricsSink latency accounting
-     --> refinement iterations, then phase correlation against the truth
+     --> refinement iterations, then phase correlation against the truth,
+         and the object's phase rendered (paper Fig. 10)
 
 The paper's near-real-time criterion: 512 frames arrive in ~25 s; the run
 reports whether reconstruction kept pace. Each batch's time is taken after
@@ -59,6 +60,7 @@ import torch
 from repro_torch.apps.ptycho.sim import PtychoProblem, simulate
 from repro_torch.apps.ptycho.solver import (SolverConfig, init_waves,
                                             raar_step, reconstruction_quality)
+from repro_torch.apps.tomo.render import render_phase
 from repro_torch.core.bridge import TorchBridge
 from repro_torch.core.broker import Broker
 from repro_torch.core.fault import ElasticController, LagPolicy
@@ -316,6 +318,8 @@ def run_stream(args: argparse.Namespace,
     keys = artifact_sink.keys_on_disk()
     print(f"sink artifacts: {len(keys)} npz files in "
           f"{artifact_sink.directory}")
+    paths = render_phase(obj_host, args.out)
+    print("artifacts:", paths)
     after = launch_counts()
     return {"batch_errors": errs, "frames_seen": seen,
             "batch_times": batch_times, "final_error": final_err,
@@ -324,7 +328,7 @@ def run_stream(args: argparse.Namespace,
             "total_time": total, "acquisition_window": acq,
             "near_real_time": total < acq, "sink_keys": keys,
             "lanes": lanes, "obs": scrape, "obs_scrape_s": scrape_s,
-            "elastic": elastic,
+            "elastic": elastic, "artifacts": paths,
             "iterations": state["iteration"] + args.final_iters,
             "launches": {k: after[k] - launches_before[k] for k in after}}
 

@@ -17,6 +17,7 @@ in torch, on the device.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -79,7 +80,13 @@ def system_on_device(config: TomoConfig, device: torch.device
     if device.type == "cuda" and device.index is None:
         # one cache entry for "cuda" and the tensors' "cuda:<current>"
         device = torch.device("cuda", torch.cuda.current_device())
-    return _device_system(config.nray, tuple(config.angles), device)
+    # single flight: the scheduler's executors ask at once, and each miss
+    # would build its own 4.75 GiB system at full width
+    with _system_lock:
+        return _device_system(config.nray, tuple(config.angles), device)
+
+
+_system_lock = threading.Lock()
 
 
 def clear_system_cache() -> None:

@@ -5,7 +5,10 @@ The port's counterpart of ``examples/tomo_pipeline.py``:
   ProjectionSource (one record per sinogram slice, at the acquisition rate)
      --> broker topic --> StreamingContext micro-batches
      --> each batch parallelized into RDD partitions of neighbouring slices
-     --> one ART sweep call per partition (the CUDA kernel on the card)
+     --> one ART sweep call per partition (the CUDA kernel on the card), on
+         a TaskScheduler of --partitions executors with speculation: a
+         failed partition is recomputed from lineage, a straggler gets a
+         speculative copy
      --> sinks: NpzDirectorySink sub-volumes + MetricsSink latency accounting
      --> gather from the sink, score (sinogram residual, volume error), render
 
@@ -39,7 +42,7 @@ from repro_torch.apps.tomo.solver import (TomoConfig, reconstruct_slices,
 from repro_torch.core.bridge import TorchBridge
 from repro_torch.core.broker import Broker
 from repro_torch.core.pipeline import NearRealTimePipeline, PipelineConfig
-from repro_torch.core.rdd import Context
+from repro_torch.core.rdd import Context, TaskScheduler
 from repro_torch.data.metrics import (MetricsRegistry, get_registry,
                                       set_registry)
 from repro_torch.data.obs_server import print_stream_scrape, scrape_stream
@@ -76,14 +79,23 @@ def reconstruct_partition(items: list, config: TomoConfig,
 
 
 def run_stream(args: argparse.Namespace,
-               device: str | torch.device = "cuda") -> dict[str, Any]:
+               device: str | torch.device = "cuda",
+               scheduler: TaskScheduler | None = None) -> dict[str, Any]:
     """Stream the tilt series through the pipeline, gather, score, render.
+
+    The batches' partitions run on ``scheduler``, by default the example's
+    ``TaskScheduler(num_executors=args.partitions, speculation=True)``; a
+    caller passes one with a ``FailureInjector`` to lose partitions and
+    slow one down.
 
     Returns the sinogram residual and volume error of the gathered volume
     and of each slice, the gathered volume, the batch times, the set-up time
     with the system matrix's host build and its copy to the device apart,
-    the stream time, the RDD partitions processed, the sink's keys and the
-    ART launches this run made; with ``--obs-port``, also ``obs``: the
+    the stream time, the RDD partitions processed, the sink's keys, the
+    scheduler's ``metrics`` (tasks, retries, speculative copies and their
+    wins) and the ART launches this run made (a speculative copy launches
+    the kernel too, and so does an abandoned straggler once it wakes,
+    which may be after this returns); with ``--obs-port``, also ``obs``: the
     endpoint's roll-up (:func:`~repro_torch.data.obs_server.scrape_stream`),
     read over HTTP into a registry of this run's own, and the seconds that
     read and the endpoint's stop took, which the stream time leaves
@@ -112,7 +124,8 @@ def run_stream(args: argparse.Namespace,
     sink = NpzDirectorySink(os.path.join(args.out,
                                          f"tomo_subvolumes_{run_tag}"))
     metrics = MetricsSink()
-    ctx = Context()
+    ctx = Context(scheduler=scheduler or TaskScheduler(
+        num_executors=args.partitions, speculation=True))
     batch_slices = max(1, args.nslice // args.partitions)
     batch_times: list[float] = []
     n_partitions = 0
@@ -196,6 +209,7 @@ def run_stream(args: argparse.Namespace,
           f"{stream_time:.3f}s ({rep['batches']} micro-batches, "
           f"{args.nslice / stream_time:.1f} slices/s)")
     print(f"sinogram residual {r:.4f}; volume rel. error {err:.4f}")
+    print(f"scheduler metrics: {ctx.scheduler.metrics}")
     if scrape is not None:
         print_stream_scrape(scrape)
     keys = sink.keys_on_disk()
@@ -208,6 +222,7 @@ def run_stream(args: argparse.Namespace,
             "matrix_build_time": build_time, "matrix_copy_time": copy_time,
             "stream_time": stream_time, "report": report, "metrics": rep,
             "partitions": n_partitions, "sink_keys": keys,
+            "scheduler_metrics": dict(ctx.scheduler.metrics),
             "obs": scrape, "obs_scrape_s": scrape_s,
             "launches": launch_counts()["art_sweep"] - launches_before}
 

@@ -1,27 +1,27 @@
-"""Model configuration, trimmed to what the dense and MoE serve paths
-read.
+"""Model configuration, trimmed to what the dense, MoE and hybrid serve
+paths read.
 
 The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
 names and defaults for the fields kept, but ``attention_impl``, whose
 values are the port's own (below), and one field of the port's own,
 ``embed_scale``. The reference keeps dtypes as strings (``dtype``,
 ``param_dtype``); ``DTYPES`` maps them to torch dtypes. Kept are the
-fields the dense and MoE archs set: the MLP's activation and gating,
-RMSNorm (with gemma's (1 + w) offset) or LayerNorm, tied embeddings,
-RoPE's theta, and the MoE block's experts, top-k, capacity factor and
-aux-loss weight. The
-reference scales gemma's embeddings by sqrt(d_model) on a test of the
-arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
-the arch's config file. The reference's ``pad_attention_heads`` pads the
-heads to a mesh's tensor-parallel degree and pads 0 heads without a mesh;
-the port has no mesh yet, so the field comes with the mesh (ROADMAP Queue
-1 item 9), as do ``sharding_overrides`` (kimi-k2's expert and embedding
-sharding) and the all-to-all MoE path they select. The options of the
-archs that wait (learned positions, the logit soft cap) and the fields of
-recurrent, audio and VLM blocks, remat and scan come with the slice that
-ports an arch setting them. ``local_window`` and ``is_encoder_decoder`` stay so
-that a config asking for a sliding window or cross-attention is refused,
-not served as something else.
+fields the dense, MoE and hybrid archs set: the MLP's activation and
+gating, RMSNorm (with gemma's (1 + w) offset) or LayerNorm, tied
+embeddings, RoPE's theta, the logit soft cap, the MoE block's experts,
+top-k, capacity factor and aux-loss weight, and the hybrid family's
+block pattern, sliding window, RG-LRU width and conv width. The
+reference scales gemma's and recurrentgemma's embeddings by sqrt(d_model)
+on a test of the arch's name (``layers.py:embed_tokens``); here
+``embed_scale`` says so in the arch's config file. The reference's
+``pad_attention_heads`` pads the heads to a mesh's tensor-parallel degree
+and pads 0 heads without a mesh; the port has no mesh yet, so the field
+comes with the mesh (ROADMAP Queue 1 item 9), as do ``sharding_overrides``
+(kimi-k2's expert and embedding sharding) and the all-to-all MoE path they
+select. The options of the archs that wait (learned positions) and the
+fields of audio and VLM blocks, remat and scan come with the slice that
+ports an arch setting them. ``is_encoder_decoder`` stays so that a config
+asking for cross-attention is refused, not served as something else.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ DTYPES: dict[str, torch.dtype] = {
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe (the families ported)
+    family: str                    # dense | moe | hybrid (the families ported)
     num_layers: int
     d_model: int
     num_heads: int                 # query heads
@@ -53,6 +53,7 @@ class ModelConfig:
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     norm_offset: bool = False      # gemma-style (1 + w) RMSNorm scale
     rope_theta: float = 10_000.0
+    logits_soft_cap: float = 0.0   # cap · tanh(logits / cap) when > 0
     tie_embeddings: bool = False
     embed_scale: bool = False      # embeddings x sqrt(d_model) (gemma)
     # MoE
@@ -60,7 +61,11 @@ class ModelConfig:
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.01
-    local_window: int = 0          # sliding window: not ported, refused
+    # hybrid / recurrent
+    block_pattern: tuple[str, ...] = ("attn",)   # cycled over layers
+    local_window: int = 0          # sliding window of the attention blocks
+    lru_width: int = 0             # RG-LRU state width (0 => d_model)
+    conv_width: int = 4
     is_encoder_decoder: bool = False   # cross-attention: not ported, refused
     # numerics / execution
     dtype: str = "bfloat16"        # activation/compute dtype

@@ -1,8 +1,8 @@
 """The core of the port: the broker, RDDs, micro-batch streams, the
 pipeline that composes them, and the compute plane: the PMI wire-up, the
 Spark<->MPI bridge on ``torch.distributed`` and its fault tolerance.
-Copies of ``repro.core``'s modules (the RDDs trimmed to what the port
-uses; ``TorchBridge`` stands where the reference has ``MPIBridge``).
+Copies of ``repro.core``'s modules (``TorchBridge`` stands where the
+reference has ``MPIBridge``).
 
 The package exports the reference's names. They resolve on first use, as
 ``repro_torch.data``'s do: the broker imports the data package, whose
@@ -22,7 +22,8 @@ _EXPORTS = {
               "WorkerFailure", "run_with_recovery"),
     "pipeline": ("NearRealTimePipeline", "PipelineConfig", "PipelineReport"),
     "pmi": ("KeyValueSpace", "PMIClient", "PMIError", "PMIServer"),
-    "rdd": ("RDD", "Context"),
+    "rdd": ("RDD", "Context", "FailureInjector", "PartitionLostError",
+            "TaskScheduler"),
 }
 _MODULE_OF = {name: module for module, names in _EXPORTS.items()
               for name in names}

@@ -658,4 +658,4 @@ def create_rdd(context: Context, broker: Broker,
             values = [value_decoder(v) for v in values]
         return values
 
-    return RDD(context, len(ranges), compute)
+    return RDD(context, len(ranges), [], compute, name="kafkaRDD")

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import time
 from contextlib import nullcontext
 from dataclasses import dataclass, field
@@ -183,6 +184,9 @@ class StreamingContext:
                           if checkpoint_path else StreamProgress())
         self._history: list[BatchInfo] = []
         self._batch_index = 0
+        # the background loop (start/stop)
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
         self.traces = TraceLog()
         self._obs_server: ObservabilityServer | None = None
         reg = self._registry = get_registry()
@@ -605,16 +609,46 @@ class StreamingContext:
         does not re-fire the final partial window."""
         self._commit([])
 
-    def run_batches(self, max_batches: int) -> list[BatchInfo]:
-        """Inline scheduler: up to ``max_batches`` micro-batches, stopping
-        at the first poll with no data."""
+    def run_batches(self, max_batches: int,
+                    wait_for_data: float = 0.0) -> list[BatchInfo]:
+        """Inline scheduler: up to ``max_batches`` micro-batches, polling
+        again on no data until ``wait_for_data`` seconds have passed."""
         out = []
+        deadline = time.monotonic() + wait_for_data
         while len(out) < max_batches:
             info = self.run_one_batch()
             if info is None:
-                break
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(max(self.batch_interval / 10, 0.001))
+                continue
             out.append(info)
         return out
+
+    # -- background scheduler -----------------------------------------------
+    def start(self) -> None:
+        """Run micro-batches on a thread of their own, one every
+        ``batch_interval`` (or back to back when a batch takes longer),
+        until :meth:`stop`."""
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            t0 = time.monotonic()
+            self.run_one_batch()
+            sleep = self.batch_interval - (time.monotonic() - t0)
+            if sleep > 0:
+                self._stop.wait(sleep)
+
+    def stop(self) -> None:
+        """Stop the background loop after its current batch (waiting up to
+        10 s for it)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
 
     def serve_observability(self, address: tuple[str, int] = ("127.0.0.1", 0),
                             lag_policy: Any = None) -> ObservabilityServer:
@@ -635,13 +669,14 @@ class StreamingContext:
         return self._obs_server
 
     def close(self, drain: bool = True) -> None:
-        """Shut down the delivery lanes. With ``drain=True`` (default) every
-        queued batch is written before the lanes exit; ``drain=False``
-        discards queued work. Raises a pending
+        """Stop the background loop and shut down the delivery lanes. With
+        ``drain=True`` (default) every queued batch is written before the
+        lanes exit; ``drain=False`` discards queued work. Raises a pending
         :class:`~repro_torch.data.delivery.DeliveryFailed`. Attached window
         state stores are closed (their last committed state stays on disk),
         the observability endpoint (if served) is stopped, and a group
         member leaves its group."""
+        self.stop()
         try:
             if self._delivery is not None:
                 self._delivery.close(drain=drain)

@@ -43,6 +43,19 @@ class PipelineReport:
     records: int = 0
     batch_latencies: list[float] = field(default_factory=list)
 
+    @property
+    def mean_latency(self) -> float:
+        return (sum(self.batch_latencies) / len(self.batch_latencies)
+                if self.batch_latencies else 0.0)
+
+    @property
+    def max_latency(self) -> float:
+        return max(self.batch_latencies, default=0.0)
+
+    def keeps_up(self, interval: float) -> bool:
+        """Did every batch take at most ``interval`` seconds?"""
+        return self.max_latency <= interval
+
 
 class NearRealTimePipeline:
     """Generic streaming pipeline: the app supplies
@@ -185,6 +198,15 @@ class NearRealTimePipeline:
             items = describe_result_items(info.result, info.index)
             for sink in self._keyed_sinks:
                 sink.write_batch(items)
+
+    # -- drive ---------------------------------------------------------------------
+    def run(self, max_batches: int, wait_for_data: float = 1.0
+            ) -> PipelineReport:
+        """Up to ``max_batches`` micro-batches, waiting up to
+        ``wait_for_data`` seconds for data (``StreamingContext
+        .run_batches``)."""
+        self.streaming.run_batches(max_batches, wait_for_data=wait_for_data)
+        return self.report
 
     def run_until_drained(self, producer_done: Callable[[], bool] | None = None,
                           idle_timeout: float = 2.0) -> PipelineReport:

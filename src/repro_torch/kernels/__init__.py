@@ -4,8 +4,9 @@ Each kernel package mirrors ``repro.kernels.<name>``: ``kernel.py`` wraps
 the CUDA kernel in ``repro_torch/csrc`` (built by ``_build``), ``ref.py``
 is the plain PyTorch version of the same function, and ``ops.py``
 dispatches: the kernel for a CUDA tensor, the plain version for a CPU one.
-Each wrapper counts its launches in a ``launches`` attribute, so a run can
-show that its main path went through the kernel; the flash wrapper, which
+Each wrapper counts its launches in a ``launches`` attribute, under
+``_build.COUNT_LOCK`` (executor threads launch), so a run can show that
+its main path went through the kernel; the flash wrapper, which
 picks one of three kernels, also counts them by design in
 ``launches_by_design`` and by template instance, (design, head dim), in
 ``launches_by_instance``.
@@ -32,8 +33,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
-        for attr in ("launches_by_design", "launches_by_instance"):
-            if hasattr(fn, attr):
-                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
+    from repro_torch.kernels._build import COUNT_LOCK
+    with COUNT_LOCK:
+        for fn in _wrappers().values():
+            fn.launches = 0
+            for attr in ("launches_by_design", "launches_by_instance"):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))

@@ -11,7 +11,10 @@ hash of the sources and flags changes. nvcc's stderr, with ptxas's
 registers, shared memory and spills of every kernel (``-Xptxas -v``), is
 kept beside the library as ``nvcc.log``, the sources' in their order. A
 failed build raises with nvcc's stderr: there is no fallback to the plain
-PyTorch versions.
+PyTorch versions. The first use is safe from several threads (the RDD
+scheduler's executors launch kernels): one builds and loads the library,
+the others wait for it. Each wrapper counts its launches under
+:data:`COUNT_LOCK` for the same reason.
 
 Nothing here runs at import time, so the CPU tests import every module
 without nvcc or a GPU.
@@ -19,12 +22,12 @@ without nvcc or a GPU.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -132,9 +135,10 @@ def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     build_dir.mkdir(parents=True, exist_ok=True)
-    # per-process temp names: two processes building at once each finish
+    # temp names per process and thread: two builders at once each finish
     # with a whole library, and the last os.replace wins
-    tmp = build_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = build_dir / f"{LIB_NAME}.{tag}.tmp"
     nvcc = nvcc or find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=build_dir) as obj_dir:
@@ -151,7 +155,7 @@ def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
         log_text = "".join(o.with_suffix(".log").read_text() for o in objs)
     _replace_durably(tmp, lib)
     (build_dir / LOG_NAME).write_text(log_text + proc.stderr)
-    stamp_tmp = build_dir / f"{stamp.name}.{os.getpid()}.tmp"
+    stamp_tmp = build_dir / f"{stamp.name}.{tag}.tmp"
     stamp_tmp.write_text(digest)
     _replace_durably(stamp_tmp, stamp)
     log.info("built %s from %d sources in %.2f s", lib, len(sources),
@@ -159,15 +163,26 @@ def build(src_dir: Path = SRC_DIR, build_dir: Path = BUILD_DIR,
     return lib
 
 
-@functools.cache
+_library: ctypes.CDLL | None = None
+_library_lock = threading.Lock()
+# held while a wrapper adds to its launch counters
+COUNT_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
-    """The built kernel library (built on the first call in a process)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The built kernel library, built and loaded by the first call in a
+    process; a call made while another thread builds waits for it."""
+    global _library
+    if _library is None:
+        with _library_lock:
+            if _library is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                _library = lib
+    return _library
 
 
 def check_tensor(op: str, name: str, t: torch.Tensor, dtype: torch.dtype,

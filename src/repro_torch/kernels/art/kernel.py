@@ -4,7 +4,6 @@ reads the system matrix as CSR (``ops.csr_rows`` builds it from the dense
 A): only the non-zeros, which are all that change f."""
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
@@ -59,10 +58,9 @@ def art_sweep(csr: CSR, b: torch.Tensor, inv_rip: torch.Tensor,
             b.data_ptr(), inv_rip.data_ptr(), f.data_ptr(), nrow, ncol,
             nslice, int(iters), float(beta), _build.current_stream(dev))
     _build.check_launch(op, rc)
-    with _count_lock:          # consumers of a group launch from threads
+    with _build.COUNT_LOCK:
         art_sweep.launches += 1
     return f
 
 
-_count_lock = threading.Lock()
 art_sweep.launches = 0

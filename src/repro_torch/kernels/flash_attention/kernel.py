@@ -59,9 +59,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         else:
             rc = lib.flash_attention_launch(*ptrs, B, S, H, hd, stream)
     _build.check_launch(f"{op} ({design})", rc)
-    flash_attention.launches += 1
-    flash_attention.launches_by_design[design] += 1
-    flash_attention.launches_by_instance[design, hd] += 1
+    with _build.COUNT_LOCK:
+        flash_attention.launches += 1
+        flash_attention.launches_by_design[design] += 1
+        flash_attention.launches_by_instance[design, hd] += 1
     return o
 
 

@@ -20,7 +20,8 @@ def modulus_project(far: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
             far.data_ptr(), mag.data_ptr(), out.data_ptr(), far.numel(),
             _build.current_stream(far.device))
     _build.check_launch(op, rc)
-    modulus_project.launches += 1
+    with _build.COUNT_LOCK:
+        modulus_project.launches += 1
     return out
 
 

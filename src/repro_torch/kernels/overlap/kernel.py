@@ -27,7 +27,8 @@ def overlap_products(a: torch.Tensor, b: torch.Tensor
             a.data_ptr(), b.data_ptr(), num.data_ptr(), den.data_ptr(),
             a.numel(), b.numel(), _build.current_stream(a.device))
     _build.check_launch(op, rc)
-    overlap_products.launches += 1
+    with _build.COUNT_LOCK:
+        overlap_products.launches += 1
     return num, den
 
 

@@ -25,7 +25,8 @@ def raar_combine(psi: torch.Tensor, p1: torch.Tensor, p21: torch.Tensor,
             out.data_ptr(), psi.numel(), float(beta),
             _build.current_stream(psi.device))
     _build.check_launch(op, rc)
-    raar_combine.launches += 1
+    with _build.COUNT_LOCK:
+        raar_combine.launches += 1
     return out
 
 

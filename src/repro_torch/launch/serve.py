@@ -2,9 +2,10 @@
 
 The counterpart of ``repro/launch/serve.py``. Requests (prompts) arrive on
 a broker topic; the streaming context cuts them into micro-batches; each
-batch is prefilled once (causal attention in the CUDA flash kernel) and
-decoded greedily for ``--gen`` tokens with the KV cache — the paper's
-near-real-time loop with a language model as the "MPI application". It
+batch is prefilled once (causal attention in the CUDA flash kernel, but
+for a sliding window) and decoded greedily for ``--gen`` tokens with the
+KV cache — the paper's near-real-time loop with a language model as the
+"MPI application". It
 reports per-batch prefill and decode times, the time to first token,
 tokens/s and the stream's near-real-time report.
 
@@ -14,9 +15,12 @@ off unless given, and the entry point serves the full model. The weights
 are random, drawn from ``--seed`` (nothing pretrained can be fetched).
 ``--arch`` is one of the ported archs (``repro_torch.configs.ARCHS``): the
 dense internlm2-1.8b (the default), gemma-7b, minitron-8b and
-starcoder2-3b, and the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about
-1 T parameters, is served at ``--reduced`` only: it does not fit one
-card); the others name the ROADMAP item they wait for.
+starcoder2-3b, the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about 1 T
+parameters, is served at ``--reduced`` only: it does not fit one card),
+and the hybrid recurrentgemma-2b, whose attention is a 2,048-token sliding
+window over a rolling cache (naive attention, as the reference's: no flash
+kernel runs for it); the others name the ROADMAP item they wait for. Each
+family's ``prefill`` builds its own cache (``init_cache`` of its module).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-3b-a800m --requests 8 --batch 4 \\

@@ -1,27 +1,34 @@
-"""Attention: GQA/MQA/MHA with RoPE, causal self-attention, and the serve
-path's KV cache.
+"""Attention: GQA/MQA/MHA with RoPE, causal self-attention (with or without
+a sliding window), and the serve path's KV cache.
 
 The counterpart of ``repro/models/attention.py``, trimmed to the
 decoder's serve path. Two implementations of the same function:
 
 * ``naive`` — the full score matrix in fp32; the oracle, and what every
-              call that is not a causal prefill takes (decode, Sq = 1).
+              call that is not a causal, window-free prefill takes (decode,
+              Sq = 1, and every windowed call).
 * ``flash`` — the CUDA flash kernel (``kernels/flash_attention``), taken
               for causal, window-free attention with Sq > 1 on the card,
               where the reference would take its Pallas kernel under
-              ``attention_impl='pallas'`` (``attention.py:258``); every
-              other call takes the naive version.
+              ``attention_impl='pallas'`` (``attention.py:258``, which also
+              asks for window 0); every other call takes the naive version.
 
 ``attention_impl`` is ``"flash"`` (the default) or ``"naive"`` (naive
 everywhere, so one model runs with and without the kernel). The
 reference's ``blocked`` and ``triangular`` schedules compute the naive
-function in tiles for XLA (ROADMAP Queue 1 item 7); the sliding-window
-cache comes with recurrentgemma (item 3) and cross-attention with whisper
-(item 4). A config that asks for one is refused, naming its item, rather
-than served otherwise. The reference's head padding
+function in tiles for XLA (ROADMAP Queue 1 item 7); cross-attention comes
+with whisper (item 4). A config that asks for one is refused, naming its
+item, rather than served otherwise. The reference's head padding
 (``pad_attention_heads``) pads H to a mesh's tensor-parallel degree and
 pads 0 heads without one (``attention.py:317-320``); it comes with the
 port's mesh (ROADMAP Queue 1 item 9).
+
+The sliding window (``window`` > 0, recurrentgemma's local attention): a
+query at p sees keys at p - window < q <= p; the cache holds
+``min(window, max_len)`` slots, a prefill longer than that keeps its last
+slots rotated so that position p sits in slot p % Smax, and a decode step
+writes slot pos % Smax in place, each slot's absolute position recovered
+from pos.
 
 GQA: K/V are repeated to the full H query heads after RoPE, as the
 reference does, so every attention tensor is (B, S, H, hd).
@@ -101,7 +108,7 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
                     positions: torch.Tensor, cache: dict | None = None,
-                    causal: bool = True
+                    causal: bool = True, window: int = 0
                     ) -> tuple[torch.Tensor, dict | None]:
     """Self-attention layer: qkv projections, RoPE, core, out projection.
 
@@ -110,9 +117,8 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     place (the reference returns new arrays), and the returned cache holds
     them with ``pos`` advanced. Prefill (S > 1) attends over the fresh
     sequence, then fills the cache; decode (S == 1) writes its slot, then
-    attends over the filled slots."""
-    if config.local_window > 0:
-        raise NotImplementedError(f"sliding-window attention {_WAITS} 3")
+    attends over the filled slots. ``window`` > 0 makes the attention a
+    sliding window and the cache a rolling buffer (module docstring)."""
     if config.is_encoder_decoder:
         raise NotImplementedError(f"cross-attention {_WAITS} 4")
     B, S, _ = x.shape
@@ -134,28 +140,42 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     new_cache = None
     if cache is None:
         out = attention_core(q, rep(k), rep(v), positions, positions, config,
-                             causal=causal)
+                             causal=causal, window=window)
     elif S > 1:
         out = attention_core(q, rep(k), rep(v), positions, positions, config,
-                             causal=causal)
+                             causal=causal, window=window)
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]
         Smax = ck.shape[1]
-        n = min(S, Smax)
-        start = min(max(pos, 0), Smax - n)   # dynamic_update_slice's clamp
-        ck[:, start:start + n] = k[:, :n].to(ck.dtype)
-        cv[:, start:start + n] = v[:, :n].to(cv.dtype)
+        if window > 0 and S >= Smax:
+            # keep the last window, rotated so that slot(p) == p % Smax
+            shift = (S - Smax) % Smax
+            ck.copy_(torch.roll(k[:, S - Smax:], shift, dims=1))
+            cv.copy_(torch.roll(v[:, S - Smax:], shift, dims=1))
+        else:
+            n = min(S, Smax)
+            start = min(max(pos, 0), Smax - n)  # dynamic_update_slice's clamp
+            ck[:, start:start + n] = k[:, :n].to(ck.dtype)
+            cv[:, start:start + n] = v[:, :n].to(cv.dtype)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
     else:
+        # decode; with a window the buffer wraps in place
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]
         Smax = ck.shape[1]
-        slot = min(pos, Smax - 1)
+        slot = pos % Smax if window > 0 else min(pos, Smax - 1)
         ck[:, slot:slot + 1] = k.to(ck.dtype)
         cv[:, slot:slot + 1] = v.to(cv.dtype)
         # absolute positions of the cache slots; -1 marks not-yet-filled
         idx = torch.arange(Smax, device=x.device)
-        kpos = torch.where(idx <= pos, idx, -1).expand(B, Smax)
+        if window > 0:
+            abs_pos = idx + torch.div(pos - idx, Smax,
+                                      rounding_mode="floor") * Smax
+            kpos_row = torch.where((abs_pos >= 0) & (abs_pos <= pos),
+                                   abs_pos, -1)
+        else:
+            kpos_row = torch.where(idx <= pos, idx, -1)
+        kpos = kpos_row.expand(B, Smax)
         out = attention_core(q, rep(ck), rep(cv), positions, kpos, config,
-                             causal=True)
+                             causal=True, window=window)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
 
     out = out.reshape(B, S, h * hd) @ params["wo"].to(dtype)
@@ -163,13 +183,13 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
 
 
 def init_cache(config: ModelConfig, batch: int, max_len: int,
-               device: torch.device, dtype: torch.dtype | None = None
-               ) -> dict:
-    """One layer's cache: 'k', 'v' (batch, max_len, KH, hd) zeros and
-    'pos' 0."""
-    if config.local_window > 0:
-        raise NotImplementedError(f"the sliding-window cache {_WAITS} 3")
-    shape = (batch, max_len, config.num_kv_heads, config.resolved_head_dim)
+               device: torch.device, dtype: torch.dtype | None = None,
+               window: int = 0) -> dict:
+    """One layer's cache: 'k', 'v' (batch, Smax, KH, hd) zeros and 'pos'
+    0, where Smax is ``min(window, max_len)`` with a window, else
+    ``max_len``."""
+    size = min(window, max_len) if window > 0 else max_len
+    shape = (batch, size, config.num_kv_heads, config.resolved_head_dim)
     dtype = dtype or config.activation_dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -3,7 +3,8 @@ packages the same weights.
 
 ``repro.models.transformer.init`` stacks each layer leaf along a leading
 (L, ...) axis for ``jax.lax.scan``; the port keeps a list of per-layer
-dicts. The caller passes the reference's tree with its leaves as numpy
+dicts. ``repro.models.rglru.init`` already keeps per-layer dicts, keyed
+``layer_NN``, and so does the port. The caller passes the reference's tree with its leaves as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves
 arrive as ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so
 every leaf keeps its dtype and value. The walk follows whatever keys the
@@ -41,9 +42,14 @@ def _tree(node: Any, fn) -> Any:
 
 def params_from_jax(tree: dict, config: ModelConfig,
                     device: str | torch.device = "cpu") -> dict:
-    """The reference's transformer parameters, dense or MoE (numpy
-    leaves, layer leaves stacked on a leading L axis), as the port's, on
-    ``device``."""
+    """The reference's parameters (numpy leaves) as the port's, on
+    ``device``: a transformer's, dense or MoE, with its layer leaves
+    stacked on a leading L axis, become a list of per-layer dicts; the
+    hybrid family's per-layer dicts (``layer_NN``) stay as they are, each
+    leaf in its dtype (RG-LRU's ``lam``, ``ba`` and ``bx`` in fp32)."""
+    if config.family == "hybrid":
+        return _tree(tree, lambda a: tensor_from_numpy(np.asarray(a),
+                                                       device))
     n = config.num_layers
 
     def layer(i: int) -> dict:

@@ -137,9 +137,16 @@ def embed_tokens(tokens: torch.Tensor, params: dict,
 
 def lm_logits(x: torch.Tensor, params: dict,
               config: ModelConfig) -> torch.Tensor:
+    """The head's logits; with ``logits_soft_cap`` > 0, capped as
+    ``cap · tanh(logits / cap)`` in the logits' dtype."""
     if config.tie_embeddings:
-        return x @ params["tok"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        logits = x @ params["tok"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    if config.logits_soft_cap > 0:
+        cap = config.logits_soft_cap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
 
 
 # -- RoPE ----------------------------------------------------------------------

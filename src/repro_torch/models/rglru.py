@@ -1,0 +1,238 @@
+"""RecurrentGemma: RG-LRU recurrent blocks and local sliding-window
+attention, init and the serve path.
+
+The counterpart of ``repro/models/rglru.py``. The layer pattern cycles
+``config.block_pattern``, ``(rec, rec, attn)`` for recurrentgemma-2b: two
+gated-linear-recurrence blocks per local-attention block, each followed by
+a GeGLU MLP. The RG-LRU recurrence, in fp32,
+
+    r_t = σ(W_a x_t + b_a)          (recurrence gate)
+    i_t = σ(W_x x_t + b_x)          (input gate)
+    a_t = exp(-c · softplus(Λ) · r_t)           (c = 8)
+    h_t = a_t ⊙ h_{t-1} + sqrt(1 - a_t²) ⊙ (i_t ⊙ x_t)
+
+is a diagonal linear recurrence. A prefill evaluates it as a log-depth
+doubling scan over time in PyTorch operations (ceil(log2 T) rounds of the
+reference's combine, where the reference runs ``jax.lax.associative_scan``),
+never a loop over tokens; a decode step is one update. The reference
+has no Pallas kernel for it, and the port writes none. The decode state is
+constant-size: the LRU state ``h`` (fp32), the conv's last ``conv_width -
+1`` inputs (activation dtype) and a ``local_window`` rolling KV buffer.
+
+The attention blocks take the window, so they run the naive attention, as
+the reference's do (its kernel is taken at window 0 only); no flash kernel
+runs in this family. Params and caches are per-layer dicts keyed
+``layer_NN``, as the reference's, not stacked on L.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+
+_C = 8.0  # RG-LRU sharpness constant
+
+
+def layer_kinds(config: ModelConfig) -> list[str]:
+    pat = config.block_pattern
+    return [pat[i % len(pat)] for i in range(config.num_layers)]
+
+
+def _key(i: int) -> str:
+    return f"layer_{i:02d}"
+
+
+# -- init ------------------------------------------------------------------------
+def _init_rec_block(gen: torch.Generator, config: ModelConfig,
+                    dtype: torch.dtype) -> dict:
+    """The reference's recurrent block: its standard deviations, zero conv
+    and gate biases (the gate biases fp32), and Λ = linspace(0.3, 1.5) in
+    fp32."""
+    d, w = config.d_model, config.lru_width or config.d_model
+    dev = gen.device
+    std, stdw = 1.0 / math.sqrt(d), 1.0 / math.sqrt(w)
+    return {
+        "w_in_x": L.normal_init(gen, (d, w), std, dtype),
+        "w_in_gate": L.normal_init(gen, (d, w), std, dtype),
+        "conv_w": L.normal_init(gen, (config.conv_width, w), stdw, dtype),
+        "conv_b": torch.zeros(w, dtype=dtype, device=dev),
+        "wa": L.normal_init(gen, (w, w), stdw, dtype),
+        "ba": torch.zeros(w, dtype=torch.float32, device=dev),
+        "wx": L.normal_init(gen, (w, w), stdw, dtype),
+        "bx": torch.zeros(w, dtype=torch.float32, device=dev),
+        "lam": torch.from_numpy(
+            np.linspace(0.3, 1.5, w).astype(np.float32)).to(dev),
+        "w_out": L.normal_init(
+            gen, (w, d), stdw / math.sqrt(2.0 * config.num_layers), dtype),
+    }
+
+
+def init(gen: torch.Generator, config: ModelConfig) -> dict:
+    """Random parameters in ``config.param_dtype`` drawn from ``gen`` on
+    its device: {'embed': {...}, 'layer_00': {'rec' or 'attn', 'mlp',
+    'norm1', 'norm2'}, ..., 'final_norm': {...}}, the reference's tree."""
+    dtype = config.parameter_dtype
+    params: dict = {"embed": L.init_embedding(gen, config, dtype)}
+    for i, kind in enumerate(layer_kinds(config)):
+        blk: dict = {}
+        if kind == "rec":
+            blk["rec"] = _init_rec_block(gen, config, dtype)
+        else:
+            blk["attn"] = attn.init_attention(gen, config, dtype)
+        blk["mlp"] = L.init_mlp(gen, config, dtype)
+        blk["norm1"] = L.init_norm(config, dtype, gen.device)
+        blk["norm2"] = L.init_norm(config, dtype, gen.device)
+        params[_key(i)] = blk
+    params["final_norm"] = L.init_norm(config, dtype, gen.device)
+    return params
+
+
+# -- RG-LRU core -------------------------------------------------------------------
+def _gates(x32: torch.Tensor, p: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """(log a_t, i_t ⊙ x_t) in fp32."""
+    r = torch.sigmoid(x32 @ p["wa"].float() + p["ba"])
+    i = torch.sigmoid(x32 @ p["wx"].float() + p["bx"])
+    log_a = -_C * F.softplus(p["lam"]) * r                    # ≤ 0
+    return log_a, i * x32
+
+
+def _rg_lru(x: torch.Tensor, p: dict, h0: torch.Tensor
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, W) -> (y in x's dtype, h_last fp32). h_t = a_t h_{t-1} +
+    b_t, seeded with h0 folded into b_1, by a doubling scan: after the
+    round at offset o, (a_t, b_t) composes steps t - 2o + 1 .. t."""
+    log_a, gated = _gates(x.float(), p)
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)
+                   ) * gated
+    b = torch.cat([b[:, :1] + a[:, :1] * h0[:, None], b[:, 1:]], dim=1)
+    T, off = x.shape[1], 1
+    while off < T:
+        # combine((a1, b1), (a2, b2)) = (a1 a2, a2 b1 + b2), the earlier
+        # segment on the left
+        b = torch.cat([b[:, :off], a[:, off:] * b[:, :-off] + b[:, off:]],
+                      dim=1)
+        a = torch.cat([a[:, :off], a[:, :-off] * a[:, off:]], dim=1)
+        off *= 2
+    return b.to(x.dtype), b[:, -1]
+
+
+def _rg_lru_step(x: torch.Tensor, p: dict, h0: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One token: x (B, W) -> (y in x's dtype, h fp32)."""
+    log_a, gated = _gates(x.float(), p)
+    a = torch.exp(log_a)
+    h = a * h0 + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
+    return h.to(x.dtype), h
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv in x's dtype; x: (B, T, W), w: (cw, W), tail:
+    (B, cw - 1, W), the inputs before x. Returns (y, the new tail)."""
+    cw, T = w.shape[0], x.shape[1]
+    xt = torch.cat([tail.to(x.dtype), x], dim=1)
+    y = sum(xt[:, i:i + T] * w[i].to(x.dtype) for i in range(cw))
+    return y + b.to(x.dtype), xt[:, xt.shape[1] - (cw - 1):]
+
+
+def _rec_block(x: torch.Tensor, p: dict, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """The recurrent block: a GELU gate, the input projection through the
+    causal conv and the RG-LRU, gated, projected out. ``state``: 'h' (B,
+    W) fp32 and 'conv' (B, cw - 1, W)."""
+    dtype = x.dtype
+    gate = L.activation(x @ p["w_in_gate"].to(dtype), "gelu")
+    h = x @ p["w_in_x"].to(dtype)
+    h, conv_tail = _causal_conv(h, p["conv_w"], p["conv_b"], state["conv"])
+    if x.shape[1] == 1:
+        y, h_last = _rg_lru_step(h[:, 0], p, state["h"])
+        y = y[:, None]
+    else:
+        y, h_last = _rg_lru(h, p, state["h"])
+    out = (y * gate) @ p["w_out"].to(dtype)
+    return out, {"h": h_last.float(), "conv": conv_tail}
+
+
+# -- model ---------------------------------------------------------------------------
+def _forward(params: dict, tokens: torch.Tensor, config: ModelConfig,
+             cache: dict | None, start_pos: int
+             ) -> tuple[torch.Tensor, dict | None]:
+    """The final-normed hidden states (B, S, D), and with ``cache`` the
+    cache ``S`` tokens on."""
+    B, S = tokens.shape
+    x = L.embed_tokens(tokens, params["embed"], config)
+    positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
+    new_cache = None if cache is None else {"pos": cache["pos"] + S}
+    w_lru = config.lru_width or config.d_model
+    for i, kind in enumerate(layer_kinds(config)):
+        p = params[_key(i)]
+        layer_cache = None if cache is None else cache[_key(i)]
+        h = L.apply_norm(x, p["norm1"], config)
+        if kind == "rec":
+            state = layer_cache
+            if state is None:
+                state = {"h": torch.zeros((B, w_lru), dtype=torch.float32,
+                                          device=x.device),
+                         "conv": x.new_zeros((B, config.conv_width - 1,
+                                              w_lru))}
+            a, nc = _rec_block(h, p["rec"], state)
+        else:
+            lc = None if layer_cache is None else \
+                {**layer_cache, "pos": cache["pos"]}
+            a, nc = attn.attention_layer(h, p["attn"], config, positions,
+                                         cache=lc, window=config.local_window)
+            if nc is not None:
+                nc = {"k": nc["k"], "v": nc["v"]}
+        x = x + a
+        h = L.apply_norm(x, p["norm2"], config)
+        x = x + L.mlp(h, p["mlp"], config)
+        if new_cache is not None:
+            new_cache[_key(i)] = nc
+    return L.apply_norm(x, params["final_norm"], config), new_cache
+
+
+def init_cache(config: ModelConfig, batch: int, max_len: int,
+               device: torch.device) -> dict:
+    """'pos' 0 and per layer: a recurrent block's 'h' (batch, W) fp32 and
+    'conv' (batch, cw - 1, W), an attention block's 'k', 'v' (batch,
+    min(window, max_len), KH, hd), zeros in the activation dtype."""
+    w_lru = config.lru_width or config.d_model
+    dtype = config.activation_dtype
+    cache: dict = {"pos": 0}
+    for i, kind in enumerate(layer_kinds(config)):
+        if kind == "rec":
+            cache[_key(i)] = {
+                "h": torch.zeros((batch, w_lru), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, config.conv_width - 1, w_lru),
+                                    dtype=dtype, device=device)}
+        else:
+            layer = attn.init_cache(config, batch, max_len, device,
+                                    window=config.local_window)
+            cache[_key(i)] = {"k": layer["k"], "v": layer["v"]}
+    return cache
+
+
+def prefill(params: dict, batch: dict, config: ModelConfig,
+            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """Run the prompt ``batch['tokens']`` (B, S), fill a fresh cache for
+    ``max_len`` (default S) tokens, return last-token logits (B, 1, V)."""
+    tokens = batch["tokens"]
+    cache = init_cache(config, tokens.shape[0], max_len or tokens.shape[1],
+                       tokens.device)
+    x, cache = _forward(params, tokens, config, cache, 0)
+    return L.lm_logits(x[:, -1:], params["embed"], config), cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
+                config: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """tokens: (B, 1) -> (logits (B, 1, V), the cache one token on)."""
+    x, cache = _forward(params, tokens, config, cache, cache["pos"])
+    return L.lm_logits(x, params["embed"], config), cache

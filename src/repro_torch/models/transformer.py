@@ -52,6 +52,19 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
             "final_norm": L.init_norm(config, dtype, gen.device)}
 
 
+# The reference's dense path sizes its cache by ``local_window``
+# (``transformer.py:256-257``) but calls ``attention_layer`` without one
+# (``:104-105``), so a decode past the window writes the cache's last slot
+# over and over while the attention sees no window; no reference config
+# sets a window on this path, so nothing defines what it should compute
+# (ROADMAP Queue 3).
+DENSE_WINDOW_REFUSED = (
+    "local_window > 0 on the dense/MoE transformer is refused: the "
+    "reference sizes this path's cache by the window but attends without "
+    "one, so no reference config defines what it computes; the sliding "
+    "window is served by the hybrid family (models/rglru.py)")
+
+
 # -- one transformer block -------------------------------------------------------
 def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
            positions: torch.Tensor, cache: dict | None
@@ -76,6 +89,8 @@ def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
     """The blocks in order, each with its layer's slice of the cache;
     returns (x, the aux losses summed in layer order from an fp32 zero, the
     cache). A dense block adds nothing, where the reference adds a zero."""
+    if config.local_window > 0:
+        raise NotImplementedError(DENSE_WINDOW_REFUSED)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block_params in enumerate(params["layers"]):
         layer_cache = None

@@ -87,14 +87,14 @@ def test_torch_dense_config_has_the_reference_numbers(arch):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_torch_embed_scale_is_the_reference_name_test(arch):
-    """``embed_scale``, set in gemma-7b's config file, says what the
-    reference decides from the name (``layers.py:135``): gemma scales, no
-    other ported arch does."""
+    """``embed_scale``, set in gemma-7b's and recurrentgemma-2b's config
+    files, says what the reference decides from the name
+    (``layers.py:135``): those two scale, no other ported arch does."""
     name = jax_get_config(arch).name
     want = name.startswith("gemma") or name.startswith("recurrentgemma")
     assert get_config(arch).embed_scale is want
     assert get_config(arch, reduced=True).embed_scale is want
-    assert want is (arch == "gemma-7b")
+    assert want is (arch in ("gemma-7b", "recurrentgemma-2b"))
 
 
 # -- layers ----------------------------------------------------------------------

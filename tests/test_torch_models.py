@@ -283,7 +283,7 @@ def test_torch_unported_arch_names_its_roadmap_item():
     ({"family": "ssm"}, 5),
     ({"attention_impl": "blocked"}, 7),
     ({"attention_impl": "triangular"}, 7),
-    ({"local_window": 64}, 3),
+    ({"family": "audio"}, 4),
     ({"is_encoder_decoder": True}, 4),
 ])
 def test_torch_unported_paths_are_refused(change, item):
@@ -297,3 +297,20 @@ def test_torch_unported_paths_are_refused(change, item):
         model = get_model(tcfg)
         params = model.init(torch.Generator().manual_seed(0), tcfg)
         model.prefill(params, {"tokens": tok}, tcfg)
+
+
+def test_torch_dense_path_refuses_a_window_and_says_why():
+    """A window on the dense transformer stays refused, with the reason:
+    the reference's dense path sizes its cache by the window but attends
+    without one, so no reference config defines it. The window itself is
+    served by the hybrid family (tests/test_torch_rglru.py)."""
+    _, tcfg = _configs(local_window=64)
+    model = get_model(tcfg)
+    assert model is ttransformer
+    params = model.init(torch.Generator().manual_seed(0), tcfg)
+    tok = torch.zeros((1, 3), dtype=torch.long)
+    with pytest.raises(NotImplementedError,
+                       match="sizes this path's cache by the window but "
+                             "attends without one") as err:
+        model.prefill(params, {"tokens": tok}, tcfg)
+    assert str(err.value) == ttransformer.DENSE_WINDOW_REFUSED

@@ -63,6 +63,29 @@ def test_torch_stream_sink_is_idempotent(fast_run):
         assert int(z["frames_seen"]) == res["frames_seen"][0]
 
 
+def test_torch_stream_renders_the_phase_image(fast_run, tmp_path):
+    """The run ends with paper Fig. 10, the final object's phase, as
+    ``examples/ptycho_pipeline.py`` does; ``render_phase`` writes the
+    reference's array for the same object."""
+    from repro.apps.tomo.render import render_phase as jax_render_phase
+    from repro_torch.apps.tomo.render import render_phase
+
+    args, res = fast_run
+    paths = res["artifacts"]
+    assert paths[0] == f"{args.out}/ptycho_phase.npy"
+    sink = NpzDirectorySink(f"{args.out}/ptycho")
+    with np.load(sink.path_for("object-final")) as z:
+        np.testing.assert_array_equal(np.load(paths[0]), np.angle(z["obj"]))
+    rng = np.random.default_rng(3)
+    obj = (rng.standard_normal((24, 24))
+           + 1j * rng.standard_normal((24, 24))).astype(np.complex64)
+    got = render_phase(obj, str(tmp_path / "port"))
+    want = jax_render_phase(obj, str(tmp_path / "ref"))
+    assert [p.rsplit("/", 1)[1] for p in got] == \
+        [p.rsplit("/", 1)[1] for p in want]
+    np.testing.assert_array_equal(np.load(got[0]), np.load(want[0]))
+
+
 def test_torch_stream_batch_errors_match_jax_replay(fast_run):
     """The reference's raar_step, replayed on the port's batch boundaries,
     gives the same per-batch Fourier errors."""
