@@ -188,6 +188,35 @@ Phases, each fatal on failure:
      RG-LRU scan, the causal conv and the rest, with its idle share; (b)
      the fp32 serve invariant (B 2, a 2,560-token prompt, 8 tokens, every
      decode step past the window) on fp32 parameters.
+ 23. whisper-medium at full width (24 encoder and 24 decoder layers, 1,024
+     wide, 16/16 heads of hd 64, vocabulary 51,865, 1,500 frames, learned
+     positions; 793,101,312 parameters) drawn from the seed in bf16: the
+     first served batch's requests (4 prompts of 384 tokens, each with its
+     fp32 frames) prefilled with the kernel and with the naive attention,
+     last-token logits within MAX_PREFILL_LOGIT_DIFF, the attention calls
+     and their flash launches counted by kind (24 decoder self-attention
+     calls, one wgmma launch each at hd 64; the 24 encoder and 24 cross
+     calls naive, no launch); the serve stream through ``run_serve`` (one
+     batch of 4 requests, 64 tokens out; every flash launch on the wgmma
+     kernel) with tokens/s, prefill and decode times and the time to first
+     token, the batch equal to the model's own loop over the same frames; a
+     profiled prefill split by attention call (encoder, cross, decoder with
+     flash), GEMMs and the rest, with its idle share; the fp32 serve
+     invariant (B 2, 384 tokens, 8 tokens out, 216 launches on the tf32x3
+     kernel at hd 64); peak device memory.
+ 24. rwkv6-7b at full width (32 layers, 4,096 wide, 64 heads of 64, d_ff
+     14,336, vocabulary 65,536; 7,534,944,256 parameters) drawn from the
+     seed in bf16: the serve stream through ``run_serve`` (one batch of 4
+     requests of 1,024 tokens, 16 out) with no kernel launched (the
+     reference has no Pallas WKV), tokens/s, prefill and decode-step
+     times, the batch equal to the model's own loop; on the last layer's
+     own r, k, v and
+     log w from a prefill, the chunked WKV against the recurrent one
+     within 2e-4 of the largest magnitude, each one's distance from a
+     float64 recurrence reported; a profiled prefill split into the WKV,
+     GEMMs and the rest, with its idle share; the fp32 serve invariant (B
+     2, a 256-token prompt, 8 tokens) on fp32 parameters; peak device
+     memory.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
@@ -198,7 +227,8 @@ phase 19's counts, gemma-7b's serve stream as ``launches`` and its fp32
 invariant as ``launches_fp32_invariant``, and the wgmma row at hd 128
 ``launches_dense_configs``, minitron-8b's and starcoder2-3b's served
 batches; the flash rows at hd 64 carry phase 20's, its serve stream as
-``launches`` and its fp32 invariant as ``launches_fp32_invariant``; every
+``launches`` and its fp32 invariant as ``launches_fp32_invariant``, and
+phase 23's as ``launches_audio`` and ``launches_audio_fp32_invariant``; every
 flash row carries phase 9's own launches of its instances as
 ``launches_kernel_checks``), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
@@ -277,7 +307,8 @@ TC_HEAD_DIMS = (64, 128, 256)   # the tensor-core kernels' instances
 # the flash rows of the kernels line, (design, the head dims whose launches
 # the row counts) -> name: one row a design up to hd 128 but hd 64, as
 # before, and one row each tensor-core instance at hd 256 (gemma-7b) and
-# at hd 64 (granite-moe-3b-a800m); together they cover every built
+# at hd 64 (granite-moe-3b-a800m, whisper-medium's decoder); together they
+# cover every built
 # (design, hd) instance of the wrapper
 FLASH_ROWS = {("wgmma", (128,)): "wgmma, bf16 hd 128",
               ("tf32x3", (8, 16, 32, 128)): "tf32x3, fp32",
@@ -1718,17 +1749,19 @@ def model_phase(torch, dev) -> dict:
     return invariant_check(torch, dev, config, rng)
 
 
-def _greedy(torch, params, config, prompts, gen: int):
-    """Greedy prefill + ``gen - 1`` decode steps of the config's family:
-    the tokens (B, gen) on the host, and each token's logits (B, V) in
-    fp32."""
+def _greedy(torch, params, config, prompts, gen: int, frames=None):
+    """Greedy prefill + ``gen - 1`` decode steps of the config's family
+    (over ``frames`` for the audio family): the tokens (B, gen) on the
+    host, and each token's logits (B, V) in fp32."""
     from repro_torch.models.registry import get_model
 
     model = get_model(config)
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
     with torch.inference_mode():
         logits, cache = model.prefill(
-            params, {"tokens": prompts}, config,
-            max_len=prompts.shape[1] + gen)
+            params, batch, config, max_len=prompts.shape[1] + gen)
         steps = [logits[:, -1].float()]
         for _ in range(gen - 1):
             tok = steps[-1].argmax(-1, keepdim=True)
@@ -1737,11 +1770,13 @@ def _greedy(torch, params, config, prompts, gen: int):
     return torch.stack([s.argmax(-1) for s in steps], 1).cpu(), steps
 
 
-def serve_phase(torch, dev, argv=SERVE_ARGS, params=None) -> dict:
+def serve_phase(torch, dev, argv=SERVE_ARGS, params=None,
+                results: dict | None = None) -> dict:
     """The serve stream at full width through ``run_serve`` on ``argv``,
     on ``params`` when given (else drawn from the seed); returns its flash
     launches by instance, every one of them on the wgmma kernel at the
-    config's head dim."""
+    config's head dim. ``results``, when given, receives the served tokens
+    by request id."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import parse_args, run_serve
@@ -1767,6 +1802,8 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, params=None) -> dict:
                              f"the wgmma kernel at hd {hd}")
     if any(n for name, n in counts.items() if name != "flash_attention"):
         raise AssertionError(f"other kernels launched: {counts}")
+    if results is not None:
+        results.update(res["results"])
     results = res["results"]
     vocab = res["config"].vocab_size
     if sorted(results) != list(range(args.requests)) or any(
@@ -2300,6 +2337,525 @@ def hybrid_phase(torch, dev, smi: str) -> dict:
     print(f"  {HYBRID_ARCH} at full width OK: peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
           f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
+    return counts
+
+
+# phase 23: whisper-medium, served at full width: 1,500 frames a request,
+# prompts of 384 tokens and 64 out (448, the decoder's context in
+# arXiv:2212.04356); the request count is the cut, to one batch of 4 (8
+# took the whole script past 350 s)
+AUDIO_ARCH = "whisper-medium"
+AUDIO_PARAMS = 793_101_312      # the reference's init, by jax.eval_shape
+AUDIO_PROMPT, AUDIO_GEN = 384, 64
+AUDIO_SERVE_ARGS = ["--arch", AUDIO_ARCH, "--requests", "4", "--batch", "4",
+                    "--prompt-len", str(AUDIO_PROMPT), "--gen",
+                    str(AUDIO_GEN), "--seed", str(SEED)]
+AUDIO_INVARIANT_B, AUDIO_INVARIANT_STEPS = 2, 8
+# an attention_layer call's kind -> its label in the profiled prefill
+ATTENTION_KINDS = {"encoder": "encoder self-attention",
+                   "cross": "cross-attention",
+                   "decoder": "decoder self-attention"}
+
+
+def _audio_requests(torch, dev, config, rng, n: int, prompt_len: int):
+    """``n`` requests drawn from ``rng`` as ``run_serve`` draws them (each
+    prompt, then its frames): tokens (n, S) and fp32 frames (n,
+    encoder_seq, d_model) on the card."""
+    import numpy as np
+
+    prompts, frames = [], []
+    for _ in range(n):
+        prompts.append(rng.integers(0, config.vocab_size, (prompt_len,),
+                                    dtype=np.int32))
+        frames.append(rng.standard_normal(
+            (config.encoder_seq, config.d_model)).astype(np.float32))
+    return (torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev),
+            torch.from_numpy(np.stack(frames)).to(dev))
+
+
+@contextlib.contextmanager
+def _attention_calls(labels: bool = False):
+    """Every ``attention_layer`` call inside the block, by kind: "encoder"
+    (non-causal self-attention), "cross" (``kv_source`` or
+    ``precomputed_kv``) and "decoder" (causal self-attention). Yields
+    {kind: [calls, flash launches]}, the launches read from the wrapper's
+    count around each call; with ``labels``, each call also runs under a
+    ``record_function`` named by ``ATTENTION_KINDS``."""
+    from torch.profiler import record_function
+
+    from repro_torch import kernels
+    from repro_torch.models import attention
+
+    fn = attention.attention_layer
+    seen = {kind: [0, 0] for kind in ATTENTION_KINDS}
+
+    def wrapped(x, params, config, positions, cache=None, kv_source=None,
+                precomputed_kv=None, causal=True, window=0):
+        kind = ("cross" if kv_source is not None or precomputed_kv is not None
+                else "decoder" if causal else "encoder")
+        before = kernels.launch_counts()["flash_attention"]
+        with (record_function(ATTENTION_KINDS[kind]) if labels
+              else contextlib.nullcontext()):
+            out = fn(x, params, config, positions, cache=cache,
+                     kv_source=kv_source, precomputed_kv=precomputed_kv,
+                     causal=causal, window=window)
+        seen[kind][0] += 1
+        seen[kind][1] += kernels.launch_counts()["flash_attention"] - before
+        return out
+
+    attention.attention_layer = wrapped
+    try:
+        yield seen
+    finally:
+        attention.attention_layer = fn
+
+
+def audio_prefill_check(torch, dev, config, params, tokens, frames) -> None:
+    """The bf16 prefill of ``tokens`` over ``frames`` with the kernel and
+    with the naive attention: last-token logits within
+    MAX_PREFILL_LOGIT_DIFF; the kernel's launches by call kind, exactly one
+    a decoder layer (its causal self-attention, on the wgmma kernel at hd
+    64) and none from the encoder or from cross-attention; both timed."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import whisper
+
+    naive = config.replace(attention_impl="naive")
+    batch = {"tokens": tokens, "frames": frames}
+    n = config.num_layers
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        with _attention_calls() as calls:
+            lk, _ = whisper.prefill(params, batch, config)
+        launched = kernels.launch_counts()["flash_attention"]
+        by_instance = _launched(fk.flash_attention.launches_by_instance)
+        ln, _ = whisper.prefill(params, batch, naive)
+        ms_k = _time_ms(torch, lambda: whisper.prefill(params, batch, config),
+                        reps=3, warmup=1)
+        ms_n = _time_ms(torch, lambda: whisper.prefill(params, batch, naive),
+                        reps=3, warmup=1)
+    if not (torch.isfinite(lk).all() and torch.isfinite(ln).all()):
+        raise AssertionError("non-finite prefill logits")
+    if lk.shape != (tokens.shape[0], 1, config.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    diff = _max_err(torch, lk.float(), ln.float())
+    agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
+    print(f"  bf16 prefill of {tokens.shape[0]} x {tokens.shape[1]} tokens "
+          f"over {frames.shape[1]} frames: attention calls [calls, flash "
+          f"launches] {calls}; kernel ({launched} launches, {by_instance}) "
+          f"against naive attention: last-token logits max|diff| {diff:.4g} "
+          f"(limit {MAX_PREFILL_LOGIT_DIFF}; max|logit| "
+          f"{float(ln.float().abs().max()):.3g}), greedy tokens agree "
+          f"{agree}/{tokens.shape[0]}; prefill {ms_k:.2f} ms with the kernel, "
+          f"{ms_n:.2f} ms naive", flush=True)
+    want = {"encoder": [config.encoder_layers, 0], "cross": [n, 0],
+            "decoder": [n, n]}
+    if calls != want:
+        raise AssertionError(f"attention calls {calls}, expected {want}")
+    if by_instance != {("wgmma", config.resolved_head_dim): n}:
+        raise AssertionError(f"flash launches {by_instance} in a bf16 "
+                             f"prefill of {n} decoder layers")
+    if not diff <= MAX_PREFILL_LOGIT_DIFF:
+        raise AssertionError(f"kernel and naive prefill logits differ by "
+                             f"{diff} > {MAX_PREFILL_LOGIT_DIFF}")
+
+
+def audio_profile(torch, dev, config, params, tokens, frames) -> None:
+    """Where a bf16 prefill spends the device's time, by the profiler: the
+    encoder's self-attention calls (naive), the cross-attention calls
+    (naive) and the decoder's self-attention calls (flash), each with its
+    GEMMs, then the GEMMs outside the attention calls and the rest, each
+    kernel given to the attention call whose span it ran in; the idle share
+    against the prefill's wall time (profiled; the host clock around work
+    that ends in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import whisper
+
+    batch = {"tokens": tokens, "frames": frames}
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        whisper.prefill(params, batch, config)                   # warm
+        torch.cuda.synchronize()
+        with _attention_calls(labels=True), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            whisper.prefill(params, batch, config)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    labels = list(ATTENTION_KINDS.values())
+    busy, part, part_gemm, gemm = _split_by_part(torch, prof, labels)
+    if busy == 0:
+        print("  the profiled prefill's trace came back empty; its device "
+              "time not measured", flush=True)
+        return
+    if sum(part.values()) == 0:
+        print("  no kernel ran inside an attention call's span (the trace "
+              "put no span on the device's timeline); the split is not "
+              "measured", flush=True)
+    by_kernel = _device_us(torch, prof)
+    flash = sum(us for name, us in by_kernel.items()
+                if any(k in name for k in FLASH_KERNELS)) / 1e3
+    enc, cross, dec = (ATTENTION_KINDS[k] for k in ATTENTION_KINDS)
+    print(f"  bf16 prefill of {tokens.shape[0]} x {tokens.shape[1]} tokens "
+          f"(profiled): wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"share {max(0.0, 1 - busy / wall):.3f}; the encoder's "
+          f"self-attention calls {part[enc]:.2f} ms (GEMMs "
+          f"{part_gemm[enc]:.2f}: the projections in bf16 and the naive "
+          f"attention's fp32 products), cross-attention {part[cross]:.2f} ms "
+          f"(GEMMs {part_gemm[cross]:.2f}), the decoder's self-attention "
+          f"{part[dec]:.2f} ms (flash {flash:.2f}, GEMMs "
+          f"{part_gemm[dec]:.2f}), GEMMs outside the attention calls "
+          f"{gemm:.2f} ms, the rest {busy - sum(part.values()) - gemm:.2f} ms",
+          flush=True)
+    top = sorted(((n, us) for n, us in by_kernel.items() if n not in labels),
+                 key=lambda kv: -kv[1])
+    for name, us in top[:8]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / 1e3 / busy:5.1f}%  "
+              f"{name[:90]}", flush=True)
+
+
+def audio_invariant(torch, dev, config) -> dict:
+    """The serve invariant in full fp32 at full width: greedy prefill of
+    AUDIO_PROMPT tokens over a request's frames and decode steps equal the
+    argmax of teacher-forced prefills over the same frames,
+    AUDIO_INVARIANT_STEPS tokens, every prefill's decoder self-attention on
+    the tf32x3 kernel at hd 64; on fp32 parameters drawn here and released
+    before it returns. Returns the flash launches by instance."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import whisper
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    config = config.replace(dtype="float32", param_dtype="float32")
+    params = _draw(torch, dev, config)
+    B, S, G = AUDIO_INVARIANT_B, AUDIO_PROMPT, AUDIO_INVARIANT_STEPS
+    tokens, frames = _audio_requests(torch, dev, config,
+                                     np.random.default_rng(SEED + 3), B, S)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = whisper.prefill(
+            params, {"tokens": tokens, "frames": frames}, config,
+            max_len=S + G)
+        steps = [logits[:, -1]]
+        for _ in range(G - 1):
+            logits, cache = whisper.decode_step(
+                params, steps[-1].argmax(-1)[:, None], cache, config)
+            steps.append(logits[:, -1])
+        serve = [step.argmax(-1) for step in steps]
+        full, worst = tokens, 0.0
+        for g in range(G):
+            forced, _ = whisper.prefill(
+                params, {"tokens": full, "frames": frames}, config,
+                max_len=full.shape[1] + 1)
+            worst = max(worst, _max_err(torch, forced[:, -1], steps[g]))
+            nxt = forced[:, -1].argmax(-1)
+            if not torch.equal(nxt, serve[g]):
+                raise AssertionError(f"fp32 serve invariant broken at step "
+                                     f"{g}: {nxt.tolist()} != "
+                                     f"{serve[g].tolist()}")
+            full = torch.cat([full, nxt[:, None]], dim=1)
+    by_instance = dict(fk.flash_attention.launches_by_instance)
+    want = {("tf32x3", config.resolved_head_dim): (1 + G) * config.num_layers}
+    print(f"  fp32 serve invariant at full width (B {B}, {S} tokens over "
+          f"{config.encoder_seq} frames, {G} tokens, launches "
+          f"{_launched(by_instance)}): greedy prefill + decode == "
+          f"teacher-forced prefills, tokens {torch.stack(serve, 1).tolist()};"
+          f" reported: max |logit| difference, each step against its "
+          f"teacher-forced prefill, {worst:.3g}; in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if _launched(by_instance) != want:
+        raise AssertionError(f"flash launches {_launched(by_instance)} in "
+                             f"{1 + G} fp32 prefills, expected {want}")
+    del params, cache, logits, forced
+    torch.cuda.empty_cache()
+    return by_instance
+
+
+def audio_phase(torch, dev, smi: str) -> dict:
+    """Phase 23: whisper-medium at full width (24 + 24 layers, d_model
+    1,024, 16/16 heads of hd 64, vocabulary 51,865, 1,500 frames), drawn
+    from the seed in bf16: the prefill check on the first served batch's
+    requests (``audio_prefill_check``), the serve stream through
+    ``run_serve`` (AUDIO_SERVE_ARGS; every flash launch on the wgmma kernel
+    at hd 64, one a decoder layer a batch), the first batch's tokens against
+    the model's own prefill/decode_step loop, the profiled prefill, then
+    the fp32 serve invariant on the tf32x3 kernel on fp32 parameters drawn
+    after the bf16 ones left. Returns the flash launches by instance of the
+    serve stream ("served") and of the invariant ("invariant")."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)         # the context up before its stats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = get_config(AUDIO_ARCH)
+    params = _draw(torch, dev, config)
+    if _param_count(params) != AUDIO_PARAMS:
+        raise AssertionError(f"{_param_count(params)} parameters, the "
+                             f"reference's init has {AUDIO_PARAMS}")
+    args = parse_args(AUDIO_SERVE_ARGS)
+    tokens, frames = _audio_requests(torch, dev, config,
+                                     np.random.default_rng(args.seed),
+                                     args.batch, args.prompt_len)
+    audio_prefill_check(torch, dev, config, params, tokens, frames)
+    results: dict = {}
+    served = serve_phase(torch, dev, AUDIO_SERVE_ARGS, params=params,
+                         results=results)
+    # run_serve's first batch holds the prefill check's requests
+    direct, _ = _greedy(torch, params, config, tokens, args.gen,
+                        frames=frames)
+    served0 = torch.tensor([results[i] for i in range(args.batch)])
+    print(f"  batch 0's tokens against the model's own prefill/decode_step "
+          f"loop over the same frames: "
+          f"{int((direct == served0).all(1).sum())}/{args.batch} requests "
+          f"equal", flush=True)
+    if not torch.equal(direct, served0):
+        raise AssertionError(f"served {served0.tolist()} != the direct loop "
+                             f"{direct.tolist()}")
+    audio_profile(torch, dev, config, params, tokens, frames)
+    peak_bf16 = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    invariant = audio_invariant(torch, dev, config)
+    print(f"  {AUDIO_ARCH} at full width OK: flash launches served "
+          f"{_launched(served)}, in the fp32 invariant {_launched(invariant)};"
+          f" peak device memory {peak_bf16:.2f} GB in bf16, "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB with the fp32 "
+          f"invariant; {time.perf_counter() - t_phase:.1f} s, on {smi}",
+          flush=True)
+    return {"served": served, "invariant": invariant}
+
+
+# phase 24: rwkv6-7b, served at full width; the request count is the cut,
+# to one batch of 4, as phase 23's
+SSM_ARCH = "rwkv6-7b"
+SSM_PARAMS = 7_534_944_256      # the reference's init, by jax.eval_shape
+SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--requests", "4", "--batch", "4",
+                  "--prompt-len", "1024", "--gen", "16", "--seed", str(SEED)]
+SSM_INVARIANT_B, SSM_INVARIANT_PROMPT, SSM_INVARIANT_STEPS = 2, 256, 8
+# tests/test_models.py:102's chunked-against-recurrent tolerance, held here
+# as a share of the largest magnitude compared: at full width the WKV's
+# output reaches thousands, where one fp32 step is larger than 2e-4
+WKV_TOL = 2e-4
+SSM_PARTS = {"WKV": ("rwkv6", "_wkv_chunked")}
+
+
+def ssm_wkv_check(torch, dev, config, params, tokens) -> None:
+    """On the last layer's own r, k, v, log w, u and (zero) entering state
+    from a bf16 prefill of ``tokens`` at full width: the chunked WKV against
+    the recurrent one, held to the reference's chunked-against-recurrent
+    tolerance (WKV_TOL) of the largest magnitude compared, output and
+    state, both timed; each one's distance from a float64 recurrence on the
+    same inputs reported."""
+    from repro_torch.models import rwkv6
+
+    fn, seen = rwkv6._wkv_chunked, []
+
+    def recording(r, k, v, logw, u, state, chunk):
+        # the entering state is the cache's slice, written over in place
+        # once the layer ends: keep a copy
+        seen[:] = [(r, k, v, logw, u, state.clone())]
+        return fn(r, k, v, logw, u, state, chunk)
+
+    rwkv6._wkv_chunked = recording
+    try:
+        with torch.inference_mode():
+            rwkv6.prefill(params, {"tokens": tokens}, config)
+    finally:
+        rwkv6._wkv_chunked = fn
+    args = seen[0]
+    C = config.rwkv_chunk
+    with torch.inference_mode():
+        yc, sc = rwkv6._wkv_chunked(*args, C)
+        yr, sr = rwkv6._wkv_recurrent(*args)
+        y64, s64 = rwkv6._wkv_recurrent(*(t.double() for t in args))
+        ms_c = _time_ms(torch, lambda: rwkv6._wkv_chunked(*args, C), reps=5,
+                        warmup=1)
+        ms_r = _time_ms(torch, lambda: rwkv6._wkv_recurrent(*args), reps=1,
+                        warmup=0)
+    w = torch.exp(args[3])
+    y_max, s_max = float(yr.abs().max()), float(sr.abs().max())
+    print(f"  the last layer's WKV from the prefill, r/k/v/log w "
+          f"{tuple(yr.shape)} fp32, decay w in [{float(w.min()):.4g}, "
+          f"{float(w.max()):.6g}]: chunked (chunk {C}) against recurrent: "
+          f"max|y diff| {_max_err(torch, yc, yr):.4g} of max|y| {y_max:.5g}, "
+          f"max|S diff| {_max_err(torch, sc, sr):.4g} of max|S| "
+          f"{s_max:.5g} (held: {WKV_TOL} of the largest magnitude); against "
+          f"a float64 recurrence: max|y diff| chunked "
+          f"{_max_err(torch, yc.double(), y64):.4g}, recurrent "
+          f"{_max_err(torch, yr.double(), y64):.4g}; chunked {ms_c:.3f} ms, "
+          f"recurrent {ms_r:.3f} ms", flush=True)
+    torch.testing.assert_close(yc, yr, rtol=WKV_TOL,
+                               atol=WKV_TOL * max(1.0, y_max))
+    torch.testing.assert_close(sc, sr, rtol=WKV_TOL,
+                               atol=WKV_TOL * max(1.0, s_max))
+
+
+def ssm_profile(torch, dev, config, params, tokens) -> None:
+    """Where a bf16 prefill of ``tokens`` spends the device's time: the
+    chunked WKV (its batched products included), the GEMMs outside it and
+    the rest, by the profiler, with the idle share against the prefill's
+    wall time (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import rwkv6
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        rwkv6.prefill(params, {"tokens": tokens}, config)        # warm
+        torch.cuda.synchronize()
+        with _labelled(SSM_PARTS), profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            rwkv6.prefill(params, {"tokens": tokens}, config)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    busy, part, part_gemm, gemm = _split_by_part(torch, prof, SSM_PARTS)
+    if busy == 0:
+        print("  the profiled prefill's trace came back empty; its device "
+              "time not measured", flush=True)
+        return
+    if sum(part.values()) == 0:
+        print("  no kernel ran inside the WKV's spans (the trace put no span "
+              "on the device's timeline); the split is not measured",
+              flush=True)
+    print(f"  bf16 prefill of {tokens.shape[0]} x {tokens.shape[1]} tokens "
+          f"(profiled): wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
+          f"share {max(0.0, 1 - busy / wall):.3f}; WKV {part['WKV']:.2f} ms "
+          f"(its batched products {part_gemm['WKV']:.2f}), GEMMs outside it "
+          f"{gemm:.2f} ms, the rest {busy - gemm - part['WKV']:.2f} ms",
+          flush=True)
+    top = sorted(((n, us) for n, us in _device_us(torch, prof).items()
+                  if n not in SSM_PARTS), key=lambda kv: -kv[1])
+    for name, us in top[:8]:
+        print(f"    {us / 1e3:9.3f} ms {100 * us / 1e3 / busy:5.1f}%  "
+              f"{name[:90]}", flush=True)
+
+
+def ssm_invariant(torch, dev, config) -> None:
+    """The serve invariant in full fp32 at full width: greedy prefill of an
+    SSM_INVARIANT_PROMPT-token prompt and decode steps equal the argmax of
+    teacher-forced prefills, SSM_INVARIANT_STEPS tokens; on fp32 parameters
+    drawn here and released before it returns."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.models import rwkv6
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    config = config.replace(dtype="float32", param_dtype="float32")
+    params = _draw(torch, dev, config)
+    B, S, G = SSM_INVARIANT_B, SSM_INVARIANT_PROMPT, SSM_INVARIANT_STEPS
+    rng = np.random.default_rng(SEED + 4)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                           (B, S))).to(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = rwkv6.prefill(params, {"tokens": tokens}, config)
+        steps = [logits[:, -1]]
+        for _ in range(G - 1):
+            logits, cache = rwkv6.decode_step(
+                params, steps[-1].argmax(-1)[:, None], cache, config)
+            steps.append(logits[:, -1])
+        serve = [step.argmax(-1) for step in steps]
+        full, worst = tokens, 0.0
+        for g in range(G):
+            forced, _ = rwkv6.prefill(params, {"tokens": full}, config)
+            worst = max(worst, _max_err(torch, forced[:, -1], steps[g]))
+            nxt = forced[:, -1].argmax(-1)
+            if not torch.equal(nxt, serve[g]):
+                raise AssertionError(f"fp32 serve invariant broken at step "
+                                     f"{g}: {nxt.tolist()} != "
+                                     f"{serve[g].tolist()}")
+            full = torch.cat([full, nxt[:, None]], dim=1)
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"kernels launched: {counts}")
+    print(f"  fp32 serve invariant at full width (B {B}, a {S}-token prompt, "
+          f"{G} tokens): greedy prefill + decode == teacher-forced "
+          f"prefills, tokens {torch.stack(serve, 1).tolist()}; reported: "
+          f"max |logit| difference, each step against its teacher-forced "
+          f"prefill, {worst:.3g}; in {time.perf_counter() - t0:.2f} s; "
+          f"launches {counts}", flush=True)
+    del params, cache, logits, forced
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(torch, dev, smi: str) -> dict:
+    """Phase 24: rwkv6-7b at full width (32 layers, d_model 4,096, 64 heads
+    of 64, d_ff 14,336, vocabulary 65,536), drawn from the seed in bf16:
+    the serve stream through ``run_serve`` (SSM_SERVE_ARGS), no kernel
+    launched (the reference has no Pallas kernel for the WKV), the first
+    batch's tokens equal to the model's own loop; the chunked WKV against
+    the recurrent one on a layer's own inputs; the profiled prefill; then
+    the fp32 serve invariant on fp32 parameters drawn after the bf16 ones
+    left. Returns the kernels' launches in the serve stream."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args, run_serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)         # the context up before its stats
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    config = get_config(SSM_ARCH)
+    params = _draw(torch, dev, config)
+    if _param_count(params) != SSM_PARAMS:
+        raise AssertionError(f"{_param_count(params)} parameters, the "
+                             f"reference's init has {SSM_PARAMS}")
+    args = parse_args(SSM_SERVE_ARGS)
+    kernels.reset_launch_counts()
+    res = run_serve(args, device=dev, params=params)
+    counts = kernels.launch_counts()
+    results, gen = res["results"], args.gen
+    if sorted(results) != list(range(args.requests)) or any(
+            len(t) != gen or not all(0 <= x < config.vocab_size for x in t)
+            for t in results.values()):
+        raise AssertionError(f"results {results}")
+    print(f"  served {len(results)} requests of {args.prompt_len} tokens x "
+          f"{gen} out ({res['tokens']} tokens) in {res['stream_s']:.3f} s: "
+          f"{res['tokens_per_s']:.1f} tokens/s; per batch: prefill (s) "
+          f"{[round(x, 4) for x in res['prefill_s']]}, decode step (ms) "
+          f"{[round(1e3 * x / (gen - 1), 2) for x in res['decode_s']]}, time "
+          f"to first token (s) {[round(x, 4) for x in res['ttft_s']]}; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+          f"GB; launches {counts}", flush=True)
+    if any(counts.values()) or any(res["launches"].values()):
+        raise AssertionError(f"kernels launched: {counts}")
+    rng = np.random.default_rng(args.seed)      # run_serve's prompts
+    prompts = np.stack([rng.integers(0, config.vocab_size,
+                                     (args.prompt_len,), dtype=np.int32)
+                        for _ in range(args.batch)]).astype(np.int64)
+    batch0 = torch.from_numpy(prompts).to(dev)
+    direct, _ = _greedy(torch, params, config, batch0, gen)
+    served0 = torch.tensor([results[i] for i in range(args.batch)])
+    print(f"  batch 0's tokens against the model's own prefill/decode_step "
+          f"loop: {int((direct == served0).all(1).sum())}/{args.batch} "
+          f"requests equal", flush=True)
+    if not torch.equal(direct, served0):
+        raise AssertionError(f"served {served0.tolist()} != the direct loop "
+                             f"{direct.tolist()}")
+    ssm_wkv_check(torch, dev, config, params, batch0)
+    ssm_profile(torch, dev, config, params, batch0)
+    peak_bf16 = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    ssm_invariant(torch, dev, config)
+    print(f"  {SSM_ARCH} at full width OK: peak device memory "
+          f"{peak_bf16:.2f} GB in bf16, "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB with the fp32 "
+          f"invariant; {time.perf_counter() - t_phase:.1f} s, on {smi}",
+          flush=True)
     return counts
 
 
@@ -3121,6 +3677,20 @@ def main() -> int:
     with _phase("22", f"the hybrid family: {HYBRID_ARCH} at full width "
                       f"(window 2,048, {HYBRID_PROMPT}-token prompts):"):
         hybrid_phase(torch, dev, smi)
+
+    with _phase("23", f"the audio family: {AUDIO_ARCH} at full width "
+                      f"({AUDIO_PROMPT}-token prompts over 1,500 frames, "
+                      f"flash at hd 64):"):
+        audio = audio_phase(torch, dev, smi)
+        for key in hd64_rows:
+            flash_rows[key]["launches_audio"] = _row_launches(
+                audio["served"], key)
+            flash_rows[key]["launches_audio_fp32_invariant"] = _row_launches(
+                audio["invariant"], key)
+
+    with _phase("24", f"the ssm family: {SSM_ARCH} at full width (the "
+                      f"chunked WKV, no kernel):"):
+        ssm_phase(torch, dev, smi)
 
     print(f"all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)

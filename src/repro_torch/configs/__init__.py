@@ -18,10 +18,12 @@ ARCHS: dict[str, str] = {
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "kimi-k2-1t-a32b": "repro_torch.configs.kimi_k2_1t_a32b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 # the reference's other archs, each with the ROADMAP Queue 1 item it waits
 # for
-WAITING = {"whisper-medium": 4, "rwkv6-7b": 5, "llava-next-34b": 6}
+WAITING = {"llava-next-34b": 6}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

@@ -1,16 +1,19 @@
-"""Model configuration, trimmed to what the dense, MoE and hybrid serve
-paths read.
+"""Model configuration, trimmed to what the serve paths of the ported
+families read: dense, MoE, hybrid, audio (whisper) and ssm (rwkv6).
 
 The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
 names and defaults for the fields kept, but ``attention_impl``, whose
 values are the port's own (below), and one field of the port's own,
 ``embed_scale``. The reference keeps dtypes as strings (``dtype``,
 ``param_dtype``); ``DTYPES`` maps them to torch dtypes. Kept are the
-fields the dense, MoE and hybrid archs set: the MLP's activation and
-gating, RMSNorm (with gemma's (1 + w) offset) or LayerNorm, tied
-embeddings, RoPE's theta, the logit soft cap, the MoE block's experts,
-top-k, capacity factor and aux-loss weight, and the hybrid family's
-block pattern, sliding window, RG-LRU width and conv width. The
+fields the ported archs set: the MLP's activation and gating, RMSNorm
+(with gemma's (1 + w) offset) or LayerNorm, tied embeddings, the position
+embedding (RoPE with its theta, learned positions with their table's
+size, or none), the logit soft cap, the MoE block's experts, top-k,
+capacity factor and aux-loss weight, the hybrid family's block pattern,
+sliding window, RG-LRU width and conv width, rwkv6's WKV chunk and decay
+LoRA rank, and whisper's encoder depth and frame count with
+``is_encoder_decoder``, which the reference sets and reads nowhere. The
 reference scales gemma's and recurrentgemma's embeddings by sqrt(d_model)
 on a test of the arch's name (``layers.py:embed_tokens``); here
 ``embed_scale`` says so in the arch's config file. The reference's
@@ -18,10 +21,8 @@ on a test of the arch's name (``layers.py:embed_tokens``); here
 and pads 0 heads without a mesh; the port has no mesh yet, so the field
 comes with the mesh (ROADMAP Queue 1 item 9), as do ``sharding_overrides``
 (kimi-k2's expert and embedding sharding) and the all-to-all MoE path they
-select. The options of the archs that wait (learned positions) and the
-fields of audio and VLM blocks, remat and scan come with the slice that
-ports an arch setting them. ``is_encoder_decoder`` stays so that a config
-asking for cross-attention is refused, not served as something else.
+select. The VLM block's field (``num_image_tokens``), remat and scan come
+with the slice that ports an arch setting them.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ DTYPES: dict[str, torch.dtype] = {
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | hybrid (the families ported)
+    family: str                    # dense | moe | hybrid | audio | ssm
     num_layers: int
     d_model: int
     num_heads: int                 # query heads
@@ -53,6 +54,7 @@ class ModelConfig:
     norm: str = "rmsnorm"          # rmsnorm | layernorm
     norm_offset: bool = False      # gemma-style (1 + w) RMSNorm scale
     rope_theta: float = 10_000.0
+    pos_embedding: str = "rope"    # rope | learned | none
     logits_soft_cap: float = 0.0   # cap · tanh(logits / cap) when > 0
     tie_embeddings: bool = False
     embed_scale: bool = False      # embeddings x sqrt(d_model) (gemma)
@@ -66,7 +68,13 @@ class ModelConfig:
     local_window: int = 0          # sliding window of the attention blocks
     lru_width: int = 0             # RG-LRU state width (0 => d_model)
     conv_width: int = 4
-    is_encoder_decoder: bool = False   # cross-attention: not ported, refused
+    # ssm (rwkv)
+    rwkv_chunk: int = 16
+    decay_lora: int = 64
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0           # precomputed frame-embedding length
+    is_encoder_decoder: bool = False
     # numerics / execution
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "bfloat16"
@@ -74,6 +82,8 @@ class ModelConfig:
     # elsewhere; naive: naive everywhere. The reference's blocked and
     # triangular schedules are not ported and are refused.
     attention_impl: str = "flash"
+    # max positions for learned embeddings (0 => 8,192)
+    max_position: int = 0
 
     @property
     def resolved_head_dim(self) -> int:

@@ -17,14 +17,26 @@ are random, drawn from ``--seed`` (nothing pretrained can be fetched).
 dense internlm2-1.8b (the default), gemma-7b, minitron-8b and
 starcoder2-3b, the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about 1 T
 parameters, is served at ``--reduced`` only: it does not fit one card),
-and the hybrid recurrentgemma-2b, whose attention is a 2,048-token sliding
+the hybrid recurrentgemma-2b, whose attention is a 2,048-token sliding
 window over a rolling cache (naive attention, as the reference's: no flash
-kernel runs for it); the others name the ROADMAP item they wait for. Each
-family's ``prefill`` builds its own cache (``init_cache`` of its module).
+kernel runs for it), the audio whisper-medium and the ssm rwkv6-7b, attention-free with a
+constant-size state; llava-next-34b names the
+ROADMAP item it waits for. Each family's ``prefill`` builds its own cache
+(``init_cache`` of its module).
+
+An audio request carries its ``frames`` besides its prompt: precomputed
+frame embeddings (``encoder_seq``, ``d_model``) in fp32, drawn from the
+same generator right after the prompt, as the reference's producer draws
+them (``repro/launch/train.py:synthetic_producer``); a batch stacks them
+into ``batch["frames"]``. The reference's serve sends tokens only, so its
+whisper ``prefill`` cannot run there (``KeyError: 'frames'``). whisper's
+encoder and cross-attention take the naive attention (the reference's
+rule: its kernel is for causal calls), its decoder's causal prefill the
+flash kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch granite-moe-3b-a800m --requests 8 --batch 4 \\
-        --prompt-len 1024 --gen 16
+        --arch whisper-medium --requests 8 --batch 4 \\
+        --prompt-len 384 --gen 64
 """
 from __future__ import annotations
 
@@ -101,10 +113,13 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
     broker.create_topic("requests", partitions=1)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
-        broker.produce("requests", {
-            "id": i,
-            "prompt": rng.integers(0, config.vocab_size,
-                                   (args.prompt_len,), dtype=np.int32)})
+        request = {"id": i,
+                   "prompt": rng.integers(0, config.vocab_size,
+                                          (args.prompt_len,), dtype=np.int32)}
+        if config.family == "audio":
+            request["frames"] = rng.standard_normal(
+                (config.encoder_seq, config.d_model)).astype(np.float32)
+        broker.produce("requests", request)
 
     sc = StreamingContext(Context(), broker,
                           max_records_per_partition=args.batch)
@@ -122,11 +137,13 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
         t0 = time.perf_counter()
         while len(reqs) < args.batch:         # pad the last micro-batch
             reqs.append(reqs[-1])
-        prompts = torch.from_numpy(
-            np.stack([r["prompt"] for r in reqs]).astype(np.int64)).to(dev)
+        batch = {"tokens": torch.from_numpy(
+            np.stack([r["prompt"] for r in reqs]).astype(np.int64)).to(dev)}
+        if config.family == "audio":
+            batch["frames"] = torch.from_numpy(
+                np.stack([r["frames"] for r in reqs])).to(dev)
         with torch.inference_mode():
-            logits, cache = prefill(params, {"tokens": prompts},
-                                    max_len=max_len)
+            logits, cache = prefill(params, batch, max_len=max_len)
             tokens = logits[:, -1:].argmax(dim=-1)
             tokens[:, 0].cpu()                # waits for the prefill
             t1 = time.perf_counter()
@@ -150,6 +167,10 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
         if sc.run_one_batch() is None:
             break
     stream_s = time.perf_counter() - t_start
+    # the context stays in the process-wide metrics registry (its gauges'
+    # callbacks, the latest context's kept), so it must not keep the batch
+    # function, and with it the weights, once the stream is over
+    sc.foreach_batch(None)
     n_tok = sum(len(v) for v in results.values())
     after = launch_counts()
     return {"config": config, "device": str(dev), "results": results,

@@ -1,12 +1,14 @@
 """Attention: GQA/MQA/MHA with RoPE, causal self-attention (with or without
-a sliding window), and the serve path's KV cache.
+a sliding window), non-causal self-attention and cross-attention
+(whisper), and the serve path's KV cache.
 
-The counterpart of ``repro/models/attention.py``, trimmed to the
-decoder's serve path. Two implementations of the same function:
+The counterpart of ``repro/models/attention.py``, trimmed to the serve
+path. Two implementations of the same function:
 
 * ``naive`` — the full score matrix in fp32; the oracle, and what every
               call that is not a causal, window-free prefill takes (decode,
-              Sq = 1, and every windowed call).
+              Sq = 1, every windowed call, whisper's non-causal encoder
+              self-attention and every cross-attention).
 * ``flash`` — the CUDA flash kernel (``kernels/flash_attention``), taken
               for causal, window-free attention with Sq > 1 on the card,
               where the reference would take its Pallas kernel under
@@ -16,12 +18,20 @@ decoder's serve path. Two implementations of the same function:
 ``attention_impl`` is ``"flash"`` (the default) or ``"naive"`` (naive
 everywhere, so one model runs with and without the kernel). The
 reference's ``blocked`` and ``triangular`` schedules compute the naive
-function in tiles for XLA (ROADMAP Queue 1 item 7); cross-attention comes
-with whisper (item 4). A config that asks for one is refused, naming its
-item, rather than served otherwise. The reference's head padding
-(``pad_attention_heads``) pads H to a mesh's tensor-parallel degree and
-pads 0 heads without one (``attention.py:317-320``); it comes with the
-port's mesh (ROADMAP Queue 1 item 9).
+function in tiles for XLA (ROADMAP Queue 1 item 7); a config that asks
+for one is refused, naming its item, rather than served otherwise. Where
+the reference would tile a long non-causal call (whisper's 1,500-frame
+encoder) as ``blocked``, the port computes the same function untiled. The
+reference's head padding (``pad_attention_heads``) pads H to a mesh's
+tensor-parallel degree and pads 0 heads without one
+(``attention.py:317-320``); it comes with the port's mesh (ROADMAP Queue 1
+item 9).
+
+RoPE turns q and k only when ``config.pos_embedding == "rope"`` and the
+call is not a cross-attention (whisper's learned positions are added to
+its inputs instead). A cross-attention call (``kv_source`` or
+``precomputed_kv``) attends to every encoder position, non-causal, and
+returns its projected K/V so that the decode can reuse them.
 
 The sliding window (``window`` > 0, recurrentgemma's local attention): a
 query at p sees keys at p - window < q <= p; the cache holds
@@ -44,7 +54,6 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, normal_init
 
 NEG_INF = -1e30
-_WAITS = "waits for ROADMAP Queue 1 item"
 
 
 # -- params ----------------------------------------------------------------------
@@ -97,7 +106,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int = 0) -> torch.Tensor:
     impl = config.attention_impl
     if impl not in ("flash", "naive"):
-        raise NotImplementedError(f"attention_impl={impl!r} {_WAITS} 7")
+        raise NotImplementedError(f"attention_impl={impl!r} waits for "
+                                  f"ROADMAP Queue 1 item 7")
     if (impl == "flash" and causal and window == 0 and q.shape[1] > 1
             and q.is_cuda):
         # like the reference's Pallas call, qpos/kpos are not read: the
@@ -108,9 +118,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
                     positions: torch.Tensor, cache: dict | None = None,
+                    kv_source: torch.Tensor | None = None,
+                    precomputed_kv: tuple[torch.Tensor, torch.Tensor]
+                    | None = None,
                     causal: bool = True, window: int = 0
                     ) -> tuple[torch.Tensor, dict | None]:
-    """Self-attention layer: qkv projections, RoPE, core, out projection.
+    """Attention layer: qkv projections, RoPE, core, out projection.
 
     ``cache`` (prefill/decode): dict with 'k', 'v' (B, Smax, KH, hd) buffers
     and 'pos' (tokens already cached, an int). The buffers are updated in
@@ -118,9 +131,12 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     them with ``pos`` advanced. Prefill (S > 1) attends over the fresh
     sequence, then fills the cache; decode (S == 1) writes its slot, then
     attends over the filled slots. ``window`` > 0 makes the attention a
-    sliding window and the cache a rolling buffer (module docstring)."""
-    if config.is_encoder_decoder:
-        raise NotImplementedError(f"cross-attention {_WAITS} 4")
+    sliding window and the cache a rolling buffer (module docstring).
+    ``kv_source`` (B, T, D) makes the call a cross-attention whose keys and
+    values are projected from it; ``precomputed_kv`` (each (B, T, KH, hd))
+    reuses keys and values projected before. A cross call sees every one
+    of the T positions and returns {'k', 'v'}, the projected (or reused)
+    keys and values, as its cache."""
     B, S, _ = x.shape
     h, kh = config.num_heads, config.num_kv_heads
     hd = config.resolved_head_dim
@@ -128,17 +144,29 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     dtype = x.dtype
 
     q = _split_heads(x @ params["wq"].to(dtype), h, hd)
-    k = _split_heads(x @ params["wk"].to(dtype), kh, hd)
-    v = _split_heads(x @ params["wv"].to(dtype), kh, hd)
-    q = apply_rope(q, positions, config.rope_theta)
-    k = apply_rope(k, positions, config.rope_theta)
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    else:
+        src = x if kv_source is None else kv_source
+        k = _split_heads(src @ params["wk"].to(dtype), kh, hd)
+        v = _split_heads(src @ params["wv"].to(dtype), kh, hd)
+    cross = kv_source is not None or precomputed_kv is not None
+    if config.pos_embedding == "rope" and not cross:
+        q = apply_rope(q, positions, config.rope_theta)
+        k = apply_rope(k, positions, config.rope_theta)
 
     def rep(t: torch.Tensor) -> torch.Tensor:
         # repeat KV to the full H heads (the reference's 4-D layout)
         return torch.repeat_interleave(t, g, dim=2) if g > 1 else t
 
     new_cache = None
-    if cache is None:
+    if cross:
+        # every encoder position is visible
+        kpos = torch.arange(k.shape[1], device=x.device).expand(B, -1)
+        out = attention_core(q, rep(k), rep(v), positions, kpos, config,
+                             causal=False)
+        new_cache = {"k": k, "v": v}
+    elif cache is None:
         out = attention_core(q, rep(k), rep(v), positions, positions, config,
                              causal=causal, window=window)
     elif S > 1:

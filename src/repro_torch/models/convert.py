@@ -1,15 +1,19 @@
 """The reference's parameters as the port's: how the tests give both
 packages the same weights.
 
-``repro.models.transformer.init`` stacks each layer leaf along a leading
-(L, ...) axis for ``jax.lax.scan``; the port keeps a list of per-layer
-dicts. ``repro.models.rglru.init`` already keeps per-layer dicts, keyed
-``layer_NN``, and so does the port. The caller passes the reference's tree with its leaves as numpy
-arrays (``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves
-arrive as ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so
-every leaf keeps its dtype and value. The walk follows whatever keys the
-tree has, so a tied tree (no ``lm_head``), a LayerNorm's ``bias``, an
-ungated MLP (no ``w_gate``) and an MoE block arrive as they are: the
+``repro.models.transformer.init`` and ``repro.models.rwkv6.init`` stack
+each layer leaf along a leading (L, ...) axis for ``jax.lax.scan``, and
+``repro.models.whisper.init`` stacks its ``encoder`` on
+``encoder_layers`` and its ``decoder`` on ``num_layers``; the port keeps
+lists of per-layer dicts. ``repro.models.rglru.init`` already keeps
+per-layer dicts, keyed ``layer_NN``, and so does the port. The caller
+passes the reference's tree with its leaves as numpy arrays
+(``jax.tree_util.tree_map(np.asarray, params)``); bf16 leaves arrive as
+ml_dtypes' ``bfloat16`` and are reinterpreted bit for bit, so every leaf
+keeps its dtype and value (rwkv6's fp32 ``w0`` and ``u`` in a bf16
+model). The walk follows whatever keys the tree has, so a tied tree (no
+``lm_head``), learned positions (``embed.pos``), a LayerNorm's ``bias``,
+an ungated MLP (no ``w_gate``) and an MoE block arrive as they are: the
 reference stacks the router on L as (L, D, E) in fp32 and the experts as
 (L, E, D, F) and (L, E, F, D), and each layer takes its slice.
 """
@@ -40,18 +44,9 @@ def _tree(node: Any, fn) -> Any:
     return fn(node)
 
 
-def params_from_jax(tree: dict, config: ModelConfig,
-                    device: str | torch.device = "cpu") -> dict:
-    """The reference's parameters (numpy leaves) as the port's, on
-    ``device``: a transformer's, dense or MoE, with its layer leaves
-    stacked on a leading L axis, become a list of per-layer dicts; the
-    hybrid family's per-layer dicts (``layer_NN``) stay as they are, each
-    leaf in its dtype (RG-LRU's ``lam``, ``ba`` and ``bx`` in fp32)."""
-    if config.family == "hybrid":
-        return _tree(tree, lambda a: tensor_from_numpy(np.asarray(a),
-                                                       device))
-    n = config.num_layers
-
+def _unstack(tree: dict, n: int, device: str | torch.device) -> list[dict]:
+    """A tree whose leaves are stacked on a leading axis of ``n`` layers as
+    ``n`` per-layer trees."""
     def layer(i: int) -> dict:
         def leaf(a: np.ndarray) -> torch.Tensor:
             a = np.asarray(a)
@@ -59,11 +54,25 @@ def params_from_jax(tree: dict, config: ModelConfig,
                 raise ValueError(f"layer leaf of shape {a.shape} is not "
                                  f"stacked over {n} layers")
             return tensor_from_numpy(a[i], device)
-        return _tree(tree["layers"], leaf)
+        return _tree(tree, leaf)
+    return [layer(i) for i in range(n)]
 
+
+def params_from_jax(tree: dict, config: ModelConfig,
+                    device: str | torch.device = "cpu") -> dict:
+    """The reference's parameters (numpy leaves) as the port's, on
+    ``device``: the stacked layer trees (a transformer's or rwkv6's
+    ``layers``, whisper's ``encoder`` and ``decoder``) become lists of
+    per-layer dicts; the hybrid family's per-layer dicts (``layer_NN``)
+    stay as they are; every other leaf is copied whole, each in its
+    dtype."""
     def whole(a: np.ndarray) -> torch.Tensor:
         return tensor_from_numpy(np.asarray(a), device)
 
-    return {"embed": _tree(tree["embed"], whole),
-            "layers": [layer(i) for i in range(n)],
-            "final_norm": _tree(tree["final_norm"], whole)}
+    if config.family == "hybrid":
+        return _tree(tree, whole)
+    stacked = ({"encoder": config.encoder_layers,
+                "decoder": config.num_layers} if config.family == "audio"
+               else {"layers": config.num_layers})
+    return {key: _unstack(node, stacked[key], device) if key in stacked
+            else _tree(node, whole) for key, node in tree.items()}

@@ -1,5 +1,5 @@
-"""Shared model layers: norms, activations, MLPs, embeddings, RoPE,
-initialisers.
+"""Shared model layers: norms, activations, MLPs, embeddings (token and
+learned position tables), RoPE, initialisers.
 
 The counterpart of ``repro/models/layers.py``, in the same pure-function
 style: parameters are plain dicts of tensors and every layer is a function
@@ -114,9 +114,14 @@ def mlp(x: torch.Tensor, params: dict, config: ModelConfig) -> torch.Tensor:
 # -- embeddings ----------------------------------------------------------------
 def init_embedding(gen: torch.Generator, config: ModelConfig,
                    dtype: torch.dtype) -> dict:
-    """The token table, and the head unless the embeddings are tied."""
+    """The token table; with learned positions the position table ``pos``
+    of ``max_position`` rows (8,192 when 0) at std 0.02; the head unless
+    the embeddings are tied."""
     d, V = config.d_model, config.vocab_size
     params = {"tok": normal_init(gen, (V, d), 1.0 / math.sqrt(d), dtype)}
+    if config.pos_embedding == "learned":
+        params["pos"] = normal_init(gen, (config.max_position or 8192, d),
+                                    0.02, dtype)
     if not config.tie_embeddings:
         params["lm_head"] = normal_init(gen, (d, V), 1.0 / math.sqrt(d),
                                         dtype)

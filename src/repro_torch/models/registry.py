@@ -1,8 +1,10 @@
 """Model registry: family -> module implementing the serve API.
 
 The counterpart of ``repro/models/registry.py``, with the dense and MoE
-families, both served by the transformer, and the hybrid family
-(recurrentgemma), served by ``rglru``. API of a family module:
+families, both served by the transformer, the hybrid family
+(recurrentgemma), served by ``rglru``, the audio family (whisper), served
+by ``whisper``, and the ssm family (rwkv6), served by ``rwkv6``. API of a
+family module:
     init(gen, config) -> params
     prefill(params, batch, config, max_len) -> (last_logits, cache)
     decode_step(params, tokens, cache, config) -> (logits, cache)
@@ -13,14 +15,15 @@ from __future__ import annotations
 from types import ModuleType
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rglru, transformer
+from repro_torch.models import rglru, rwkv6, transformer, whisper
 
 _FAMILIES: dict[str, ModuleType] = {"dense": transformer,
                                      "moe": transformer,
-                                     "hybrid": rglru}
-# the reference's other families, each with the ROADMAP Queue 1 item it
-# waits for
-_WAITING = {"audio": 4, "ssm": 5, "vlm": 6}
+                                     "hybrid": rglru,
+                                     "audio": whisper,
+                                     "ssm": rwkv6}
+# the reference's other family, with the ROADMAP Queue 1 item it waits for
+_WAITING = {"vlm": 6}
 
 
 def get_model(config: ModelConfig) -> ModuleType:

@@ -273,18 +273,16 @@ def test_torch_full_widths_one_layer():
 
 # -- what waits ----------------------------------------------------------------------
 def test_torch_unported_arch_names_its_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 5;"):
-        get_config("rwkv6-7b")
+    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6;"):
+        get_config("llava-next-34b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"family": "ssm"}, 5),
+    ({"family": "vlm"}, 6),
     ({"attention_impl": "blocked"}, 7),
     ({"attention_impl": "triangular"}, 7),
-    ({"family": "audio"}, 4),
-    ({"is_encoder_decoder": True}, 4),
 ])
 def test_torch_unported_paths_are_refused(change, item):
     """A config asking for a family, schedule or attention branch the port
