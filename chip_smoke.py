@@ -217,6 +217,43 @@ Phases, each fatal on failure:
      GEMMs and the rest, with its idle share; the fp32 serve invariant (B
      2, a 256-token prompt, 8 tokens) on fp32 parameters; peak device
      memory.
+ 25. llava-next-34b at full width and full depth (60 layers, 7,168 wide,
+     56/8 heads of hd 128, d_ff 20,480, vocabulary 64,000; 34,388,917,248
+     parameters) drawn from the seed in bf16 on a card the earlier phases
+     left empty (the memory allocated before the draw printed): the first
+     served batch's requests (4 prompts of 1,024 tokens, each behind its
+     576 fp32 image embeddings) prefilled with the kernel (one wgmma
+     launch a layer at hd 128), timed; at B 1 over the same 1,600
+     positions the kernel's last-token logits within
+     MAX_PREFILL_LOGIT_DIFF of the naive attention's; the serve stream
+     through ``run_serve`` (8 requests in batches of 4, 16 tokens out,
+     every request with its image embeddings; every flash launch on the
+     wgmma kernel) with tokens/s, prefill and decode-step times, the time
+     to first token and the peak device memory, the first batch equal to
+     the model's own loop behind the same images; the fp32 serve invariant
+     at a stated cut of 8 layers (5,380,365,312 parameters, 21.52 GB; the
+     full depth in fp32 would need 137.6 GB), B 2, 576 + 256 positions, 8
+     tokens, 72 launches on the tf32x3 kernel at hd 128.
+ 26. training: (a) each family's train step (internlm2-1.8b,
+     granite-moe-3b-a800m at capacity factor E/k, rwkv6-7b,
+     recurrentgemma-2b, whisper-medium, llava-next-34b) at reduced() in
+     fp32 on the card against the same step on the CPU, same weights and
+     batches: the step-1 gradients within 1e-4 of each leaf's largest
+     magnitude, 5 losses within 1e-5 relative; (b) internlm2-1.8b at full
+     width (1,889,110,016 parameters in bf16, fp32 master, m and v, remat
+     full): the step-1 gradients finite and non-zero on every leaf; (b1)
+     12 steps of ``build_train_step`` overfitting one batch of 4 x 1,024
+     tokens (lr 1e-3, warmup 2, total 40: tests/test_training.py's
+     settings), the loss falling by 0.3 or more, every loss and gradient
+     norm finite, no flash launch; a profiled step split into the naive
+     attention, the AdamW update, the other GEMMs and the rest, with its
+     idle share; (b2) ``run_train`` on the stream (batch 4, 1,024 tokens,
+     8 steps) with its step times, tokens/s, ``realtime_report`` and peak
+     memory; (c) in a child process under deterministic algorithms
+     (``CUBLAS_WORKSPACE_CONFIG`` set), tests/test_training.py's bit-exact
+     resume at reduced(): 10 steps straight against 5, a save, a restore
+     and 5 more; (d) ``python -m repro_torch.launch.train --reduced`` with
+     a checkpoint directory, then again with ``--resume``.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
@@ -228,7 +265,10 @@ invariant as ``launches_fp32_invariant``, and the wgmma row at hd 128
 ``launches_dense_configs``, minitron-8b's and starcoder2-3b's served
 batches; the flash rows at hd 64 carry phase 20's, its serve stream as
 ``launches`` and its fp32 invariant as ``launches_fp32_invariant``, and
-phase 23's as ``launches_audio`` and ``launches_audio_fp32_invariant``; every
+phase 23's as ``launches_audio`` and ``launches_audio_fp32_invariant``;
+the flash rows up to hd 128 carry phase 25's serve stream as
+``launches_vlm``, its fp32 invariant as ``launches_vlm_fp32_invariant``,
+and phase 26's training runs as ``launches_train``, 0; every
 flash row carries phase 9's own launches of its instances as
 ``launches_kernel_checks``), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
@@ -1749,19 +1789,24 @@ def model_phase(torch, dev) -> dict:
     return invariant_check(torch, dev, config, rng)
 
 
-def _greedy(torch, params, config, prompts, gen: int, frames=None):
+def _greedy(torch, params, config, prompts, gen: int, frames=None,
+            images=None):
     """Greedy prefill + ``gen - 1`` decode steps of the config's family
-    (over ``frames`` for the audio family): the tokens (B, gen) on the
-    host, and each token's logits (B, V) in fp32."""
+    (over ``frames`` for the audio family, behind ``images`` for the vlm
+    family, whose cache then holds the prefix too): the tokens (B, gen) on
+    the host, and each token's logits (B, V) in fp32."""
     from repro_torch.models.registry import get_model
 
     model = get_model(config)
     batch = {"tokens": prompts}
+    max_len = prompts.shape[1] + gen
     if frames is not None:
         batch["frames"] = frames
+    if images is not None:
+        batch["image_embeds"] = images
+        max_len += images.shape[1]
     with torch.inference_mode():
-        logits, cache = model.prefill(
-            params, batch, config, max_len=prompts.shape[1] + gen)
+        logits, cache = model.prefill(params, batch, config, max_len=max_len)
         steps = [logits[:, -1].float()]
         for _ in range(gen - 1):
             tok = steps[-1].argmax(-1, keepdim=True)
@@ -1771,12 +1816,13 @@ def _greedy(torch, params, config, prompts, gen: int, frames=None):
 
 
 def serve_phase(torch, dev, argv=SERVE_ARGS, params=None,
-                results: dict | None = None) -> dict:
+                results: dict | None = None,
+                served: dict | None = None) -> dict:
     """The serve stream at full width through ``run_serve`` on ``argv``,
     on ``params`` when given (else drawn from the seed); returns its flash
     launches by instance, every one of them on the wgmma kernel at the
     config's head dim. ``results``, when given, receives the served tokens
-    by request id."""
+    by request id, and ``served`` what ``run_serve`` returned."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.serve import parse_args, run_serve
@@ -1804,6 +1850,8 @@ def serve_phase(torch, dev, argv=SERVE_ARGS, params=None,
         raise AssertionError(f"other kernels launched: {counts}")
     if results is not None:
         results.update(res["results"])
+    if served is not None:
+        served.update(res)
     results = res["results"]
     vocab = res["config"].vocab_size
     if sorted(results) != list(range(args.requests)) or any(
@@ -2122,7 +2170,9 @@ def _labelled(parts: dict):
 
     saved = []
     for label, (mod, name) in parts.items():
-        module = importlib.import_module(f"repro_torch.models.{mod}")
+        if not mod.startswith("repro_torch."):
+            mod = f"repro_torch.models.{mod}"
+        module = importlib.import_module(mod)
         fn = getattr(module, name)
 
         def wrapped(*args, _fn=fn, _label=label, **kw):
@@ -3515,6 +3565,621 @@ def recovery_phase(torch, dev, smi: str) -> dict:
     return counts
 
 
+# phase 25: llava-next-34b, served at full width and full depth; its fp32
+# invariant at a stated layer cut (the full depth in fp32 would need 137.6
+# GB)
+VLM_ARCH = "llava-next-34b"
+VLM_PARAMS = 34_388_917_248     # the reference's init, by jax.eval_shape
+VLM_PROMPT, VLM_GEN = 1024, 16
+VLM_SERVE_ARGS = ["--arch", VLM_ARCH, "--requests", "8", "--batch", "4",
+                  "--prompt-len", str(VLM_PROMPT), "--gen", str(VLM_GEN),
+                  "--seed", str(SEED)]
+VLM_INVARIANT_LAYERS = 8
+VLM_INVARIANT_PARAMS = 5_380_365_312    # 8 layers at full width
+VLM_INVARIANT_B, VLM_INVARIANT_PROMPT, VLM_INVARIANT_STEPS = 2, 256, 8
+
+
+def _vlm_requests(torch, dev, config, rng, n: int, prompt_len: int):
+    """``n`` requests drawn from ``rng`` as ``run_serve`` draws them (each
+    prompt, then its image embeddings): tokens (n, S) and fp32 image
+    embeddings (n, num_image_tokens, d_model) on the card."""
+    import numpy as np
+
+    prompts, images = [], []
+    for _ in range(n):
+        prompts.append(rng.integers(0, config.vocab_size, (prompt_len,),
+                                    dtype=np.int32))
+        images.append(rng.standard_normal(
+            (config.num_image_tokens, config.d_model)).astype(np.float32))
+    return (torch.from_numpy(np.stack(prompts).astype(np.int64)).to(dev),
+            torch.from_numpy(np.stack(images)).to(dev))
+
+
+def vlm_prefill_check(torch, dev, config, params, tokens, images) -> None:
+    """The bf16 prefill of ``tokens`` behind ``images`` (the first served
+    batch's requests) with the kernel: every launch on the wgmma kernel at
+    hd 128, one a layer, timed; then at B 1 over the whole sequence, the
+    kernel's last-token logits against the naive attention's, within
+    MAX_PREFILL_LOGIT_DIFF (at B 4 the naive scores, (4, 56, S, S) fp32,
+    would not fit beside the weights several times over)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+
+    batch = {"tokens": tokens, "image_embeds": images}
+    S = tokens.shape[1] + images.shape[1]
+    naive = config.replace(attention_impl="naive")
+    one = {"tokens": tokens[:1], "image_embeds": images[:1]}
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        lk, _ = transformer.prefill(params, batch, config)
+        by_instance = _launched(fk.flash_attention.launches_by_instance)
+        ms_k = _time_ms(torch, lambda: transformer.prefill(
+            params, batch, config), reps=2, warmup=0)
+        l1k, _ = transformer.prefill(params, one, config)
+        l1n, _ = transformer.prefill(params, one, naive)
+        ms_1k = _time_ms(torch, lambda: transformer.prefill(
+            params, one, config), reps=2, warmup=0)
+        ms_1n = _time_ms(torch, lambda: transformer.prefill(
+            params, one, naive), reps=2, warmup=0)
+    if not (torch.isfinite(lk).all() and torch.isfinite(l1k).all()
+            and torch.isfinite(l1n).all()):
+        raise AssertionError("non-finite prefill logits")
+    if lk.shape != (tokens.shape[0], 1, config.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    diff = _max_err(torch, l1k.float(), l1n.float())
+    print(f"  bf16 prefill of {tokens.shape[0]} x {S} positions "
+          f"({images.shape[1]} image + {tokens.shape[1]} text) with the "
+          f"kernel: {ms_k:.2f} ms, launches {by_instance}; at B 1: kernel "
+          f"{ms_1k:.2f} ms, naive {ms_1n:.2f} ms, last-token logits "
+          f"max|diff| {diff:.4g} (limit {MAX_PREFILL_LOGIT_DIFF}; max|logit| "
+          f"{float(l1n.float().abs().max()):.3g}), greedy token equal "
+          f"{bool((l1k.argmax(-1) == l1n.argmax(-1)).all())}", flush=True)
+    want = {("wgmma", config.resolved_head_dim): config.num_layers}
+    if by_instance != want:
+        raise AssertionError(f"flash launches {by_instance} in a bf16 "
+                             f"prefill of {config.num_layers} layers, "
+                             f"expected {want}")
+    if not diff <= MAX_PREFILL_LOGIT_DIFF:
+        raise AssertionError(f"kernel and naive prefill logits differ by "
+                             f"{diff} > {MAX_PREFILL_LOGIT_DIFF}")
+
+
+def vlm_invariant(torch, dev, config) -> dict:
+    """The serve invariant in full fp32 at full width, cut to
+    VLM_INVARIANT_LAYERS layers (the full depth in fp32 would need 137.6
+    GB): greedy prefill of VLM_INVARIANT_PROMPT tokens behind a request's
+    image embeddings and decode steps equal the argmax of teacher-forced
+    prefills behind the same images, VLM_INVARIANT_STEPS tokens, every
+    prefill's attention on the tf32x3 kernel at hd 128; on fp32 parameters
+    drawn here and released before it returns. Returns the flash launches
+    by instance."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    config = config.replace(num_layers=VLM_INVARIANT_LAYERS, dtype="float32",
+                            param_dtype="float32")
+    params = _draw(torch, dev, config)
+    if _param_count(params) != VLM_INVARIANT_PARAMS:
+        raise AssertionError(f"{_param_count(params)} parameters at "
+                             f"{VLM_INVARIANT_LAYERS} layers, expected "
+                             f"{VLM_INVARIANT_PARAMS}")
+    B, S, G = VLM_INVARIANT_B, VLM_INVARIANT_PROMPT, VLM_INVARIANT_STEPS
+    tokens, images = _vlm_requests(torch, dev, config,
+                                   np.random.default_rng(SEED + 3), B, S)
+    n_img = images.shape[1]
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(
+            params, {"tokens": tokens, "image_embeds": images}, config,
+            max_len=n_img + S + G)
+        steps = [logits[:, -1]]
+        for _ in range(G - 1):
+            logits, cache = transformer.decode_step(
+                params, steps[-1].argmax(-1)[:, None], cache, config)
+            steps.append(logits[:, -1])
+        serve = [step.argmax(-1) for step in steps]
+        full, worst = tokens, 0.0
+        for g in range(G):
+            forced, _ = transformer.prefill(
+                params, {"tokens": full, "image_embeds": images}, config,
+                max_len=n_img + full.shape[1] + 1)
+            worst = max(worst, _max_err(torch, forced[:, -1], steps[g]))
+            nxt = forced[:, -1].argmax(-1)
+            if not torch.equal(nxt, serve[g]):
+                raise AssertionError(f"fp32 serve invariant broken at step "
+                                     f"{g}: {nxt.tolist()} != "
+                                     f"{serve[g].tolist()}")
+            full = torch.cat([full, nxt[:, None]], dim=1)
+    by_instance = dict(fk.flash_attention.launches_by_instance)
+    want = {("tf32x3", config.resolved_head_dim): (1 + G) * config.num_layers}
+    print(f"  fp32 serve invariant at full width, {config.num_layers} layers "
+          f"({_param_count(params):,} parameters; B {B}, {n_img} image + {S} "
+          f"text positions, {G} tokens, launches {_launched(by_instance)}): "
+          f"greedy prefill + decode == teacher-forced prefills, tokens "
+          f"{torch.stack(serve, 1).tolist()}; reported: max |logit| "
+          f"difference, each step against its teacher-forced prefill, "
+          f"{worst:.3g}; in {time.perf_counter() - t0:.2f} s", flush=True)
+    if _launched(by_instance) != want:
+        raise AssertionError(f"flash launches {_launched(by_instance)} in "
+                             f"{1 + G} fp32 prefills, expected {want}")
+    del params, cache, logits, forced
+    torch.cuda.empty_cache()
+    return by_instance
+
+
+def vlm_phase(torch, dev, smi: str) -> dict:
+    """Phase 25: llava-next-34b at full width and full depth (60 layers,
+    d_model 7,168, 56/8 heads of hd 128, d_ff 20,480, vocabulary 64,000,
+    576 image embeddings a request), drawn from the seed in bf16 on a card
+    that earlier phases left empty: the prefill check on the first served
+    batch's requests (``vlm_prefill_check``), the serve stream through
+    ``run_serve`` (VLM_SERVE_ARGS, every request with its image
+    embeddings; every flash launch on the wgmma kernel at hd 128, one a
+    layer a batch), the first batch's tokens against the model's own loop,
+    then the fp32 serve invariant at VLM_INVARIANT_LAYERS layers on fp32
+    parameters drawn after the bf16 ones left. Returns the flash launches
+    by instance of the serve stream ("served") and of the invariant
+    ("invariant")."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.apps.tomo.solver import clear_system_cache
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import parse_args
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    clear_system_cache()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"  before the draw: {torch.cuda.memory_allocated(dev) / 1e9:.3f} "
+          f"GB allocated by this process, {free / 1e9:.2f} GB free of "
+          f"{total / 1e9:.2f} GB", flush=True)
+    config = get_config(VLM_ARCH)
+    params = _draw(torch, dev, config)
+    if _param_count(params) != VLM_PARAMS:
+        raise AssertionError(f"{_param_count(params)} parameters, the "
+                             f"reference's init has {VLM_PARAMS}")
+    args = parse_args(VLM_SERVE_ARGS)
+    tokens, images = _vlm_requests(torch, dev, config,
+                                   np.random.default_rng(args.seed),
+                                   args.batch, args.prompt_len)
+    vlm_prefill_check(torch, dev, config, params, tokens, images)
+    results, res = {}, {}
+    served = serve_phase(torch, dev, VLM_SERVE_ARGS, params=params,
+                         results=results, served=res)
+    gen = args.gen
+    print(f"  {VLM_ARCH}: a decode step (ms) by batch "
+          f"{[round(1e3 * x / (gen - 1), 2) for x in res['decode_s']]}, "
+          f"time to first token (s) {[round(x, 4) for x in res['ttft_s']]},"
+          f" {res['tokens_per_s']:.1f} tokens/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    # run_serve's first batch holds the prefill check's requests
+    direct, _ = _greedy(torch, params, config, tokens, gen, images=images)
+    served0 = torch.tensor([results[i] for i in range(args.batch)])
+    print(f"  batch 0's tokens against the model's own prefill/decode_step "
+          f"loop behind the same images: "
+          f"{int((direct == served0).all(1).sum())}/{args.batch} requests "
+          f"equal", flush=True)
+    if not torch.equal(direct, served0):
+        raise AssertionError(f"served {served0.tolist()} != the direct loop "
+                             f"{direct.tolist()}")
+    peak_bf16 = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    invariant = vlm_invariant(torch, dev, config)
+    print(f"  {VLM_ARCH} at full width and depth OK: flash launches served "
+          f"{_launched(served)}, in the fp32 invariant {_launched(invariant)};"
+          f" peak device memory {peak_bf16:.2f} GB in bf16; "
+          f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
+    return {"served": served, "invariant": invariant}
+
+
+# phase 26: training. (a) each family's train step at reduced() in fp32,
+# card against CPU; (b) internlm2-1.8b at full width; (c) bit-exact resume
+# in a child process (deterministic cuBLAS needs its workspace set before
+# its first call); (d) the CLI with --resume
+TRAIN_FAMILIES = ("internlm2-1.8b", "granite-moe-3b-a800m", "rwkv6-7b",
+                  "recurrentgemma-2b", "whisper-medium", "llava-next-34b")
+TRAIN_PARITY_B, TRAIN_PARITY_S, TRAIN_PARITY_STEPS = 2, 32, 5
+TRAIN_GRAD_TOL = 1e-4           # of each leaf's largest magnitude
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_PARAMS = 1_889_110_016
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 12
+TRAIN_MIN_DROP = 0.3            # tests/test_training.py:32
+TRAIN_STREAM_ARGS = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "1024",
+                     "--steps", "8", "--seed", str(SEED)]
+TRAIN_PARTS = {"naive attention": ("attention", "naive_attention"),
+               "AdamW update": ("repro_torch.training", "adamw_update")}
+# the backward nodes of the naive attention's own operations (the dense
+# model's only batched products, its softmax and its mask)
+ATTENTION_BACKWARD = ("BmmBackward0", "SoftmaxBackward0",
+                      "MaskedFillBackward0")
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "4", "--batch",
+             "2", "--seq", "32", "--ckpt-every", "2"]
+
+
+def _opt_config(**kw):
+    from repro_torch.configs.base import OptimizerConfig
+
+    return OptimizerConfig(**{**dict(lr=1e-3, warmup_steps=2, total_steps=40,
+                                     zero1=False), **kw})
+
+
+def _train_batch(torch, config, rng, b: int, s: int, dev) -> dict:
+    """Tokens and the family's fp32 stub embeddings drawn from ``rng``."""
+    import numpy as np
+
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, config.vocab_size, (b, s)).astype(np.int64)).to(dev)}
+    if config.family == "vlm":
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, config.num_image_tokens, config.d_model)).astype(
+                np.float32)).to(dev)
+    if config.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (b, config.encoder_seq, config.d_model)).astype(
+                np.float32)).to(dev)
+    return batch
+
+
+def train_parity(torch, dev) -> None:
+    """(a) Each family's train step at reduced() in fp32 on the card
+    against the same step on the CPU, from the same weights over the same
+    batches: the step-1 gradients within TRAIN_GRAD_TOL of each leaf's
+    largest magnitude, the losses of TRAIN_PARITY_STEPS steps within
+    TRAIN_LOSS_RTOL relative. granite-moe runs at capacity factor E/k, so
+    that no slot drops (which slots drop depends on routing decisions that
+    round-off can flip)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim import init_opt_state
+    from repro_torch.training import build_train_step, loss_and_grads
+    from repro_torch.utils import tree_leaves, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 products would run in TF32")
+    opt = _opt_config()
+    for arch in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        config = get_config(arch, reduced=True).replace(
+            dtype="float32", param_dtype="float32", attention_impl="naive")
+        if config.num_experts:
+            config = config.replace(capacity_factor=config.num_experts
+                                    / config.experts_per_token)
+        params = get_model(config).init(
+            torch.Generator().manual_seed(SEED), config)
+        rng = np.random.default_rng(SEED)
+        batches = [_train_batch(torch, config, rng, TRAIN_PARITY_B,
+                                TRAIN_PARITY_S, "cpu")
+                   for _ in range(TRAIN_PARITY_STEPS)]
+
+        def to(tree, d):
+            return tree_map(lambda t: t.to(d, copy=True), tree)
+
+        _, _, g_cpu = loss_and_grads(params, batches[0], config)
+        _, _, g_dev = loss_and_grads(to(params, dev), to(batches[0], dev),
+                                     config)
+        worst = 0.0
+        for a, b in zip(tree_leaves(g_cpu), tree_leaves(g_dev)):
+            scale = float(a.abs().max())
+            err = float((b.cpu() - a).abs().max())
+            if not np.isfinite(err):
+                raise AssertionError(f"{arch}: non-finite gradient")
+            worst = max(worst, err / scale if scale else err)
+        losses = {}
+        for d in ("cpu", dev):
+            state = {"params": to(params, d)}
+            state["opt"] = init_opt_state(state["params"], opt)
+            step = build_train_step(config, opt)
+            losses[d] = [float(step(state, to(b, d))[1]["loss"])
+                         for b in batches]
+        rel = max(abs(x - y) / abs(x)
+                  for x, y in zip(losses["cpu"], losses[dev]))
+        print(f"  (a) {arch} reduced(), fp32: step-1 gradients card "
+              f"against CPU, worst leaf {worst:.3g} of its largest magnitude"
+              f" (limit {TRAIN_GRAD_TOL}); {TRAIN_PARITY_STEPS} losses card "
+              f"{[round(x, 6) for x in losses[dev]]}, largest relative "
+              f"difference from the CPU's {rel:.3g} (limit "
+              f"{TRAIN_LOSS_RTOL}); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if not worst <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"{arch}: gradients differ by {worst} of a "
+                                 f"leaf's largest magnitude")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{arch}: losses {losses[dev]} against the "
+                                 f"CPU's {losses['cpu']}")
+
+
+def _train_part(names: list[str]) -> str | None:
+    """The part of the step a kernel belongs to, from the names of the
+    operation that launched it and its callers, innermost first: the
+    nearest label decides, and the nearest backward node, if it comes
+    first, gives its own work (the naive attention's batched products,
+    softmax and mask) to the attention and the rest to no part, so that a
+    block recomputed in a backward node is not charged to that node."""
+    for name in names:
+        if name in TRAIN_PARTS:
+            return name
+        if name.startswith("autograd::engine::evaluate_function"):
+            node = name.rsplit(": ", 1)[-1]
+            return "naive attention" if node in ATTENTION_BACKWARD else None
+    return None
+
+
+def _train_split(torch, prof) -> tuple[float, dict]:
+    """A profiled step's device time in ms, and its kernels' time by part:
+    the naive attention (its forward, recomputed or not, and its own
+    backward nodes), the AdamW update, the GEMMs elsewhere, the rest."""
+    cpu = torch.autograd.DeviceType.CPU
+    part = {"naive attention": 0.0, "AdamW update": 0.0, "GEMMs": 0.0,
+            "the rest": 0.0}
+    for ev in prof.events():
+        if ev.device_type != cpu or not ev.kernels:
+            continue
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        label = _train_part(names)
+        for k in ev.kernels:
+            ms = k.duration / 1e3
+            if label is not None:
+                part[label] += ms
+            elif any(m in k.name.lower() for m in GEMM_MARKERS):
+                part["GEMMs"] += ms
+            else:
+                part["the rest"] += ms
+    return sum(part.values()), part
+
+
+def train_full_width(torch, dev) -> dict:
+    """(b) internlm2-1.8b at full width (24 layers, 2,048 wide; bf16
+    parameters, fp32 master, m and v; remat full) from the seed: the
+    step-1 gradients finite and non-zero on every leaf; (b1) TRAIN_STEPS
+    steps of ``build_train_step`` overfitting one batch of TRAIN_B x
+    TRAIN_S tokens with tests/test_training.py's optimizer settings, the
+    loss falling by TRAIN_MIN_DROP, every loss and gradient norm finite,
+    no flash launch; a profiled step split by ``_train_split`` with its
+    idle share; (b2) ``run_train`` on the stream (TRAIN_STREAM_ARGS) with
+    its step times, tokens/s and ``realtime_report``; the peak device
+    memory of each. Returns the flash launches by instance of (b1) and
+    (b2)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.train import parse_args, run_train
+    from repro_torch.training import (build_train_step, init_state,
+                                      loss_and_grads)
+    from repro_torch.utils import tree_leaves
+
+    config = get_config(TRAIN_ARCH)
+    opt = _opt_config()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED),
+                       config, opt)
+    n = _param_count(state["params"])
+    print(f"  (b) {TRAIN_ARCH}: {n:,} parameters in {config.param_dtype}, "
+          f"fp32 master, m and v, remat {config.remat!r}; state drawn in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card",
+          flush=True)
+    if n != TRAIN_PARAMS:
+        raise AssertionError(f"{n} parameters, expected {TRAIN_PARAMS}")
+    batch = _train_batch(torch, config, np.random.default_rng(SEED + 5),
+                         TRAIN_B, TRAIN_S, dev)
+    kernels.reset_launch_counts()
+    _, _, grads = loss_and_grads(state["params"], batch,
+                                 config.replace(attention_impl="naive"))
+    flat = tree_leaves(grads)
+    zero = sum(1 for g in flat if not float(g.float().abs().max()) > 0)
+    finite = all(bool(torch.isfinite(g).all()) for g in flat)
+    print(f"      step-1 gradients: {len(flat)} leaves, {zero} all zero, "
+          f"finite {finite}", flush=True)
+    if zero or not finite:
+        raise AssertionError(f"{zero} leaves without a gradient, finite "
+                             f"{finite}")
+    del grads, flat
+    step = build_train_step(config, opt)
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    overfit = dict(fk.flash_attention.launches_by_instance)
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  (b1) {TRAIN_STEPS} steps on one batch of {TRAIN_B} x "
+          f"{TRAIN_S} (lr {opt.lr}, warmup {opt.warmup_steps}, total "
+          f"{opt.total_steps}): losses {[round(x, 4) for x in losses]}, "
+          f"grad norms {[round(x, 3) for x in gnorms]}; step times (s) "
+          f"{[round(x, 4) for x in times]}, from the second "
+          f"{tokens * (len(times) - 1) / sum(times[1:]):.0f} tokens/s; "
+          f"flash launches {_launched(overfit)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"non-finite losses {losses} or gradient norms "
+                             f"{gnorms}")
+    if not losses[-1] < losses[0] - TRAIN_MIN_DROP:
+        raise AssertionError(f"the loss fell from {losses[0]} to "
+                             f"{losses[-1]}, not by {TRAIN_MIN_DROP}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"kernels launched in training: "
+                             f"{kernels.launch_counts()}")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with _labelled(TRAIN_PARTS), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, part = _train_split(torch, prof)
+    if busy == 0:
+        print("      the profiled step's trace came back empty; its device "
+              "time not measured", flush=True)
+    else:
+        print(f"      a profiled step: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in part.items()),
+              flush=True)
+    del state, m, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    res = run_train(parse_args(TRAIN_STREAM_ARGS), device=dev)
+    streamed = dict(fk.flash_attention.launches_by_instance)
+    print(f"  (b2) run_train {' '.join(TRAIN_STREAM_ARGS)}: {res['steps']} "
+          f"steps, losses {[round(x, 4) for x in res['losses']]}; step "
+          f"times (s) {[round(x, 4) for x in res['step_s']]}; "
+          f"{res['tokens']} tokens in {res['stream_s']:.3f} s: "
+          f"{res['tokens_per_s']:.0f} tokens/s; realtime report "
+          f"{res['report']}; launches {res['launches']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB", flush=True)
+    if res["steps"] != 8 or not np.isfinite(res["losses"]).all():
+        raise AssertionError(f"run_train: {res['steps']} steps, losses "
+                             f"{res['losses']}")
+    if any(res["launches"].values()):
+        raise AssertionError(f"kernels launched: {res['launches']}")
+    del res
+    torch.cuda.empty_cache()
+    return {i: overfit.get(i, 0) + streamed.get(i, 0) for i in overfit}
+
+
+def resume_child() -> int:
+    """(c), in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``: tests/test_training.py's bit-exact resume
+    on the card at reduced() under ``torch.use_deterministic_algorithms``:
+    10 steps straight against 5, a save, a restore and 5 more; every
+    parameter bit-equal. Returns the exit code."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.training import build_train_step, init_state
+    from repro_torch.utils import tree_leaves
+
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    config = get_config(TRAIN_ARCH, reduced=True)
+    opt = _opt_config(total_steps=20)
+    step = build_train_step(config, opt)
+    rng = np.random.default_rng(SEED)
+    batches = [_train_batch(torch, config, rng, 4, 48, dev)
+               for _ in range(10)]
+
+    def fresh():
+        return init_state(torch.Generator(device=dev).manual_seed(SEED),
+                          config, opt)
+
+    state_a = fresh()
+    for b in batches:
+        state_a, _ = step(state_a, b)
+    state_b = fresh()
+    for b in batches[:5]:
+        state_b, _ = step(state_b, b)
+    OUT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        save(d, 5, state_b)
+        restored, at = restore(d, state_b, device=dev)
+    for b in batches[5:]:
+        restored, _ = step(restored, b)
+    pairs = list(zip(tree_leaves(state_a["params"]),
+                     tree_leaves(restored["params"])))
+    equal = sum(1 for a, b in pairs if torch.equal(a, b))
+    print(f"  (c) bit-exact resume at reduced() under deterministic "
+          f"algorithms: restored at step {at}, after 10 steps {equal} of "
+          f"{len(pairs)} parameter leaves bit-equal to the uninterrupted "
+          f"run's", flush=True)
+    return 0 if equal == len(pairs) and at == 5 else 1
+
+
+def _child_env() -> dict:
+    src = str(SRC)
+    old = os.environ.get("PYTHONPATH")
+    return {**os.environ, "PYTHONPATH": src + (os.pathsep + old if old
+                                               else ""),
+            "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+
+
+def train_processes(torch) -> None:
+    """(c) ``resume_child`` in a child process; (d) the CLI, ``python -m
+    repro_torch.launch.train`` (TRAIN_CLI) with a checkpoint directory,
+    then again with ``--resume``: each exits 0, the second resumes from
+    the first's last checkpoint."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.checkpoint import latest_step
+
+    t0 = time.perf_counter()
+    rc = subprocess.run([sys.executable, "-c",
+                         "import sys, chip_smoke; "
+                         "sys.exit(chip_smoke.resume_child())"],
+                        cwd=ROOT, env=_child_env(), timeout=600).returncode
+    if rc != 0:
+        raise AssertionError(f"bit-exact resume failed (exit {rc})")
+    print(f"      (c) in {time.perf_counter() - t0:.1f} s", flush=True)
+    ckpt = OUT / "train_cli"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    for extra in ([], ["--resume"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             "--ckpt-dir", str(ckpt), *extra], cwd=ROOT, env=_child_env(),
+            capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in (out.stdout + out.stderr).splitlines()
+                 if "step " in ln or "resumed" in ln or "done" in ln]
+        print(f"  (d) python -m repro_torch.launch.train "
+              f"{' '.join(TRAIN_CLI + extra)}: exit {out.returncode}, "
+              f"latest checkpoint {latest_step(str(ckpt))}, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for ln in lines[-4:]:
+            print(f"      {ln}", flush=True)
+        if out.returncode != 0:
+            raise AssertionError(f"the train CLI exited {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        if extra and not any("resumed from step 4" in ln for ln in lines):
+            raise AssertionError("the --resume run did not resume from "
+                                 "step 4")
+        if (latest_step(str(ckpt)) or 0) < 4:
+            raise AssertionError(f"latest checkpoint "
+                                 f"{latest_step(str(ckpt))}")
+
+
+def train_phase(torch, dev, smi: str) -> dict:
+    """Phase 26: training on the card ((a)-(d) above). Returns the flash
+    launches by instance of the full-width runs (none expected)."""
+    t_phase = time.perf_counter()
+    train_parity(torch, dev)
+    launched = train_full_width(torch, dev)
+    train_processes(torch)
+    print(f"  training OK: flash launches {_launched(launched)}; "
+          f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
+    return launched
+
+
 @contextlib.contextmanager
 def _phase(label: str, title: str):
     """Prints a phase's header, and its own wall time when it ends."""
@@ -3691,6 +4356,23 @@ def main() -> int:
     with _phase("24", f"the ssm family: {SSM_ARCH} at full width (the "
                       f"chunked WKV, no kernel):"):
         ssm_phase(torch, dev, smi)
+
+    with _phase("25", f"the vlm family: {VLM_ARCH} at full width and full "
+                      f"depth (576 image embeddings a request, flash at hd "
+                      f"128):"):
+        vlm = vlm_phase(torch, dev, smi)
+        for key in base_rows:
+            flash_rows[key]["launches_vlm"] = _row_launches(vlm["served"],
+                                                            key)
+            flash_rows[key]["launches_vlm_fp32_invariant"] = _row_launches(
+                vlm["invariant"], key)
+
+    with _phase("26", "training: each family's step against the CPU's, "
+                      f"{TRAIN_ARCH} at full width, bit-exact resume, the "
+                      f"CLI:"):
+        trained = train_phase(torch, dev, smi)
+        for key in base_rows:
+            flash_rows[key]["launches_train"] = _row_launches(trained, key)
 
     print(f"all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)

@@ -1,4 +1,4 @@
-"""Architecture registry of the port: the configs it can serve.
+"""Architecture registry of the port: the configs it can serve and train.
 
 The counterpart of ``repro/configs/__init__.py:get_config``, over the
 ported archs only. Every module exports ``CONFIG`` (the published numbers)
@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import DTYPES, ModelConfig
+from repro_torch.configs.base import (DTYPES, SHAPES, SMOKE_SHAPE,
+                                      ModelConfig, OptimizerConfig,
+                                      RunConfig, ShapeConfig,
+                                      applicable_shapes)
 
 ARCHS: dict[str, str] = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
@@ -20,10 +23,11 @@ ARCHS: dict[str, str] = {
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "whisper-medium": "repro_torch.configs.whisper_medium",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "llava-next-34b": "repro_torch.configs.llava_next_34b",
 }
-# the reference's other archs, each with the ROADMAP Queue 1 item it waits
-# for
-WAITING = {"llava-next-34b": 6}
+# the reference's archs not yet ported, each with the ROADMAP Queue 1 item
+# it waits for: none since llava-next-34b
+WAITING: dict[str, int] = {}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:
@@ -36,4 +40,6 @@ def get_config(arch: str, reduced: bool = False) -> ModelConfig:
     return mod.reduced() if reduced else mod.CONFIG
 
 
-__all__ = ["ARCHS", "DTYPES", "ModelConfig", "WAITING", "get_config"]
+__all__ = ["ARCHS", "DTYPES", "SHAPES", "SMOKE_SHAPE", "ModelConfig",
+           "OptimizerConfig", "RunConfig", "ShapeConfig", "WAITING",
+           "applicable_shapes", "get_config"]

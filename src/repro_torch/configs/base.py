@@ -1,5 +1,5 @@
-"""Model configuration, trimmed to what the serve paths of the ported
-families read: dense, MoE, hybrid, audio (whisper) and ssm (rwkv6).
+"""Model, shape, optimizer and run configuration of the ported families:
+dense, MoE, VLM (llava), hybrid, audio (whisper) and ssm (rwkv6).
 
 The counterpart of ``repro/configs/base.py:ModelConfig``: the same field
 names and defaults for the fields kept, but ``attention_impl``, whose
@@ -12,8 +12,10 @@ embedding (RoPE with its theta, learned positions with their table's
 size, or none), the logit soft cap, the MoE block's experts, top-k,
 capacity factor and aux-loss weight, the hybrid family's block pattern,
 sliding window, RG-LRU width and conv width, rwkv6's WKV chunk and decay
-LoRA rank, and whisper's encoder depth and frame count with
-``is_encoder_decoder``, which the reference sets and reads nowhere. The
+LoRA rank, whisper's encoder depth and frame count with
+``is_encoder_decoder``, which the reference sets and reads nowhere, the VLM
+image prefix's length (``num_image_tokens``) and the training step's
+``remat`` policy. The
 reference scales gemma's and recurrentgemma's embeddings by sqrt(d_model)
 on a test of the arch's name (``layers.py:embed_tokens``); here
 ``embed_scale`` says so in the arch's config file. The reference's
@@ -21,8 +23,13 @@ on a test of the arch's name (``layers.py:embed_tokens``); here
 and pads 0 heads without a mesh; the port has no mesh yet, so the field
 comes with the mesh (ROADMAP Queue 1 item 9), as do ``sharding_overrides``
 (kimi-k2's expert and embedding sharding) and the all-to-all MoE path they
-select. The VLM block's field (``num_image_tokens``), remat and scan come
-with the slice that ports an arch setting them.
+select. ``scan_layers`` has no counterpart: the port runs its layers in a
+Python loop.
+
+``ShapeConfig``, ``SHAPES``, ``SMOKE_SHAPE``, ``applicable_shapes``,
+``OptimizerConfig`` and ``RunConfig`` are the reference's, with its names
+and defaults; ``OptimizerConfig.zero1`` is kept as a field and read by
+the port's mesh (item 9).
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ DTYPES: dict[str, torch.dtype] = {
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | hybrid | audio | ssm
+    family: str                    # dense | moe | vlm | hybrid | audio | ssm
     num_layers: int
     d_model: int
     num_heads: int                 # query heads
@@ -75,9 +82,12 @@ class ModelConfig:
     encoder_layers: int = 0
     encoder_seq: int = 0           # precomputed frame-embedding length
     is_encoder_decoder: bool = False
+    # vlm (llava)
+    num_image_tokens: int = 0      # precomputed image embeddings a request
     # numerics / execution
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "bfloat16"
+    remat: str = "none"            # none | full | dots (training only)
     # flash: the CUDA kernel for a causal prefill on the card, naive
     # elsewhere; naive: naive everywhere. The reference's blocked and
     # triangular schedules are not ported and are refused.
@@ -99,5 +109,64 @@ class ModelConfig:
     def parameter_dtype(self) -> torch.dtype:
         return DTYPES[self.param_dtype]
 
+    @property
+    def is_subquadratic(self) -> bool:
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+# The assigned shape set (identical across the LM pool).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")
+
+
+def applicable_shapes(config: ModelConfig) -> list[str]:
+    """The assigned shapes an arch runs: ``long_500k`` only for the
+    sub-quadratic families."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if config.is_subquadratic:
+        names.append("long_500k")
+    return names
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    zero1: bool = True             # shard the optimizer state over 'data'
+    master_fp32: bool = True
+    state_dtype: str = "float32"   # m/v moments dtype
+    compression: str | None = None  # int8 gradient compression (DP path)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seed: int = 0
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 100

@@ -24,10 +24,11 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     embed_scale=True,
     rope_theta=10_000.0,
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4,
                           num_kv_heads=4, head_dim=16, d_ff=128,
-                          vocab_size=256)
+                          vocab_size=256, remat="none")

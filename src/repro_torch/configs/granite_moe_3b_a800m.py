@@ -7,9 +7,8 @@ cites ``granite-3.0-1b-a400m-base``, but its numbers (32 layers, 1,536
 wide, 24/8 heads, 40 experts top 8 of 512, vocabulary 49,155) are those of
 ``granite-3.0-3b-a800m-base``, named here. Granite's published embedding,
 attention, residual and logits multipliers are left out of both packages
-on purpose: the port computes what the reference computes. The
-reference's ``remat="full"`` is a training option the port has no field
-for.
+on purpose: the port computes what the reference computes. ``remat``
+is the reference's: ``"full"``, and ``"none"`` in ``reduced()``.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -31,6 +30,7 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     tie_embeddings=True,
     rope_theta=10_000.0,
+    remat="full",
 )
 
 
@@ -38,4 +38,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4,
                           num_kv_heads=2, head_dim=16, d_ff=32,
                           vocab_size=256, num_experts=4,
-                          experts_per_token=2)
+                          experts_per_token=2, remat="none")

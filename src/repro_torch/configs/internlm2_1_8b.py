@@ -16,10 +16,11 @@ CONFIG = ModelConfig(
     d_ff=8192,
     vocab_size=92544,
     rope_theta=1_000_000.0,
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4,
                           num_kv_heads=2, head_dim=16, d_ff=128,
-                          vocab_size=256)
+                          vocab_size=256, remat="none")

@@ -28,6 +28,7 @@ CONFIG = ModelConfig(
     mlp_gated=True,
     norm="rmsnorm",
     rope_theta=50_000.0,
+    remat="full",
 )
 
 
@@ -35,4 +36,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4,
                           num_kv_heads=2, head_dim=16, d_ff=32,
                           vocab_size=256, num_experts=4,
-                          experts_per_token=2)
+                          experts_per_token=2, remat="none")

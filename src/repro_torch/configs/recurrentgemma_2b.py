@@ -4,9 +4,10 @@ window 2048, head_dim=256, tied embeddings, logits soft-cap 30.
 [arXiv:2402.19427; hf]
 
 The numbers of ``repro/configs/recurrentgemma_2b.py``, and
-``embed_scale``, which the reference derives from the name. Its ``remat``
-and ``pad_attention_heads`` are not fields of the port (the port has no
-training step or mesh yet); without a mesh the reference pads no head.
+``embed_scale``, which the reference derives from the name. ``remat`` is
+the reference's ``"full"``, kept by ``reduced()`` as the reference's
+keeps it. ``pad_attention_heads`` is not a field of the port (it comes
+with the mesh); without a mesh the reference pads no head.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -32,6 +33,7 @@ CONFIG = ModelConfig(
     conv_width=4,
     logits_soft_cap=30.0,
     rope_theta=10_000.0,
+    remat="full",
 )
 
 

@@ -21,10 +21,11 @@ CONFIG = ModelConfig(
     mlp_gated=False,
     norm="layernorm",
     rope_theta=100_000.0,
+    remat="full",
 )
 
 
 def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, d_model=64, num_heads=4,
                           num_kv_heads=2, head_dim=16, d_ff=128,
-                          vocab_size=256)
+                          vocab_size=256, remat="none")

@@ -2,9 +2,9 @@
 d_ff=4096 vocab=51865 — enc-dec; conv frontend STUB (precomputed frame
 embeddings, 1500 frames). [arXiv:2212.04356; unverified]
 
-The numbers of ``repro/configs/whisper_medium.py``. Its ``remat`` is not
-a field of the port (the port has no training step yet). The embeddings
-are not scaled: the reference scales gemma's only.
+The numbers of ``repro/configs/whisper_medium.py``, its ``remat``
+included (``"full"``, and ``"none"`` in ``reduced()``). The embeddings are
+not scaled: the reference scales gemma's only.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -27,6 +27,7 @@ CONFIG = ModelConfig(
     pos_embedding="learned",
     max_position=32_776,
     tie_embeddings=True,
+    remat="full",
 )
 
 
@@ -34,4 +35,4 @@ def reduced() -> ModelConfig:
     return CONFIG.replace(num_layers=2, encoder_layers=2, encoder_seq=12,
                           d_model=64, num_heads=4, num_kv_heads=4,
                           head_dim=16, d_ff=128, vocab_size=256,
-                          max_position=128)
+                          max_position=128, remat="none")

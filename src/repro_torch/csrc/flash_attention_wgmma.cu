@@ -15,10 +15,13 @@
 // causal reach skipped, the output rounded once to bf16 (nearest even). It
 // reads q, k, v and writes o in the model layout (B, S, H, hd) in place;
 // the tail past S is masked out of the max and the sum, and rows past S are
-// not written. One difference, deliberate: P is rounded to bf16 before P.V
-// (the tensor cores' operand type), where the TPU kernel multiplies an fp32
-// P by V widened to fp32: at most 2^-9 relative on each P, one or two bf16
-// steps of the output. Q.K^T multiplies bf16 values exactly in fp32; only
+// not written. The TPU kernel multiplies an fp32 P by V widened to fp32;
+// the tensor cores take bf16 operands, so P goes in as two bf16 terms, hi =
+// bf16(P) and lo = bf16(P - hi), two products P.V summed in fp32: within
+// about 2^-17 relative of each P (V is bf16, exact in either). P rounded
+// once to bf16 (at most 2^-9 relative) moved a 60-layer bf16 prefill's
+// logits (llava-next-34b) past the serving check's bound against the naive
+// attention (PERF.md). Q.K^T multiplies bf16 values exactly in fp32; only
 // the summation order differs.
 //
 // Bound: device memory at hd 64 and 128, about even at hd 256. At the
@@ -40,23 +43,26 @@
 // each, with 240 registers a thread: S = Q.K^T by hd / 16 wgmma (bf16 ->
 // fp32, both operands from shared memory); the mask only on the diagonal
 // and tail tiles; the online softmax on the accumulator registers (a row
-// spans 4 lanes: two shuffles); P rounded to bf16 in registers, where the
-// accumulator's layout is the A operand's, for O += P.V by wgmma with A
-// from registers and V a transposed (MN-major) B from shared memory, whose
-// N is hd; O a 64 x hd fp32 accumulator. Then O / max(l, 1e-30) rounded to
+// spans 4 lanes: two shuffles); P split into its bf16 hi and lo terms in
+// registers, where the accumulator's layout is the A operand's, for O +=
+// hi.V + lo.V by wgmma with A from registers and V a transposed (MN-major)
+// B from shared memory, whose N is hd; O a 64 x hd fp32 accumulator. Then O / max(l, 1e-30) rounded to
 // bf16 and stored for rows < S. The kv tile is what the 227 KB of shared
 // memory and the consumers' registers leave room for:
 //   hd 64:  128-key tiles of 16 KB (one box a row), Q 16 KB, 81 KB in all;
 //           S by wgmma.m64n128k16 over 4 k-steps, P.V by m64n64k16 over
-//           8; S, P and O take 64 + 32 + 32 registers a thread; scale
+//           8 twice; S, P's two terms and O take 64 + 64 + 32 registers
+//           a thread; scale
 //           1/8 exactly;
 //   hd 128: 128-key tiles of 32 KB, Q 32 KB, 161 KB in all; S by
-//           wgmma.m64n128k16 over 8 k-steps, P.V by m64n128k16 over 8;
-//           S, P and O take 64 + 32 + 64 registers a thread;
+//           wgmma.m64n128k16 over 8 k-steps, P.V by m64n128k16 over 8
+//           twice; S, P's two terms and O take 64 + 64 + 64 registers a
+//           thread;
 //   hd 256: 64-key tiles of 32 KB, Q 64 KB, 193 KB in all (128-key tiles
 //           would need 321 KB); S by wgmma.m64n64k16 over 16 k-steps, P.V
-//           by m64n256k16 over 4; S, P and O take 32 + 16 + 128 registers
-//           (128-key tiles would need 224); scale 1/16 exactly.
+//           by m64n256k16 over 4 twice; S, P's two terms and O take 32 +
+//           32 + 128 registers (128-key tiles would need 256); scale 1/16
+//           exactly.
 #include <cuda.h>  // CUtensorMap and its enums only: no driver library linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int r0 = q0 + 64 * g + 16 * (t / 32) + lane / 4, r1 = r0 + 8;
 
     float acc[HD / 2], s[BKV / 2];
-    uint32_t p[BKV / 4];
+    uint32_t p[BKV / 4], p_lo[BKV / 4];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
@@ -424,25 +430,38 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       l0 = l0 * al0 + ps0;
       l1 = l1 * al1 + ps1;
-      // P to bf16: accumulator columns 16 kk + [0, 16) are A's k-step kk
+      // P as two bf16 terms, P = hi + lo + O(2^-17 P): hi = bf16(P), lo =
+      // bf16(P - hi) (P - hi is exact in fp32); accumulator columns
+      // 16 kk + [0, 16) are A's k-step kk. A .x sits in a pair's low half
 #pragma unroll
-      for (int i = 0; i < BKV / 4; ++i)
-        p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      for (int i = 0; i < BKV / 4; ++i) {
+        const uint32_t hi = pack_bf16(s[2 * i], s[2 * i + 1]);
+        p[i] = hi;
+        p_lo[i] = pack_bf16(s[2 * i] - __uint_as_float(hi << 16),
+                            s[2 * i + 1] - __uint_as_float(hi & 0xffff0000u));
+      }
 
-      // O += P.V over the tile's keys in steps of 16 rows of V; V's rows
-      // of HD columns are N, its boxes T::kKVBox bytes apart
+      // O += hi.V + lo.V over the tile's keys in steps of 16 rows of V;
+      // V's rows of HD columns are N, its boxes T::kKVBox bytes apart
       mbar_wait(full_v + 8 * st, parity);
       fence_regs(acc);
       fence_regs(p);
+      fence_regs(p_lo);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
         wgmma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
                  sw128_desc(vs + kk * 16 * kRow, T::kKVBox, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_rs(acc, p_lo[4 * kk], p_lo[4 * kk + 1], p_lo[4 * kk + 2],
+                 p_lo[4 * kk + 3],
+                 sw128_desc(vs + kk * 16 * kRow, T::kKVBox, 1024));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
       fence_regs(p);
+      fence_regs(p_lo);
       mbar_arrive(empty + 8 * st);
     }
 

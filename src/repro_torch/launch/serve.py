@@ -19,10 +19,10 @@ starcoder2-3b, the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about 1 T
 parameters, is served at ``--reduced`` only: it does not fit one card),
 the hybrid recurrentgemma-2b, whose attention is a 2,048-token sliding
 window over a rolling cache (naive attention, as the reference's: no flash
-kernel runs for it), the audio whisper-medium and the ssm rwkv6-7b, attention-free with a
-constant-size state; llava-next-34b names the
-ROADMAP item it waits for. Each family's ``prefill`` builds its own cache
-(``init_cache`` of its module).
+kernel runs for it), the audio whisper-medium, the ssm rwkv6-7b,
+attention-free with a constant-size state, and the vlm llava-next-34b.
+Each family's ``prefill`` builds its own cache (``init_cache`` of its
+module).
 
 An audio request carries its ``frames`` besides its prompt: precomputed
 frame embeddings (``encoder_seq``, ``d_model``) in fp32, drawn from the
@@ -32,7 +32,14 @@ into ``batch["frames"]``. The reference's serve sends tokens only, so its
 whisper ``prefill`` cannot run there (``KeyError: 'frames'``). whisper's
 encoder and cross-attention take the naive attention (the reference's
 rule: its kernel is for causal calls), its decoder's causal prefill the
-flash kernel.
+flash kernel. A vlm request carries its ``image_embeds`` the same way,
+(``num_image_tokens``, ``d_model``) fp32 drawn right after its prompt,
+stacked into ``batch["image_embeds"]``; its prefill runs the image prefix
+and the prompt as one causal sequence, so the cache holds
+``num_image_tokens`` slots more and decode positions start after the
+prefix. The reference's serve sends no images, so its llava requests are
+text only; and its cache, sized by the prompt, would keep only the first
+slots of an image-prefixed prefill.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch whisper-medium --requests 8 --batch 4 \\
@@ -42,7 +49,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
@@ -53,6 +60,7 @@ from repro_torch.core.dstream import StreamingContext
 from repro_torch.core.rdd import Context
 from repro_torch.kernels import launch_counts
 from repro_torch.models.registry import get_model
+from repro_torch.training import build_serve_fns
 from repro_torch.utils import get_logger, resolve_device
 
 log = get_logger(__name__)
@@ -69,22 +77,6 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
-
-
-def build_serve_fns(config: ModelConfig) -> tuple[Callable, Callable]:
-    """``prefill(params, batch, max_len=None)`` and ``decode_step(params,
-    tokens, cache)`` of the config's family (``training.py:54-64``)."""
-    model = get_model(config)
-
-    def prefill(params: dict, batch: dict, max_len: int | None = None
-                ) -> tuple[torch.Tensor, dict]:
-        return model.prefill(params, batch, config, max_len=max_len)
-
-    def decode_step(params: dict, tokens: torch.Tensor, cache: dict
-                    ) -> tuple[torch.Tensor, dict]:
-        return model.decode_step(params, tokens, cache, config)
-
-    return prefill, decode_step
 
 
 def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
@@ -119,6 +111,9 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
         if config.family == "audio":
             request["frames"] = rng.standard_normal(
                 (config.encoder_seq, config.d_model)).astype(np.float32)
+        if config.family == "vlm":
+            request["image_embeds"] = rng.standard_normal(
+                (config.num_image_tokens, config.d_model)).astype(np.float32)
         broker.produce("requests", request)
 
     sc = StreamingContext(Context(), broker,
@@ -129,6 +124,8 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
     decode_s: list[float] = []
     ttft_s: list[float] = []
     max_len = args.prompt_len + args.gen
+    if config.family == "vlm":
+        max_len += config.num_image_tokens
 
     def on_batch(rdd, info):
         reqs = rdd.collect()
@@ -139,9 +136,10 @@ def run_serve(args: argparse.Namespace, device: str | torch.device = "cuda",
             reqs.append(reqs[-1])
         batch = {"tokens": torch.from_numpy(
             np.stack([r["prompt"] for r in reqs]).astype(np.int64)).to(dev)}
-        if config.family == "audio":
-            batch["frames"] = torch.from_numpy(
-                np.stack([r["frames"] for r in reqs])).to(dev)
+        for name in {"audio": ("frames",),
+                     "vlm": ("image_embeds",)}.get(config.family, ()):
+            batch[name] = torch.from_numpy(
+                np.stack([r[name] for r in reqs])).to(dev)
         with torch.inference_mode():
             logits, cache = prefill(params, batch, max_len=max_len)
             tokens = logits[:, -1:].argmax(dim=-1)

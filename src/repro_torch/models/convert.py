@@ -16,6 +16,11 @@ model). The walk follows whatever keys the tree has, so a tied tree (no
 an ungated MLP (no ``w_gate``) and an MoE block arrive as they are: the
 reference stacks the router on L as (L, D, E) in fp32 and the experts as
 (L, E, D, F) and (L, E, F, D), and each layer takes its slice.
+
+``state_from_jax`` carries a whole training state across: the
+parameters, and the optimizer's ``m``, ``v`` and ``master`` trees, which
+have the parameters' structure and are unstacked the same way, and its
+``step``.
 """
 from __future__ import annotations
 
@@ -76,3 +81,18 @@ def params_from_jax(tree: dict, config: ModelConfig,
                else {"layers": config.num_layers})
     return {key: _unstack(node, stacked[key], device) if key in stacked
             else _tree(node, whole) for key, node in tree.items()}
+
+
+def state_from_jax(state: dict, config: ModelConfig,
+                   device: str | torch.device = "cpu") -> dict:
+    """The reference's training state ({'params', 'opt': {'m', 'v',
+    'step', and 'master' with fp32 master weights}}, numpy leaves) as the
+    port's, on ``device``: every parameter-shaped tree through
+    ``params_from_jax``, the step an int32 scalar tensor."""
+    opt = state["opt"]
+    out = {name: params_from_jax(opt[name], config, device)
+           for name in ("m", "v", "master") if name in opt}
+    out["step"] = tensor_from_numpy(np.asarray(opt["step"], np.int32),
+                                    device)
+    return {"params": params_from_jax(state["params"], config, device),
+            "opt": out}

@@ -1,5 +1,6 @@
 """Shared model layers: norms, activations, MLPs, embeddings (token and
-learned position tables), RoPE, initialisers.
+learned position tables), RoPE, initialisers, the cross-entropy loss and
+the training step's activation checkpointing (``remat``).
 
 The counterpart of ``repro/models/layers.py``, in the same pure-function
 style: parameters are plain dicts of tensors and every layer is a function
@@ -13,10 +14,14 @@ gemma's sqrt(d_model) rounded to the activation dtype before it scales.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 
@@ -173,3 +178,62 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# -- losses --------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Token-mean cross entropy in fp32 with optional z-loss; with ``mask``
+    the masked mean, over at least one token."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - target_logit
+    if z_loss > 0:
+        nll = nll + z_loss * torch.square(logz)
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# -- activation checkpointing ------------------------------------------------------
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Keep the outputs of matmuls without batch dimensions, recompute the
+    rest: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims``."""
+    if op in _MATMULS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def layer_policy(config: ModelConfig) -> str:
+    """The policy of a whole layer of rglru, rwkv6 and whisper, which the
+    reference checkpoints whole for any ``remat`` but ``"none"``."""
+    return "none" if config.remat == "none" else "full"
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under activation checkpointing while autograd records:
+    ``"full"`` keeps only its inputs and recomputes the rest in the
+    backward pass (``jax.checkpoint``), ``"dots"`` also keeps the outputs
+    of its unbatched matmuls, ``"none"`` keeps everything. The values are
+    the same under every policy; with grad off ``fn`` runs as it is."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run

@@ -1,7 +1,7 @@
 """Model registry: family -> module implementing the serve API.
 
-The counterpart of ``repro/models/registry.py``, with the dense and MoE
-families, both served by the transformer, the hybrid family
+The counterpart of ``repro/models/registry.py``: the dense, MoE and VLM
+families, all served by the transformer, the hybrid family
 (recurrentgemma), served by ``rglru``, the audio family (whisper), served
 by ``whisper``, and the ssm family (rwkv6), served by ``rwkv6``. API of a
 family module:
@@ -9,6 +9,7 @@ family module:
     prefill(params, batch, config, max_len) -> (last_logits, cache)
     decode_step(params, tokens, cache, config) -> (logits, cache)
     init_cache(config, batch, max_len, device) -> cache
+    loss_and_metrics(params, batch, config) -> (loss, metrics)
 """
 from __future__ import annotations
 
@@ -19,18 +20,13 @@ from repro_torch.models import rglru, rwkv6, transformer, whisper
 
 _FAMILIES: dict[str, ModuleType] = {"dense": transformer,
                                      "moe": transformer,
+                                     "vlm": transformer,
                                      "hybrid": rglru,
                                      "audio": whisper,
                                      "ssm": rwkv6}
-# the reference's other family, with the ROADMAP Queue 1 item it waits for
-_WAITING = {"vlm": 6}
 
 
 def get_model(config: ModelConfig) -> ModuleType:
-    if config.family in _WAITING:
-        raise NotImplementedError(
-            f"model family {config.family!r} waits for ROADMAP Queue 1 item "
-            f"{_WAITING[config.family]}")
     try:
         return _FAMILIES[config.family]
     except KeyError:

@@ -22,7 +22,9 @@ constant-size: the LRU state ``h`` (fp32), the conv's last ``conv_width -
 The attention blocks take the window, so they run the naive attention, as
 the reference's do (its kernel is taken at window 0 only); no flash kernel
 runs in this family. Params and caches are per-layer dicts keyed
-``layer_NN``, as the reference's, not stacked on L.
+``layer_NN``, as the reference's, not stacked on L. ``loss_and_metrics``
+is the training loss, each layer under activation checkpointing when
+``remat`` is not ``"none"``.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 
 _C = 8.0  # RG-LRU sharpness constant
 
@@ -161,40 +164,58 @@ def _rec_block(x: torch.Tensor, p: dict, state: dict
 
 
 # -- model ---------------------------------------------------------------------------
+def _layer(x: torch.Tensor, p: dict, kind: str, config: ModelConfig,
+           positions: torch.Tensor, layer_cache: dict | None,
+           pos: int) -> tuple[torch.Tensor, dict | None]:
+    """One layer, a recurrent or an attention block and the MLP, each
+    after its norm; ``layer_cache`` None starts a recurrent block from a
+    zero state and runs attention without a cache. Returns (x, the layer's
+    new cache, or None without one)."""
+    B = x.shape[0]
+    w_lru = config.lru_width or config.d_model
+    h = L.apply_norm(x, p["norm1"], config)
+    if kind == "rec":
+        state = layer_cache
+        if state is None:
+            state = {"h": torch.zeros((B, w_lru), dtype=torch.float32,
+                                      device=x.device),
+                     "conv": x.new_zeros((B, config.conv_width - 1, w_lru))}
+        a, nc = _rec_block(h, p["rec"], state)
+    else:
+        lc = None if layer_cache is None else {**layer_cache, "pos": pos}
+        a, nc = attn.attention_layer(h, p["attn"], config, positions,
+                                     cache=lc, window=config.local_window)
+        if nc is not None:
+            nc = {"k": nc["k"], "v": nc["v"]}
+    x = x + a
+    h = L.apply_norm(x, p["norm2"], config)
+    return x + L.mlp(h, p["mlp"], config), \
+        None if layer_cache is None else nc
+
+
 def _forward(params: dict, tokens: torch.Tensor, config: ModelConfig,
              cache: dict | None, start_pos: int
              ) -> tuple[torch.Tensor, dict | None]:
     """The final-normed hidden states (B, S, D), and with ``cache`` the
-    cache ``S`` tokens on."""
+    cache ``S`` tokens on. Without a cache each layer runs under the
+    config's ``remat`` policy while autograd records, as the reference
+    checkpoints each layer when ``remat`` is not ``"none"``."""
     B, S = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], config)
     positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
-    new_cache = None if cache is None else {"pos": cache["pos"] + S}
-    w_lru = config.lru_width or config.d_model
+    if cache is None:
+        for i, kind in enumerate(layer_kinds(config)):
+            def layer(x: torch.Tensor, p: dict, kind: str = kind
+                      ) -> torch.Tensor:
+                return _layer(x, p, kind, config, positions, None, 0)[0]
+
+            x = L.remat(layer, L.layer_policy(config))(x, params[_key(i)])
+        return L.apply_norm(x, params["final_norm"], config), None
+    new_cache = {"pos": cache["pos"] + S}
     for i, kind in enumerate(layer_kinds(config)):
-        p = params[_key(i)]
-        layer_cache = None if cache is None else cache[_key(i)]
-        h = L.apply_norm(x, p["norm1"], config)
-        if kind == "rec":
-            state = layer_cache
-            if state is None:
-                state = {"h": torch.zeros((B, w_lru), dtype=torch.float32,
-                                          device=x.device),
-                         "conv": x.new_zeros((B, config.conv_width - 1,
-                                              w_lru))}
-            a, nc = _rec_block(h, p["rec"], state)
-        else:
-            lc = None if layer_cache is None else \
-                {**layer_cache, "pos": cache["pos"]}
-            a, nc = attn.attention_layer(h, p["attn"], config, positions,
-                                         cache=lc, window=config.local_window)
-            if nc is not None:
-                nc = {"k": nc["k"], "v": nc["v"]}
-        x = x + a
-        h = L.apply_norm(x, p["norm2"], config)
-        x = x + L.mlp(h, p["mlp"], config)
-        if new_cache is not None:
-            new_cache[_key(i)] = nc
+        x, new_cache[_key(i)] = _layer(x, params[_key(i)], kind, config,
+                                       positions, cache[_key(i)],
+                                       cache["pos"])
     return L.apply_norm(x, params["final_norm"], config), new_cache
 
 
@@ -236,3 +257,15 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     """tokens: (B, 1) -> (logits (B, 1, V), the cache one token on)."""
     x, cache = _forward(params, tokens, config, cache, cache["pos"])
     return L.lm_logits(x, params["embed"], config), cache
+
+
+def loss_and_metrics(params: dict, batch: dict, config: ModelConfig
+                     ) -> tuple[torch.Tensor, dict]:
+    """The training loss: the next-token cross-entropy of the tokens from
+    a zero state (``transformer._chunked_ce``); the aux loss an fp32 zero."""
+    x, _ = _forward(params, batch["tokens"], config, None, 0)
+    pred, targets, mask = transformer.next_token_targets(x, batch)
+    loss = transformer._chunked_ce(pred, params, config, targets, mask)
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}

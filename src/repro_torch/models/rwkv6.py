@@ -31,8 +31,10 @@ the fp32 WKV state ``S`` (B, H, K, K) and the last normed inputs of the
 time and channel mixes (``tshift``, ``cshift``), stacked on L as the
 reference's and updated in place; ``init_cache`` ignores ``max_len``, as
 the reference's does. The layers are a list of per-layer dicts, as in the
-port's transformer. ``loss_and_metrics`` waits for training (ROADMAP Queue
-1 item 8), ``param_specs`` and ``cache_specs`` for the mesh (item 9).
+port's transformer. ``loss_and_metrics`` is the training loss (chunked
+from a zero state; the chunked WKV's coefficients out of place while
+autograd records); ``param_specs`` and ``cache_specs`` come with the mesh
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 
 
 # -- init ------------------------------------------------------------------------
@@ -112,15 +115,26 @@ def _wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     la = torch.cumsum(lwb, dim=2)                   # inclusive, (B,n,C,H,K)
     la_prev = la - lwb                              # exclusive
-    # intra-chunk pairwise log-space differences (<= 0 for s < t, so exp
-    # is safe there; s >= t may overflow and is overwritten): coef is
-    # exp(diff) below the diagonal, u on it and 0 above, written in place
-    # to keep one (B, n, C, C, H, K) tensor alive
-    coef = torch.exp(la_prev[:, :, :, None] - la[:, :, None, :])
+    # intra-chunk pairwise log-space differences, <= 0 below the diagonal
+    # (s < t); on and above it they may be large, so they are masked to
+    # -inf before exp (exp of them never overflows, and no inf meets a
+    # zero in the backward pass): coef is exp(diff) below the diagonal, u
+    # on it and 0 above. Under grad it is built out of place (autograd
+    # keeps exp's output); otherwise in place, to keep one
+    # (B, n, C, C, H, K) fp32 tensor alive a layer
+    diff = la_prev[:, :, :, None] - la[:, :, None, :]
     upper = torch.ones(C, C, dtype=torch.bool, device=r.device).triu()
-    coef.masked_fill_(upper[:, :, None, None], 0.0)
-    coef.diagonal(dim1=2, dim2=3).copy_(u[..., None].expand(B, n, H, K, C))
-    scores = coef.mul_(rb[:, :, :, None]).mul_(kb[:, :, None]).sum(-1)
+    if torch.is_grad_enabled():
+        coef = torch.exp(diff.masked_fill(upper[:, :, None, None],
+                                          -math.inf))
+        eye = torch.eye(C, dtype=coef.dtype, device=r.device)
+        coef = coef + eye[:, :, None, None] * u
+        scores = (coef * rb[:, :, :, None] * kb[:, :, None]).sum(-1)
+    else:
+        coef = diff.masked_fill_(upper[:, :, None, None], -math.inf).exp_()
+        coef.diagonal(dim1=2, dim2=3).copy_(u[..., None].expand(B, n, H, K,
+                                                                 C))
+        scores = coef.mul_(rb[:, :, :, None]).mul_(kb[:, :, None]).sum(-1)
     y = torch.einsum("bntsh,bnshv->bnthv", scores, vb)      # intra-chunk
     # each chunk's own contribution to the state at its end, and the
     # decay of the state across the chunk
@@ -261,14 +275,31 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
 
 def _run(params: dict, tokens: torch.Tensor, config: ModelConfig,
          state: dict, mode: str) -> tuple[torch.Tensor, dict]:
-    """The final-normed hidden states (B, S, D), and the state S tokens on
-    (its tensors written in place)."""
+    """The final-normed hidden states (B, S, D), and the state S tokens on:
+    its tensors written in place, or, while autograd records, a new state
+    stacked from the layers' (each layer then under activation
+    checkpointing when ``remat`` is not ``"none"``, as the reference
+    checkpoints its scan body)."""
     x = L.embed_tokens(tokens, params["embed"], config)
-    for i, p in enumerate(params["layers"]):
-        x, ns = _block(x, p, config, {name: state[name][i] for name in
-                                      ("S", "tshift", "cshift")}, mode)
-        for name, t in ns.items():
-            state[name][i].copy_(t)
+    names = ("S", "tshift", "cshift")
+    if torch.is_grad_enabled():
+        def block(x: torch.Tensor, p: dict, layer_state: dict):
+            return _block(x, p, config, layer_state, mode)
+
+        block = L.remat(block, L.layer_policy(config))
+        new = {name: [] for name in names}
+        for i, p in enumerate(params["layers"]):
+            x, ns = block(x, p, {name: state[name][i] for name in names})
+            for name in names:
+                new[name].append(ns[name])
+        state = {**state, **{name: torch.stack(new[name])
+                             for name in names}}
+    else:
+        for i, p in enumerate(params["layers"]):
+            x, ns = _block(x, p, config, {name: state[name][i]
+                                          for name in names}, mode)
+            for name, t in ns.items():
+                state[name][i].copy_(t)
     x = L.apply_norm(x, params["final_norm"], config)
     return x, {**state, "pos": state["pos"] + tokens.shape[1]}
 
@@ -289,3 +320,18 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     """tokens: (B, 1) -> (logits (B, 1, V), the state one token on)."""
     x, cache = _run(params, tokens, config, cache, mode="decode")
     return L.lm_logits(x, params["embed"], config), cache
+
+
+def loss_and_metrics(params: dict, batch: dict, config: ModelConfig
+                     ) -> tuple[torch.Tensor, dict]:
+    """The training loss: the next-token cross-entropy of the tokens run
+    through the chunked WKV from a zero state (``transformer._chunked_ce``);
+    the aux loss an fp32 zero."""
+    tokens = batch["tokens"]
+    state = init_state(config, tokens.shape[0], tokens.device)
+    x, _ = _run(params, tokens, config, state, mode="chunked")
+    pred, targets, mask = transformer.next_token_targets(x, batch)
+    loss = transformer._chunked_ce(pred, params, config, targets, mask)
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}

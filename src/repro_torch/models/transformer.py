@@ -1,18 +1,23 @@
-"""Decoder-only transformer LM, the dense and MoE families: init and the
-serve path.
+"""Decoder-only transformer LM, the dense, MoE and VLM families: init,
+the serve path and the training loss.
 
-The counterpart of ``repro/models/transformer.py`` for ``family="dense"``
-and ``"moe"``: a block with ``num_experts > 0`` has an MoE layer
-(``models/moe.py``) where a dense block has its MLP.
-The reference scans a stacked (L, ...) parameter tree under ``jax.lax.scan``
-with a remat policy, both compile devices for XLA; here the layers are a
-Python list of per-layer dicts, run in a loop. The serve path keeps the
-reference's API: ``prefill`` runs the prompt, fills the cache and returns
+The counterpart of ``repro/models/transformer.py`` for ``family="dense"``,
+``"moe"`` and ``"vlm"``: a block with ``num_experts > 0`` has an MoE layer
+(``models/moe.py``) where a dense block has its MLP; a VLM batch carries
+``image_embeds`` (B, num_image_tokens, D), precomputed patch embeddings
+(the anyres frontend is a stub, as in the reference), prepended to the
+token embeddings, with positions running over the whole sequence.
+The reference scans a stacked (L, ...) parameter tree under ``jax.lax.scan``;
+here the layers are a Python list of per-layer dicts, run in a loop, each
+block under the config's ``remat`` policy while autograd records
+(``layers.remat``). The serve path keeps the reference's API: ``prefill``
+runs the prompt (behind its image prefix), fills the cache and returns
 last-token logits; ``decode_step`` appends one token. The cache keeps the
 reference's (L, B, Smax, KH, hd) layout and its scalar ``pos`` (an int
-here), and is updated in place. The layers sum the MoE aux loss as the
-reference's do; the serve path drops it, and the training loss that reads
-it waits for ROADMAP Queue 1 item 8, the VLM image prefix for item 6.
+here), and is updated in place. ``loss_and_metrics`` is the training loss:
+the next-token cross-entropy by ``_chunked_ce``, whose (B, S, V) logits
+never exist at once, plus the MoE layers' aux loss; a VLM sequence's last
+image position predicts its first token, and no image position is a target.
 """
 from __future__ import annotations
 
@@ -86,34 +91,118 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
 def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
                 positions: torch.Tensor, cache: dict | None
                 ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-    """The blocks in order, each with its layer's slice of the cache;
-    returns (x, the aux losses summed in layer order from an fp32 zero, the
-    cache). A dense block adds nothing, where the reference adds a zero."""
+    """The blocks in order, each with its layer's slice of the cache (or,
+    without one, under the config's ``remat`` policy); returns (x, the aux
+    losses summed in layer order from an fp32 zero, the cache). A dense
+    block adds nothing, where the reference adds a zero."""
     if config.local_window > 0:
         raise NotImplementedError(DENSE_WINDOW_REFUSED)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cache is None:
+        def block(x: torch.Tensor, block_params: dict):
+            x, aux_i, _ = _block(x, block_params, config, positions, None)
+            return x, aux_i
+
+        block = L.remat(block, config.remat)
+        for block_params in params["layers"]:
+            x, aux_i = block(x, block_params)
+            if aux_i is not None:
+                aux = aux + aux_i
+        return x, aux, None
     for i, block_params in enumerate(params["layers"]):
-        layer_cache = None
-        if cache is not None:
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
-                           "pos": cache["pos"]}
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
+                       "pos": cache["pos"]}
         x, aux_i, _ = _block(x, block_params, config, positions,
                              layer_cache)
         if aux_i is not None:
             aux = aux + aux_i
-    if cache is None:
-        return x, aux, None
     return x, aux, {"k": cache["k"], "v": cache["v"],
                     "pos": cache["pos"] + positions.shape[1]}
 
 
 # -- input embedding -------------------------------------------------------------
-def _embed_inputs(params: dict, tokens: torch.Tensor, config: ModelConfig,
+def _embed_inputs(params: dict, batch: dict, config: ModelConfig,
                   start_pos: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    B, S = tokens.shape
+    """The token embeddings of ``batch['tokens']``, behind the VLM image
+    prefix ``batch['image_embeds']`` cast to the activation dtype when the
+    family is ``vlm`` and the batch carries one; positions from
+    ``start_pos`` over the whole sequence (the learned table added when
+    the config has one). Returns (x, positions)."""
+    tokens = batch["tokens"]
     x = L.embed_tokens(tokens, params["embed"], config)
+    if config.family == "vlm" and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
     positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
+    if config.pos_embedding == "learned":
+        x = x + params["embed"]["pos"].to(x.dtype)[positions]
     return x, positions
+
+
+# -- losses ------------------------------------------------------------------------
+def _chunked_ce(x: torch.Tensor, params: dict, config: ModelConfig,
+                targets: torch.Tensor, mask: torch.Tensor,
+                chunk: int = 128) -> torch.Tensor:
+    """The masked token-mean cross-entropy of ``lm_logits(x)`` against
+    ``targets`` without the (B, S, V) logits: ``chunk`` positions at a time,
+    each chunk's head product and logsumexp under activation checkpointing
+    (recomputed in the backward pass), the sums carried in fp32 in chunk
+    order as the reference's scan carries them."""
+    B, S, D = x.shape
+    n = -(-S // chunk)
+    pad = n * chunk - S
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+
+    def chunk_nll(xc: torch.Tensor, tc: torch.Tensor, mc: torch.Tensor
+                  ) -> torch.Tensor:
+        logits = L.lm_logits(xc, params["embed"], config).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        tl = torch.gather(logits, -1, tc[..., None])[..., 0]
+        return torch.sum((logz - tl) * mc.float())
+
+    chunk_nll = L.remat(chunk_nll, "full")
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    mask_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        loss_sum = loss_sum + chunk_nll(x[:, cols], targets[:, cols],
+                                        mask[:, cols])
+        mask_sum = mask_sum + torch.sum(mask[:, cols].float())
+    return loss_sum / torch.clamp(mask_sum, min=1.0)
+
+
+def next_token_targets(x: torch.Tensor, batch: dict
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hidden states that predict, their targets and the loss mask
+    (``batch['loss_mask']`` when given, else ones): position t predicts
+    token t + 1; behind an image prefix of n positions, position n - 1 + t
+    predicts token t, so every text token is a target."""
+    tokens = batch["tokens"]
+    n_img = x.shape[1] - tokens.shape[1]          # 0 unless vlm
+    pred = x[:, :-1] if n_img == 0 else x[:, n_img - 1:-1]
+    targets = tokens[:, 1:] if n_img == 0 else tokens
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=x.device)
+    elif n_img == 0:
+        mask = mask[:, 1:]
+    return pred, targets, mask
+
+
+def loss_and_metrics(params: dict, batch: dict, config: ModelConfig
+                     ) -> tuple[torch.Tensor, dict]:
+    """The training loss: (the cross-entropy plus the MoE aux loss,
+    {'loss': the cross-entropy, 'aux_loss'}), fp32 scalars."""
+    x, positions = _embed_inputs(params, batch, config)
+    x, aux, _ = _run_layers(x, params, config, positions, None)
+    x = L.apply_norm(x, params["final_norm"], config)
+    pred, targets, mask = next_token_targets(x, batch)
+    loss = _chunked_ce(pred, params, config, targets, mask)
+    return loss + aux, {"loss": loss, "aux_loss": aux}
 
 
 # -- serving -----------------------------------------------------------------------
@@ -129,10 +218,14 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: dict, batch: dict, config: ModelConfig,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
-    """Run the full prompt ``batch['tokens']`` (B, S), fill a fresh cache
-    of ``max_len`` (default S) slots, return last-token logits (B, 1, V)."""
+    """Run the full prompt ``batch['tokens']`` (B, S), behind its image
+    prefix for the VLM family, fill a fresh cache of ``max_len`` (default
+    the whole sequence) slots, return last-token logits (B, 1, V). A cache
+    shorter than the sequence keeps its first ``max_len`` positions, as
+    the reference's does, so a VLM caller counts the image prefix in
+    ``max_len``."""
     tokens = batch["tokens"]
-    x, positions = _embed_inputs(params, tokens, config)
+    x, positions = _embed_inputs(params, batch, config)
     cache = init_cache(config, tokens.shape[0], max_len or x.shape[1],
                        tokens.device)
     x, _, cache = _run_layers(x, params, config, positions, cache)
@@ -143,7 +236,7 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
                 config: ModelConfig) -> tuple[torch.Tensor, dict]:
     """tokens: (B, 1) -> (logits (B, 1, V), the cache one token on)."""
-    x, positions = _embed_inputs(params, tokens, config,
+    x, positions = _embed_inputs(params, {"tokens": tokens}, config,
                                  start_pos=cache["pos"])
     x, _, cache = _run_layers(x, params, config, positions, cache)
     x = L.apply_norm(x, params["final_norm"], config)

@@ -1,4 +1,5 @@
-"""Whisper-style encoder-decoder, the audio family: init and the serve path.
+"""Whisper-style encoder-decoder, the audio family: init, the serve path
+and the training loss.
 
 The counterpart of ``repro/models/whisper.py``. The conv frontend is a
 stub, as in the reference: a request carries precomputed frame embeddings
@@ -21,8 +22,11 @@ The reference scans stacked (L, ...) parameter trees; here ``encoder`` and
 port's transformer runs its layers. The cache keeps the reference's
 ``self_k``, ``self_v`` (L, B, max_len, KH, hd), ``cross_k``, ``cross_v``
 (L, B, encoder_seq, KH, hd) and ``pos`` (an int here), and is updated in
-place. ``loss_and_metrics`` waits for training (ROADMAP Queue 1 item 8),
-``param_specs`` and ``cache_specs`` for the mesh (item 9).
+place. ``loss_and_metrics`` is the training loss: the frames through the
+encoder, the tokens through the decoder without a cache, each layer of
+both under activation checkpointing when ``remat`` is not ``"none"``, as
+the reference checkpoints its scan bodies. ``param_specs`` and
+``cache_specs`` come with the mesh (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 
 
 # -- init ------------------------------------------------------------------------
@@ -82,46 +87,77 @@ def encode(params: dict, frames: torch.Tensor,
     B, T, _ = x.shape
     x = x + params["enc_pos"].to(x.dtype)[None, :T]
     positions = torch.arange(T, device=x.device).expand(B, T)
-    for p in params["encoder"]:
+
+    def block(x: torch.Tensor, p: dict) -> torch.Tensor:
         h = L.apply_norm(x, p["norm1"], config)
         a, _ = attn.attention_layer(h, p["attn"], config, positions,
                                     causal=False)
         x = x + a
         h = L.apply_norm(x, p["norm2"], config)
-        x = x + L.mlp(h, p["mlp"], config)
+        return x + L.mlp(h, p["mlp"], config)
+
+    block = L.remat(block, L.layer_policy(config))
+    for p in params["encoder"]:
+        x = block(x, p)
     return L.apply_norm(x, params["enc_norm"], config)
 
 
 # -- decoder -----------------------------------------------------------------------
+def _dec_layer(x: torch.Tensor, p: dict, config: ModelConfig,
+               positions: torch.Tensor, enc_out: torch.Tensor | None,
+               layer_cache: dict | None) -> torch.Tensor:
+    """One decoder block: self-attention, cross-attention, MLP, each after
+    its norm. With ``layer_cache`` (the layer's 'self_k', 'self_v',
+    'cross_k', 'cross_v' and 'pos') the self-attention is cached and the
+    cross K/V are projected from ``enc_out`` and written to the cache at
+    prefill, or read from it when ``enc_out`` is None; without one
+    (training) the block attends over ``x`` itself and projects the cross
+    K/V from ``enc_out``."""
+    self_cache = None if layer_cache is None else {
+        "k": layer_cache["self_k"], "v": layer_cache["self_v"],
+        "pos": layer_cache["pos"]}
+    h = L.apply_norm(x, p["norm1"], config)
+    a, _ = attn.attention_layer(h, p["self_attn"], config, positions,
+                                cache=self_cache)
+    x = x + a
+    h = L.apply_norm(x, p["norm2"], config)
+    if enc_out is not None:         # project the encoder's K/V
+        c, cross = attn.attention_layer(h, p["cross_attn"], config,
+                                        positions, kv_source=enc_out)
+        if layer_cache is not None:
+            layer_cache["cross_k"].copy_(cross["k"])
+            layer_cache["cross_v"].copy_(cross["v"])
+    else:                           # decode: reuse the cached K/V
+        c, _ = attn.attention_layer(
+            h, p["cross_attn"], config, positions,
+            precomputed_kv=(layer_cache["cross_k"], layer_cache["cross_v"]))
+    x = x + c
+    h = L.apply_norm(x, p["norm3"], config)
+    return x + L.mlp(h, p["mlp"], config)
+
+
 def _decode_layers(params: dict, x: torch.Tensor, config: ModelConfig,
                    positions: torch.Tensor, enc_out: torch.Tensor | None,
-                   cache: dict) -> tuple[torch.Tensor, dict]:
+                   cache: dict | None) -> tuple[torch.Tensor, dict | None]:
     """The decoder blocks over ``x``, each with its layer's slice of the
-    cache: self-attention (cached), cross-attention (keys and values
-    projected from ``enc_out`` at prefill and written to the cache, or read
-    from it when ``enc_out`` is None), MLP. Returns (x, the cache with
-    ``pos`` advanced)."""
+    cache; returns (x, the cache with ``pos`` advanced). Without a cache
+    (training) each block runs under the config's remat policy, and the
+    cache returned is None."""
+    if cache is None:
+        def layer(x: torch.Tensor, p: dict) -> torch.Tensor:
+            return _dec_layer(x, p, config, positions, enc_out, None)
+
+        layer = L.remat(layer, L.layer_policy(config))
+        for p in params["decoder"]:
+            x = layer(x, p)
+        return x, None
     pos = cache["pos"]
     for i, p in enumerate(params["decoder"]):
-        h = L.apply_norm(x, p["norm1"], config)
-        a, _ = attn.attention_layer(
-            h, p["self_attn"], config, positions,
-            cache={"k": cache["self_k"][i], "v": cache["self_v"][i],
-                   "pos": pos})
-        x = x + a
-        h = L.apply_norm(x, p["norm2"], config)
-        if enc_out is not None:     # prefill: project the encoder's K/V
-            c, cross = attn.attention_layer(h, p["cross_attn"], config,
-                                            positions, kv_source=enc_out)
-            cache["cross_k"][i].copy_(cross["k"])
-            cache["cross_v"][i].copy_(cross["v"])
-        else:                       # decode: reuse the cached K/V
-            c, _ = attn.attention_layer(
-                h, p["cross_attn"], config, positions,
-                precomputed_kv=(cache["cross_k"][i], cache["cross_v"][i]))
-        x = x + c
-        h = L.apply_norm(x, p["norm3"], config)
-        x = x + L.mlp(h, p["mlp"], config)
+        x = _dec_layer(x, p, config, positions, enc_out,
+                       {"self_k": cache["self_k"][i],
+                        "self_v": cache["self_v"][i],
+                        "cross_k": cache["cross_k"][i],
+                        "cross_v": cache["cross_v"][i], "pos": pos})
     return x, {**cache, "pos": pos + positions.shape[1]}
 
 
@@ -175,3 +211,19 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     x, cache = _decode_layers(params, x, config, positions, None, cache)
     x = L.apply_norm(x, params["dec_norm"], config)
     return L.lm_logits(x, params["embed"], config), cache
+
+
+def loss_and_metrics(params: dict, batch: dict, config: ModelConfig
+                     ) -> tuple[torch.Tensor, dict]:
+    """The training loss: ``batch['frames']`` through the encoder, the
+    next-token cross-entropy of ``batch['tokens']`` through the decoder
+    over it (``transformer._chunked_ce``); the aux loss an fp32 zero."""
+    enc_out = encode(params, batch["frames"], config)
+    x, positions = _embed_dec(params, batch["tokens"], config, 0)
+    x, _ = _decode_layers(params, x, config, positions, enc_out, None)
+    x = L.apply_norm(x, params["dec_norm"], config)
+    pred, targets, mask = transformer.next_token_targets(x, batch)
+    loss = transformer._chunked_ce(pred, params, config, targets, mask)
+    return loss, {"loss": loss,
+                  "aux_loss": torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)}

@@ -1,5 +1,7 @@
-"""Shared utilities of the port: logging, device resolution, and a map
-over nested dicts, lists and tuples of tensors."""
+"""Shared utilities of the port: logging, device resolution, a map over
+nested dicts, lists and tuples of tensors and their leaves, and the
+reference's ``tree_params``, ``tree_any_nan`` and ``human_count``
+(``repro/utils.py``)."""
 from __future__ import annotations
 
 import logging
@@ -47,3 +49,34 @@ def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The leaves of nested dicts, lists and tuples, in ``tree_map``'s
+    order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_params(tree: Any) -> int:
+    """Total element count of the tensor leaves."""
+    return sum(leaf.numel() for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor))
+
+
+def tree_any_nan(tree: Any) -> bool:
+    """Whether a floating-point leaf holds a NaN."""
+    return any(bool(torch.isnan(leaf).any()) for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor)
+               and leaf.is_floating_point())
+
+
+def human_count(n: float) -> str:
+    for unit in ("", "K", "M", "B", "T"):
+        if abs(n) < 1000.0:
+            return f"{n:.2f}{unit}"
+        n /= 1000.0
+    return f"{n:.2f}Q"

@@ -228,9 +228,10 @@ def _wgmma_model(q, k, v, bkv=128):
     """The arithmetic of csrc/flash_attention_wgmma.cu on (BH, S, hd)
     tensors: 128-row q tiles, ``bkv``-row kv tiles up to causal reach (128
     at hd 64 and 128, 64 at hd 256), scores in fp32 scaled and masked (top-left,
-    and the tail past S), the online max and sum in fp32, P rounded to bf16
-    before P.V (fp32 products and sums), the sum clamped at 1e-30, the
-    output rounded once to bf16."""
+    and the tail past S), the online max and sum in fp32, P split into two
+    bf16 terms, hi = bf16(P) and lo = bf16(P - hi), before P.V (fp32
+    products and sums), the sum clamped at 1e-30, the output rounded once
+    to bf16."""
     BH, S, hd = q.shape
     qf, kf, vf = (x.float() for x in (q, k, v))
     out = torch.empty_like(qf)
@@ -249,8 +250,10 @@ def _wgmma_model(q, k, v, bkv=128):
             alpha = torch.exp(m - m_new)
             p = torch.where(s == -1e30, 0.0, torch.exp(s - m_new[..., None]))
             l = l * alpha + p.sum(-1)
-            acc = (acc * alpha[..., None]
-                   + p.to(torch.bfloat16).float() @ vf[:, k0:k0 + bkv])
+            hi = p.to(torch.bfloat16).float()
+            lo = (p - hi).to(torch.bfloat16).float()
+            acc = (acc * alpha[..., None] + hi @ vf[:, k0:k0 + bkv]
+                   + lo @ vf[:, k0:k0 + bkv])
             m = m_new
         out[:, q0:q0 + 128] = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
@@ -258,10 +261,11 @@ def _wgmma_model(q, k, v, bkv=128):
 
 @pytest.mark.parametrize("S,block", [(64, 64), (130, None), (256, 128)])
 def test_torch_flash_wgmma_numerics_match_the_reference(S, block):
-    """The wgmma kernel's numerics (P in bf16 before P.V), modelled here,
-    against the JAX ``attention_ref`` and, where S tiles evenly, the Pallas
-    kernel in interpret mode, within the bf16 tolerance of
-    tests/test_kernels.py:136 (2e-2); S 130 runs a ragged second tile."""
+    """The wgmma kernel's numerics (P as two bf16 terms before P.V),
+    modelled here, against the JAX ``attention_ref`` and, where S tiles
+    evenly, the Pallas kernel in interpret mode, within the bf16 tolerance
+    of tests/test_kernels.py:136 (2e-2); S 130 runs a ragged second
+    tile."""
     q, k, v = _planes(_seed("flash-wgmma", S), (2, S, 128), 3)
     tq, tk, tv = (_to_torch(x, torch.bfloat16) for x in (q, k, v))
     got = _wgmma_model(tq, tk, tv)

@@ -24,7 +24,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
-from repro_torch.configs import get_config
+from repro_torch.configs import WAITING, get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
@@ -273,21 +273,23 @@ def test_torch_full_widths_one_layer():
 
 # -- what waits ----------------------------------------------------------------------
 def test_torch_unported_arch_names_its_roadmap_item():
-    with pytest.raises(KeyError, match="ROADMAP Queue 1 item 6;"):
-        get_config("llava-next-34b")
+    """No arch of the reference waits any more: llava-next-34b, the last
+    (ROADMAP Queue 1 item 6), is ported; an unknown name still raises."""
+    assert WAITING == {}
+    assert get_config("llava-next-34b").family == "vlm"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"family": "vlm"}, 6),
+    ({"family": "vlm", "attention_impl": "blocked"}, 7),
     ({"attention_impl": "blocked"}, 7),
     ({"attention_impl": "triangular"}, 7),
 ])
 def test_torch_unported_paths_are_refused(change, item):
-    """A config asking for a family, schedule or attention branch the port
-    has not taken up raises, naming the ROADMAP item that brings it,
-    instead of serving something else."""
+    """A config asking for a schedule the port has not taken up raises,
+    naming the ROADMAP item that brings it, instead of serving something
+    else; the VLM family, served since item 6, refuses it too."""
     _, tcfg = _configs(**change)
     tok = torch.zeros((1, 3), dtype=torch.long)
     with pytest.raises(NotImplementedError,

@@ -265,8 +265,8 @@ def test_torch_moe_run_layers_sums_the_aux_loss(arch, dtype):
     tok = _tokens(23, (2, 10), jcfg.vocab_size)
     jx, jpos = jtransformer._embed_inputs(jp, {"tokens": jnp.asarray(tok)},
                                           jcfg)
-    tx, tpos = ttransformer._embed_inputs(tp, torch.from_numpy(tok).long(),
-                                          tcfg)
+    tx, tpos = ttransformer._embed_inputs(
+        tp, {"tokens": torch.from_numpy(tok).long()}, tcfg)
     _, jaux, _ = jtransformer._run_layers(jx, jp, jcfg, jpos, None)
     _, taux, _ = ttransformer._run_layers(tx, tp, tcfg, tpos, None)
     assert taux.dtype == torch.float32 and float(taux) > 0
