@@ -181,11 +181,12 @@ Phases, each fatal on failure:
      hd 256, window 2,048, RG-LRU width 2,560, vocabulary 256,000) drawn
      from the seed in bf16: (a) 8 requests of 2,560 tokens in batches of 4,
      16 tokens out, through ``run_serve``: no kernel launched (the
-     windowed attention is naive, the reference's rule), per-batch prefill
-     and decode-step times, time to first token, tokens/s, peak memory,
-     and the first batch's tokens equal to the model's own loop; (c) a
-     profiled prefill of that batch split into GEMMs, naive attention, the
-     RG-LRU scan, the causal conv and the rest, with its idle share; (b)
+     windowed prefill runs the blocked schedule, the reference's branch),
+     per-batch prefill and decode-step times, time to first token,
+     tokens/s, peak memory, and the first batch's tokens equal to the
+     model's own loop; (c) a profiled prefill of that batch split into
+     GEMMs, the blocked attention, the RG-LRU scan, the causal conv and the
+     rest, with its idle share; (b)
      the fp32 serve invariant (B 2, a 2,560-token prompt, 8 tokens, every
      decode step past the window) on fp32 parameters.
  23. whisper-medium at full width (24 encoder and 24 decoder layers, 1,024
@@ -193,10 +194,11 @@ Phases, each fatal on failure:
      positions; 793,101,312 parameters) drawn from the seed in bf16: the
      first served batch's requests (4 prompts of 384 tokens, each with its
      fp32 frames) prefilled with the kernel and with the naive attention,
-     last-token logits within MAX_PREFILL_LOGIT_DIFF, the attention calls
-     and their flash launches counted by kind (24 decoder self-attention
-     calls, one wgmma launch each at hd 64; the 24 encoder and 24 cross
-     calls naive, no launch); the serve stream through ``run_serve`` (one
+     last-token logits within MAX_PREFILL_LOGIT_DIFF, the attention calls,
+     their flash launches and their blocked calls counted by kind (24
+     decoder self-attention calls, one wgmma launch each at hd 64; the 24
+     encoder calls on the blocked schedule, the 24 cross calls naive, no
+     launch); the serve stream through ``run_serve`` (one
      batch of 4 requests, 64 tokens out; every flash launch on the wgmma
      kernel) with tokens/s, prefill and decode times and the time to first
      token, the batch equal to the model's own loop over the same frames; a
@@ -236,24 +238,51 @@ Phases, each fatal on failure:
      tokens, 72 launches on the tf32x3 kernel at hd 128.
  26. training: (a) each family's train step (internlm2-1.8b,
      granite-moe-3b-a800m at capacity factor E/k, rwkv6-7b,
-     recurrentgemma-2b, whisper-medium, llava-next-34b) at reduced() in
-     fp32 on the card against the same step on the CPU, same weights and
-     batches: the step-1 gradients within 1e-4 of each leaf's largest
-     magnitude, 5 losses within 1e-5 relative; (b) internlm2-1.8b at full
-     width (1,889,110,016 parameters in bf16, fp32 master, m and v, remat
-     full): the step-1 gradients finite and non-zero on every leaf; (b1)
-     12 steps of ``build_train_step`` overfitting one batch of 4 x 1,024
-     tokens (lr 1e-3, warmup 2, total 40: tests/test_training.py's
-     settings), the loss falling by 0.3 or more, every loss and gradient
-     norm finite, no flash launch; a profiled step split into the naive
-     attention, the AdamW update, the other GEMMs and the rest, with its
-     idle share; (b2) ``run_train`` on the stream (batch 4, 1,024 tokens,
-     8 steps) with its step times, tokens/s, ``realtime_report`` and peak
-     memory; (c) in a child process under deterministic algorithms
-     (``CUBLAS_WORKSPACE_CONFIG`` set), tests/test_training.py's bit-exact
-     resume at reduced(): 10 steps straight against 5, a save, a restore
-     and 5 more; (d) ``python -m repro_torch.launch.train --reduced`` with
-     a checkpoint directory, then again with ``--resume``.
+     recurrentgemma-2b, whisper-medium, llava-next-34b) at reduced() in fp32
+     on the card against the same step on the CPU, same weights and batches:
+     the step-1 gradients within 1e-4 of each leaf's largest magnitude, 5
+     losses within 1e-5 relative; (b) internlm2-1.8b at full width
+     (1,889,110,016 parameters in bf16, fp32 master, m and v, remat full):
+     the step-1 gradients finite and non-zero on every leaf; (b1) 12 steps
+     of ``build_train_step`` overfitting one batch of 4 x 1,024 tokens (lr
+     1e-3, warmup 2, total 40: tests/test_training.py's settings), the loss
+     falling by 0.3 or more, every loss and gradient norm finite, no flash
+     launch; a profiled step split into the blocked attention (the train
+     step's schedule for ``flash``), the AdamW update, the other GEMMs and
+     the rest, with its idle share; (b2) ``run_train`` on the stream (batch
+     4, 1,024 tokens, 8 steps) with its step times, tokens/s,
+     ``realtime_report`` and peak memory; (c) in a child process under
+     deterministic algorithms (``CUBLAS_WORKSPACE_CONFIG`` set),
+     tests/test_training.py's bit-exact resume at reduced(): 10 steps
+     straight against 5, a save, a restore and 5 more; (d) ``python -m
+     repro_torch.launch.train --reduced`` with a checkpoint directory, then
+     again with ``--resume``.
+ 27. the tiled schedules at full width: internlm2-1.8b (bf16 from the
+     seed) on train_4k's 4,096-token sequences: (a) one prefill of 1 x
+     4,096 tokens under ``flash`` (24 wgmma launches at hd 128),
+     ``blocked``, ``blocked`` with ``_skip_blocks`` and ``triangular``,
+     each timed, last-token logits within MAX_PREFILL_LOGIT_DIFF of
+     ``naive``'s, and in fp32 on layer 0's own q, k and v each tiled
+     schedule within 1e-5 of the naive attention; (b) ``build_train_step``
+     on 4 x 4,096 tokens (train_4k's batch of 256 cut to 4 for one card) on
+     the default schedule: 6 steps overfitting one batch with phase 26's
+     optimizer, the loss falling by 0.3 or more, every loss and gradient
+     norm finite; step time, tokens/s, peak memory, and a profiled step
+     split into the blocked attention, AdamW, the other GEMMs and the rest
+     with its idle share; (c) the same from the same state with
+     ``_skip_blocks``, then ``triangular``, 3 steps each: step 1's loss
+     within 1e-3 relative of (b)'s; step times, peak memory, tiles issued.
+ 28. the explicit-collective data-parallel trainer (``parallel/dp.py``) in
+     a child process under deterministic algorithms: (a) NCCL at world 1,
+     internlm2-1.8b at full width on 4 x 1,024 tokens with
+     tests/test_dp.py's optimizer, 4 steps of ``build_dp_train_step``
+     against 4 of ``build_train_step`` from the same state, then with
+     int8 against a plain int8 step written apart from the module, each
+     within tests/test_dp.py's bounds (losses 1e-2, parameters rtol 2e-2
+     and atol 2e-3); step times split into gradients, collectives and the
+     rest, peak memory; (b) two spawned gloo processes on the card at a
+     depth cut of 2 layers, 2 rows each, without and with int8, held to
+     the one-process step and the plain int8 step over the same rows.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
@@ -268,7 +297,8 @@ batches; the flash rows at hd 64 carry phase 20's, its serve stream as
 phase 23's as ``launches_audio`` and ``launches_audio_fp32_invariant``;
 the flash rows up to hd 128 carry phase 25's serve stream as
 ``launches_vlm``, its fp32 invariant as ``launches_vlm_fp32_invariant``,
-and phase 26's training runs as ``launches_train``, 0; every
+phase 26's training runs as ``launches_train``, 0, and phase 27's flash
+prefill as ``launches_schedules``; every
 flash row carries phase 9's own launches of its instances as
 ``launches_kernel_checks``), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
@@ -2154,7 +2184,7 @@ HYBRID_SERVE_ARGS = ["--arch", HYBRID_ARCH, "--requests", "8", "--batch",
                      "--seed", str(SEED)]
 HYBRID_INVARIANT_B, HYBRID_INVARIANT_STEPS = 2, 8
 # the profiled prefill's parts: the functions whose calls are labelled
-HYBRID_PARTS = {"naive attention": ("attention", "naive_attention"),
+HYBRID_PARTS = {"blocked attention": ("attention", "blocked_attention"),
                 "RG-LRU scan": ("rglru", "_rg_lru"),
                 "causal conv": ("rglru", "_causal_conv")}
 
@@ -2224,7 +2254,7 @@ def _split_by_part(torch, prof, labels) -> tuple[float, dict, dict, float]:
 
 def hybrid_profile(torch, dev, config, params, tokens) -> None:
     """Where a bf16 prefill of ``tokens`` spends the device's time: GEMMs,
-    the naive attention, the RG-LRU scan, the causal conv and the rest, by
+    the blocked attention, the RG-LRU scan, the causal conv and the rest, by
     the profiler (each kernel given to the part whose span it ran in), with
     the idle share against the prefill's wall time (profiled; the host
     clock around work that ends in a synchronize). Reported: a trace that
@@ -2327,11 +2357,13 @@ def hybrid_phase(torch, dev, smi: str) -> dict:
     256,000), drawn from the seed in bf16: (a) the serve stream through
     ``run_serve`` (HYBRID_SERVE_ARGS: 2,560-token prompts, so each prefill
     masks by the window and rotates its last 2,048 keys into the cache and
-    each decode step wraps), no kernel launched (the windowed attention
-    is naive, the reference's rule), the first batch's tokens equal to the
-    model's own prefill/decode_step loop; (c) the profiled prefill of that
-    batch; (b) the fp32 invariant past the window on fp32 parameters drawn
-    after the bf16 ones left. Returns the kernels' launches in (a)."""
+    each decode step wraps), no kernel launched (the windowed prefill
+    runs the blocked schedule, the reference's branch past
+    ``attention_block_q``, and a decode step the naive attention), the
+    first batch's tokens equal to the model's own prefill/decode_step loop;
+    (c) the profiled prefill of that batch; (b) the fp32 invariant past the
+    window on fp32 parameters drawn after the bf16 ones left. Returns the
+    kernels' launches in (a)."""
     import numpy as np
 
     from repro_torch import kernels
@@ -2364,7 +2396,7 @@ def hybrid_phase(torch, dev, smi: str) -> dict:
     print(f"  (a) launches {counts}: flash_attention 0, as the reference "
           f"rules for a window (it takes its kernel at window 0 only, "
           f"repro/models/attention.py:258), so the windowed prefill runs the "
-          f"naive attention in both packages", flush=True)
+          f"blocked schedule in both packages", flush=True)
     if any(counts.values()) or any(res["launches"].values()):
         raise AssertionError(f"kernels launched: {counts}")
     rng = np.random.default_rng(args.seed)      # run_serve's prompts
@@ -2428,44 +2460,56 @@ def _attention_calls(labels: bool = False):
     """Every ``attention_layer`` call inside the block, by kind: "encoder"
     (non-causal self-attention), "cross" (``kv_source`` or
     ``precomputed_kv``) and "decoder" (causal self-attention). Yields
-    {kind: [calls, flash launches]}, the launches read from the wrapper's
-    count around each call; with ``labels``, each call also runs under a
-    ``record_function`` named by ``ATTENTION_KINDS``."""
+    {kind: [calls, flash launches, blocked calls]}, the launches read from
+    the wrapper's count around each call and the blocked calls counted by
+    a wrapper of ``blocked_attention``; with ``labels``, each call also
+    runs under a ``record_function`` named by ``ATTENTION_KINDS``."""
     from torch.profiler import record_function
 
     from repro_torch import kernels
     from repro_torch.models import attention
 
-    fn = attention.attention_layer
-    seen = {kind: [0, 0] for kind in ATTENTION_KINDS}
+    fn, blocked = attention.attention_layer, attention.blocked_attention
+    seen = {kind: [0, 0, 0] for kind in ATTENTION_KINDS}
+    tiled = [0]
+
+    def counted(*args, **kw):
+        tiled[0] += 1
+        return blocked(*args, **kw)
 
     def wrapped(x, params, config, positions, cache=None, kv_source=None,
                 precomputed_kv=None, causal=True, window=0):
         kind = ("cross" if kv_source is not None or precomputed_kv is not None
                 else "decoder" if causal else "encoder")
-        before = kernels.launch_counts()["flash_attention"]
+        before = kernels.launch_counts()["flash_attention"], tiled[0]
         with (record_function(ATTENTION_KINDS[kind]) if labels
               else contextlib.nullcontext()):
             out = fn(x, params, config, positions, cache=cache,
                      kv_source=kv_source, precomputed_kv=precomputed_kv,
                      causal=causal, window=window)
         seen[kind][0] += 1
-        seen[kind][1] += kernels.launch_counts()["flash_attention"] - before
+        seen[kind][1] += kernels.launch_counts()["flash_attention"] - before[0]
+        seen[kind][2] += tiled[0] - before[1]
         return out
 
     attention.attention_layer = wrapped
+    attention.blocked_attention = counted
     try:
         yield seen
     finally:
         attention.attention_layer = fn
+        attention.blocked_attention = blocked
 
 
 def audio_prefill_check(torch, dev, config, params, tokens, frames) -> None:
     """The bf16 prefill of ``tokens`` over ``frames`` with the kernel and
     with the naive attention: last-token logits within
-    MAX_PREFILL_LOGIT_DIFF; the kernel's launches by call kind, exactly one
-    a decoder layer (its causal self-attention, on the wgmma kernel at hd
-    64) and none from the encoder or from cross-attention; both timed."""
+    MAX_PREFILL_LOGIT_DIFF; the calls by kind: the kernel launched exactly
+    once a decoder layer (its causal self-attention, on the wgmma kernel at
+    hd 64) and never from the encoder or from cross-attention, and the
+    blocked schedule run once an encoder layer (1,500 frames past
+    ``attention_block_q``, the reference's branch) and nowhere else; both
+    timed."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.models import whisper
@@ -2492,14 +2536,15 @@ def audio_prefill_check(torch, dev, config, params, tokens, frames) -> None:
     agree = int((lk.argmax(-1) == ln.argmax(-1)).sum())
     print(f"  bf16 prefill of {tokens.shape[0]} x {tokens.shape[1]} tokens "
           f"over {frames.shape[1]} frames: attention calls [calls, flash "
-          f"launches] {calls}; kernel ({launched} launches, {by_instance}) "
+          f"launches, blocked calls] {calls}; kernel ({launched} launches, "
+          f"{by_instance}) "
           f"against naive attention: last-token logits max|diff| {diff:.4g} "
           f"(limit {MAX_PREFILL_LOGIT_DIFF}; max|logit| "
           f"{float(ln.float().abs().max()):.3g}), greedy tokens agree "
           f"{agree}/{tokens.shape[0]}; prefill {ms_k:.2f} ms with the kernel, "
           f"{ms_n:.2f} ms naive", flush=True)
-    want = {"encoder": [config.encoder_layers, 0], "cross": [n, 0],
-            "decoder": [n, n]}
+    want = {"encoder": [config.encoder_layers, 0, config.encoder_layers],
+            "cross": [n, 0, 0], "decoder": [n, n, 0]}
     if calls != want:
         raise AssertionError(f"attention calls {calls}, expected {want}")
     if by_instance != {("wgmma", config.resolved_head_dim): n}:
@@ -2512,7 +2557,7 @@ def audio_prefill_check(torch, dev, config, params, tokens, frames) -> None:
 
 def audio_profile(torch, dev, config, params, tokens, frames) -> None:
     """Where a bf16 prefill spends the device's time, by the profiler: the
-    encoder's self-attention calls (naive), the cross-attention calls
+    encoder's self-attention calls (blocked), the cross-attention calls
     (naive) and the decoder's self-attention calls (flash), each with its
     GEMMs, then the GEMMs outside the attention calls and the rest, each
     kernel given to the attention call whose span it ran in; the idle share
@@ -2550,8 +2595,8 @@ def audio_profile(torch, dev, config, params, tokens, frames) -> None:
           f"(profiled): wall {wall:.2f} ms, device busy {busy:.2f} ms, idle "
           f"share {max(0.0, 1 - busy / wall):.3f}; the encoder's "
           f"self-attention calls {part[enc]:.2f} ms (GEMMs "
-          f"{part_gemm[enc]:.2f}: the projections in bf16 and the naive "
-          f"attention's fp32 products), cross-attention {part[cross]:.2f} ms "
+          f"{part_gemm[enc]:.2f}: the projections in bf16 and the blocked "
+          f"schedule's fp32 products), cross-attention {part[cross]:.2f} ms "
           f"(GEMMs {part_gemm[cross]:.2f}), the decoder's self-attention "
           f"{part[dec]:.2f} ms (flash {flash:.2f}, GEMMs "
           f"{part_gemm[dec]:.2f}), GEMMs outside the attention calls "
@@ -3225,18 +3270,21 @@ def _group_rank(rank: int, world: int, init: str, device: str,
         raise
 
 
-def _spawn_group(world: int, tmp: Path, dev) -> list[dict]:
-    """``_group_rank`` in ``world`` spawned processes; every process is
-    stopped before this returns, and a rank that raises, dies or outlives
-    the time limit fails the phase."""
+def _spawn_group(world: int, tmp: Path, dev, target=None,
+                 extra: tuple = ()) -> list[dict]:
+    """``target`` (``_group_rank`` by default) in ``world`` spawned
+    processes, each given (rank, world, the store's URL, the device, the
+    results queue, *extra); every process is stopped before this returns,
+    and a rank that raises, dies or outlives the time limit fails the
+    phase."""
     import multiprocessing as mp
     import queue
 
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     init = f"file://{tmp / 'gloo_store'}"
-    procs = [ctx.Process(target=_group_rank,
-                         args=(r, world, init, str(dev), results),
+    procs = [ctx.Process(target=target or _group_rank,
+                         args=(r, world, init, str(dev), results, *extra),
                          daemon=True) for r in range(world)]
     got: dict[int, dict] = {}
     deadline = time.monotonic() + GROUP_TIMEOUT_S
@@ -3800,12 +3848,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 1024, 12
 TRAIN_MIN_DROP = 0.3            # tests/test_training.py:32
 TRAIN_STREAM_ARGS = ["--arch", TRAIN_ARCH, "--batch", "4", "--seq", "1024",
                      "--steps", "8", "--seed", str(SEED)]
-TRAIN_PARTS = {"naive attention": ("attention", "naive_attention"),
+ATTENTION_PART = "blocked attention"
+TRAIN_PARTS = {ATTENTION_PART: ("attention", "blocked_attention"),
                "AdamW update": ("repro_torch.training", "adamw_update")}
-# the backward nodes of the naive attention's own operations (the dense
-# model's only batched products, its softmax and its mask)
-ATTENTION_BACKWARD = ("BmmBackward0", "SoftmaxBackward0",
-                      "MaskedFillBackward0")
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "4", "--batch",
              "2", "--seq", "32", "--ckpt-every", "2"]
 
@@ -3904,37 +3949,55 @@ def train_parity(torch, dev) -> None:
                                  f"CPU's {losses['cpu']}")
 
 
-def _train_part(names: list[str]) -> str | None:
-    """The part of the step a kernel belongs to, from the names of the
-    operation that launched it and its callers, innermost first: the
-    nearest label decides, and the nearest backward node, if it comes
-    first, gives its own work (the naive attention's batched products,
-    softmax and mask) to the attention and the rest to no part, so that a
-    block recomputed in a backward node is not charged to that node."""
-    for name in names:
-        if name in TRAIN_PARTS:
-            return name
-        if name.startswith("autograd::engine::evaluate_function"):
-            node = name.rsplit(": ", 1)[-1]
-            return "naive attention" if node in ATTENTION_BACKWARD else None
+def _attention_ops(torch, prof) -> set:
+    """(thread, sequence number) of every operation that ran inside an
+    ATTENTION_PART span, recomputed ones included: the keys by which the
+    backward nodes of those operations name their forward op."""
+    cpu = torch.autograd.DeviceType.CPU
+    seen = set()
+    for ev in prof.events():
+        if ev.device_type != cpu or ev.sequence_nr < 0:
+            continue
+        up = ev.cpu_parent
+        while up is not None:
+            if up.name == ATTENTION_PART:
+                seen.add((ev.thread, ev.sequence_nr))
+                break
+            up = up.cpu_parent
+    return seen
+
+
+def _train_part(ev, attention_ops: set) -> str | None:
+    """The part of the step a kernel's launching operation ``ev`` belongs
+    to, from it and its callers, innermost first: the nearest label
+    decides, and the nearest backward node, if it comes first, gives its
+    work to the attention when its forward op ran in the attention
+    (``_attention_ops``) and to no part otherwise, so that a block
+    recomputed in a backward node is not charged to that node."""
+    up = ev
+    while up is not None:
+        if up.name in TRAIN_PARTS:
+            return up.name
+        if up.name.startswith("autograd::engine::evaluate_function"):
+            key = (up.fwd_thread, up.sequence_nr)
+            return ATTENTION_PART if key in attention_ops else None
+        up = up.cpu_parent
     return None
 
 
 def _train_split(torch, prof) -> tuple[float, dict]:
     """A profiled step's device time in ms, and its kernels' time by part:
-    the naive attention (its forward, recomputed or not, and its own
-    backward nodes), the AdamW update, the GEMMs elsewhere, the rest."""
+    the blocked attention (its forward, recomputed or not, and the
+    backward nodes of its operations), the AdamW update, the GEMMs
+    elsewhere, the rest."""
     cpu = torch.autograd.DeviceType.CPU
-    part = {"naive attention": 0.0, "AdamW update": 0.0, "GEMMs": 0.0,
+    part = {ATTENTION_PART: 0.0, "AdamW update": 0.0, "GEMMs": 0.0,
             "the rest": 0.0}
+    attention_ops = _attention_ops(torch, prof)
     for ev in prof.events():
         if ev.device_type != cpu or not ev.kernels:
             continue
-        names, up = [], ev
-        while up is not None:
-            names.append(up.name)
-            up = up.cpu_parent
-        label = _train_part(names)
+        label = _train_part(ev, attention_ops)
         for k in ev.kernels:
             ms = k.duration / 1e3
             if label is not None:
@@ -3944,6 +4007,31 @@ def _train_split(torch, prof) -> tuple[float, dict]:
             else:
                 part["the rest"] += ms
     return sum(part.values()), part
+
+
+def _profiled_step(torch, step, state: dict, batch: dict) -> dict:
+    """One train step under the profiler, its split by ``_train_split``
+    printed with its idle share against the step's wall time (the host
+    clock around work that ends in reading the loss). Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with _labelled(TRAIN_PARTS), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, part = _train_split(torch, prof)
+    if busy == 0:
+        print("      the profiled step's trace came back empty; its device "
+              "time not measured", flush=True)
+    else:
+        print(f"      a profiled step: wall {wall:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in part.items()),
+              flush=True)
+    return state
 
 
 def train_full_width(torch, dev) -> dict:
@@ -3959,14 +4047,13 @@ def train_full_width(torch, dev) -> dict:
     memory of each. Returns the flash launches by instance of (b1) and
     (b2)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.train import parse_args, run_train
     from repro_torch.training import (build_train_step, init_state,
-                                      loss_and_grads)
+                                      loss_and_grads, train_config)
     from repro_torch.utils import tree_leaves
 
     config = get_config(TRAIN_ARCH)
@@ -3989,7 +4076,7 @@ def train_full_width(torch, dev) -> dict:
                          TRAIN_B, TRAIN_S, dev)
     kernels.reset_launch_counts()
     _, _, grads = loss_and_grads(state["params"], batch,
-                                 config.replace(attention_impl="naive"))
+                                 train_config(config))
     flat = tree_leaves(grads)
     zero = sum(1 for g in flat if not float(g.float().abs().max()) > 0)
     finite = all(bool(torch.isfinite(g).all()) for g in flat)
@@ -4026,23 +4113,8 @@ def train_full_width(torch, dev) -> dict:
     if any(kernels.launch_counts().values()):
         raise AssertionError(f"kernels launched in training: "
                              f"{kernels.launch_counts()}")
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with _labelled(TRAIN_PARTS), profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
-        wall = (time.perf_counter() - t0) * 1e3
-    busy, part = _train_split(torch, prof)
-    if busy == 0:
-        print("      the profiled step's trace came back empty; its device "
-              "time not measured", flush=True)
-    else:
-        print(f"      a profiled step: wall {wall:.2f} ms, device busy "
-              f"{busy:.2f} ms, idle share {max(0.0, 1 - busy / wall):.3f}; "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in part.items()),
-              flush=True)
-    del state, m, batch
+    state = _profiled_step(torch, step, state, batch)
+    del state, batch
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
@@ -4178,6 +4250,608 @@ def train_phase(torch, dev, smi: str) -> dict:
     print(f"  training OK: flash launches {_launched(launched)}; "
           f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
     return launched
+
+
+# phase 27: the tiled schedules at full width on internlm2-1.8b: a prefill
+# of one train_4k sequence under each attention_impl, and the train step on
+# 4 x 4,096 tokens (train_4k's batch of 256, configs/base.py SHAPES, cut to
+# 4 for one card)
+SCHED_S = 4096
+SCHED_TRAIN_B, SCHED_TRAIN_STEPS, SCHED_C_STEPS = 4, 6, 3
+SCHED_LOSS_RTOL = 1e-3
+# label -> (attention_impl, the _skip_blocks override)
+SCHEDULES = {"flash": ("flash", False), "blocked": ("blocked", False),
+             "blocked, _skip_blocks": ("blocked", True),
+             "triangular": ("triangular", False)}
+
+
+def _schedule(config, label: str):
+    impl, skip = SCHEDULES[label]
+    return config.replace(attention_impl=impl, sharding_overrides=(
+        {"_skip_blocks": True} if skip else {}))
+
+
+def _tiles(config, label: str, S: int) -> str:
+    """The tiles one causal self-attention call of S positions issues under
+    the schedule, and their share of the S x S area."""
+    from repro_torch.models import attention
+
+    impl, skip = SCHEDULES[label]
+    bq, bkv = config.attention_block_q, config.attention_block_kv
+    nq, nk = -(-S // bq), -(-S // bkv)
+    if impl == "triangular":
+        n = sum(map(len, attention.triangular_tiles(nq, bq, 0)))
+        return f"{n} of {nq * nq} tiles of {bq} x {bq}"
+    n = sum(map(len, attention.blocked_tiles(nq, nk, bq, bkv, True, 0,
+                                             skip)))
+    return f"{n} of {nq * nk} tiles of {bq} x {bkv}"
+
+
+def schedule_prefill(torch, dev, config, params) -> dict:
+    """(a) One bf16 prefill of 1 x SCHED_S tokens under each schedule and
+    under ``naive``, each timed: the last-token logits within
+    MAX_PREFILL_LOGIT_DIFF of naive's; ``flash`` launches the wgmma kernel
+    once a layer at hd 128, the others launch nothing. Then, on layer 0's
+    own q, k and v from the naive run in fp32, each tiled schedule within
+    FLASH_TOL["float32"] of the naive attention, each timed. Returns the
+    flash launches by instance of the flash prefill."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import attention, transformer
+
+    rng = np.random.default_rng(SEED + 27)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, config.vocab_size, (1, SCHED_S))).to(dev)}
+    naive = config.replace(attention_impl="naive")
+    core, layer = attention.attention_core, []
+
+    def first_call(q, k, v, qpos, kpos, cfg, causal=True, window=0):
+        if not layer:
+            layer.append((q, k, v, qpos, kpos))
+        return core(q, k, v, qpos, kpos, cfg, causal, window)
+
+    logits, ms, launched = {}, {}, {}
+    with torch.inference_mode():
+        attention.attention_core = first_call
+        try:
+            logits["naive"], _ = transformer.prefill(params, batch, naive)
+        finally:
+            attention.attention_core = core
+        ms["naive"] = _time_ms(torch, lambda: transformer.prefill(
+            params, batch, naive), reps=3, warmup=1)
+        for label in SCHEDULES:
+            cfg = _schedule(config, label)
+            kernels.reset_launch_counts()
+            logits[label], _ = transformer.prefill(params, batch, cfg)
+            launched[label] = _launched(
+                fk.flash_attention.launches_by_instance)
+            ms[label] = _time_ms(torch, lambda cfg=cfg: transformer.prefill(
+                params, batch, cfg), reps=3, warmup=1)
+    want = logits.pop("naive")
+    if not torch.isfinite(want).all():
+        raise AssertionError("non-finite naive prefill logits")
+    print(f"  (a) bf16 prefill of 1 x {SCHED_S} tokens: naive "
+          f"{ms['naive']:.2f} ms", flush=True)
+    for label, got in logits.items():
+        diff = _max_err(torch, got.float(), want.float())
+        print(f"      {label}: {ms[label]:.2f} ms, flash launches "
+              f"{launched[label]}, last-token logits max|diff| from naive "
+              f"{diff:.4g} (limit {MAX_PREFILL_LOGIT_DIFF}); tiles a call "
+              f"{_tiles(config, label, SCHED_S) if label != 'flash' else '-'}",
+              flush=True)
+        if not torch.isfinite(got).all() or not diff <= MAX_PREFILL_LOGIT_DIFF:
+            raise AssertionError(f"{label}: prefill logits differ from naive "
+                                 f"by {diff}")
+        expect = ({("wgmma", config.resolved_head_dim): config.num_layers}
+                  if label == "flash" else {})
+        if launched[label] != expect:
+            raise AssertionError(f"{label}: flash launches {launched[label]}"
+                                 f", expected {expect}")
+    q, k, v, qpos, kpos = (t.float() if t.is_floating_point() else t
+                           for t in layer[0])
+    bq, bkv = config.attention_block_q, config.attention_block_kv
+    fns = {"naive": lambda: attention.naive_attention(q, k, v, qpos, kpos),
+           "blocked": lambda: attention.blocked_attention(
+               q, k, v, qpos, kpos, True, 0, bq, bkv),
+           "blocked, _skip_blocks": lambda: attention.blocked_attention(
+               q, k, v, qpos, kpos, True, 0, bq, bkv, skip_blocks=True),
+           "triangular": lambda: attention.triangular_attention(
+               q, k, v, qpos, kpos, True, 0, bq)}
+    tol = FLASH_TOL["float32"]
+    with torch.inference_mode():
+        ref = fns["naive"]()
+        line = []
+        for label, fn in fns.items():
+            err = _max_err(torch, fn(), ref)
+            t = _time_ms(torch, fn, reps=5, warmup=1)
+            line.append(f"{label} {t:.2f} ms" + (
+                "" if label == "naive" else f" (max|diff| {err:.3g})"))
+            if not err <= tol:
+                raise AssertionError(f"fp32 {label} differs from naive by "
+                                     f"{err} > {tol}")
+    print(f"  (a) fp32 on layer 0's own q, k, v {tuple(q.shape)} (tol "
+          f"{tol}, max|out| {float(ref.abs().max()):.3g}): "
+          + ", ".join(line), flush=True)
+    del layer, q, k, v, ref
+    return launched["flash"]
+
+
+def _train_run(torch, dev, config, opt, batch, steps: int) -> dict:
+    """``steps`` steps of ``build_train_step`` from the seed's state on one
+    repeated batch: losses, gradient norms, step times, peak memory; the
+    state is released before it returns unless asked for."""
+    from repro_torch import kernels
+    from repro_torch.training import build_train_step, init_state
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED),
+                       config, opt)
+    step = build_train_step(config, opt)
+    kernels.reset_launch_counts()
+    losses, gnorms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    import numpy as np
+    if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"non-finite losses {losses} or gradient norms "
+                             f"{gnorms}")
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"kernels launched in training: "
+                             f"{kernels.launch_counts()}")
+    tokens = batch["tokens"].numel()
+    return {"state": state, "step": step, "losses": losses,
+            "gnorms": gnorms, "times": times,
+            "tokens_per_s": tokens * (steps - 1) / sum(times[1:]),
+            "peak": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def schedule_train(torch, dev, config) -> None:
+    """(b) ``build_train_step`` at full width on SCHED_TRAIN_B x SCHED_S
+    tokens on the default schedule (``flash``, trained as ``blocked``):
+    SCHED_TRAIN_STEPS steps overfitting one batch with phase 26's
+    optimizer, the loss falling by TRAIN_MIN_DROP and every loss and
+    gradient norm finite; step time, tokens/s, peak memory; a profiled step
+    split by ``_train_split`` with its idle share. (c) The same from the
+    same state with ``_skip_blocks``, then ``triangular``,
+    SCHED_C_STEPS steps each: step 1's loss within SCHED_LOSS_RTOL of
+    (b)'s; step times, tokens/s, peak memory and the tiles issued."""
+    import numpy as np
+
+    opt = _opt_config()
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(
+        SEED + 28).integers(0, config.vocab_size,
+                            (SCHED_TRAIN_B, SCHED_S))).to(dev)}
+    run = _train_run(torch, dev, config, opt, batch, SCHED_TRAIN_STEPS)
+    losses = run["losses"]
+    print(f"  (b) {SCHED_TRAIN_STEPS} steps of {SCHED_TRAIN_B} x {SCHED_S} "
+          f"tokens on {config.attention_impl!r}, trained as 'blocked' (lr "
+          f"{opt.lr}, warmup {opt.warmup_steps}): losses "
+          f"{[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(x, 3) for x in run['gnorms']]}; step times (s) "
+          f"{[round(x, 4) for x in run['times']]}, from the second "
+          f"{run['tokens_per_s']:.0f} tokens/s; peak device memory "
+          f"{run['peak']:.2f} GB; tiles a call "
+          f"{_tiles(config, 'blocked', SCHED_S)}", flush=True)
+    if not losses[-1] < losses[0] - TRAIN_MIN_DROP:
+        raise AssertionError(f"the loss fell from {losses[0]} to "
+                             f"{losses[-1]}, not by {TRAIN_MIN_DROP}")
+    _profiled_step(torch, run.pop("step"), run.pop("state"), batch)
+    for label in ("blocked, _skip_blocks", "triangular"):
+        c = _train_run(torch, dev, _schedule(config, label), opt, batch,
+                       SCHED_C_STEPS)
+        del c["state"], c["step"]
+        rel = abs(c["losses"][0] - losses[0]) / abs(losses[0])
+        print(f"  (c) {label}: losses {[round(x, 4) for x in c['losses']]} "
+              f"(step 1 {rel:.3g} from (b)'s, limit {SCHED_LOSS_RTOL}); step "
+              f"times (s) {[round(x, 4) for x in c['times']]}, from the "
+              f"second {c['tokens_per_s']:.0f} tokens/s; peak device memory "
+              f"{c['peak']:.2f} GB; tiles a call "
+              f"{_tiles(config, label, SCHED_S)}", flush=True)
+        if not rel <= SCHED_LOSS_RTOL:
+            raise AssertionError(f"{label}: step 1's loss {c['losses'][0]} "
+                                 f"against (b)'s {losses[0]}")
+    torch.cuda.empty_cache()
+
+
+def schedules_phase(torch, dev, smi: str) -> dict:
+    """Phase 27: internlm2-1.8b at full width (the reference's config,
+    bf16 from the seed) on train_4k's 4,096-token sequences: (a)
+    ``schedule_prefill``; (b) and (c) ``schedule_train``. Returns (a)'s
+    flash launches by instance."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"  {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated on "
+          f"the card before the draw", flush=True)
+    config = get_config(ARCH)
+    params = _draw(torch, dev, config)
+    launched = schedule_prefill(torch, dev, config, params)
+    del params
+    schedule_train(torch, dev, config)
+    print(f"  the schedules at {SCHED_S} tokens OK: flash launches "
+          f"{launched}; {time.perf_counter() - t_phase:.1f} s, on {smi}",
+          flush=True)
+    return launched
+
+
+# phase 28: the explicit-collective data-parallel trainer (parallel/dp.py),
+# in a child process under deterministic algorithms, so that every run
+# from one state computes the same gradients: (a) NCCL at world 1 at full
+# width, (b) two gloo processes on the card at a cut depth
+DP_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=50, zero1=False,
+              grad_clip=1.0, weight_decay=0.0)      # tests/test_dp.py:17-18
+DP_STEPS = 4
+DP_LOSS_ATOL = 1e-2                                 # tests/test_dp.py:34-44
+DP_RTOL, DP_ATOL = 2e-2, 2e-3
+# tests/test_dp.py holds every parameter of the reduced model to these
+# bounds; of the 1.89 B at full width a few elements whose gradients are
+# within round-off of zero step by +-lr differently in the two runs
+# (AdamW's first steps move an element by about lr · sign(g)): a share of
+# at most DP_OFF_SHARE may lie outside them, each within DP_PART (two
+# trajectories of DP_STEPS AdamW steps of at most lr · 1.002, the largest
+# |m_hat / sqrt(v_hat)| at steps 1-4, apart, weight decay 0) plus one bf16
+# ulp of the parameter
+DP_OFF_SHARE = 1e-6
+DP_PART = 2 * DP_STEPS * DP_OPT["lr"] * 1.002
+DP_GLOO_WORLD, DP_GLOO_LAYERS = 2, 2
+
+
+def _dp_plain_step(torch, config, opt, compression):
+    """The plain version of the DP step, written apart from parallel/dp.py:
+    each rank's gradients in turn in this process (one batch a rank),
+    reduced by their mean or, with int8, by the reference's codes on one
+    shared scale (max |g| over the ranks / 127, rounded, clipped to ±127,
+    summed in int32, times scale / W), then the one-process AdamW
+    (``adamw_update``; DP_OPT decays nothing, so its per-leaf rule and the
+    DP path's flat one agree) on the whole tree. ``step(state, batches)``
+    returns (state, the ranks' mean loss)."""
+    from repro_torch.optim import adamw_update
+    from repro_torch.training import loss_and_grads, train_config
+    from repro_torch.utils import tree_leaves, tree_map
+
+    config = train_config(config)
+
+    def step(state, batches):
+        losses, grads = [], []
+        for b in batches:
+            loss, _, g = loss_and_grads(state["params"], b, config)
+            losses.append(loss)
+            grads.append(g)
+        W = len(batches)
+        if compression == "int8":
+            amax = torch.stack([g.abs().max().float() for tree in grads
+                                for g in tree_leaves(tree)]).max()
+            scale = torch.clamp(amax / 127.0, min=1e-12)
+
+            def reduce(*gs):
+                total = sum(torch.clamp(torch.round(g.float() / scale), -127,
+                                        127).to(torch.int32) for g in gs)
+                return total.to(torch.float32) * scale / W
+        else:
+            def reduce(*gs):
+                return sum(g.float() for g in gs) / W
+        reduced = tree_map(reduce, *grads)
+        del grads
+        params, opt_state, _ = adamw_update(state["params"], reduced,
+                                            state["opt"], opt)
+        return ({"params": params, "opt": opt_state},
+                torch.stack(losses).mean())
+
+    return step
+
+
+@contextlib.contextmanager
+def _dp_timers(torch):
+    """Seconds in the DP step's gradients (``loss_and_grads``) and in its
+    collectives (``_Wire``'s methods, with their host staging), each
+    between synchronizes."""
+    from repro_torch.parallel import dp
+
+    spent = {"compute": 0.0, "collectives": 0.0}
+    saved = [(dp, "loss_and_grads", "compute")] + [
+        (dp._Wire, name, "collectives") for name in
+        ("all_reduce", "reduce_scatter", "all_to_all", "all_gather")]
+    originals = [(owner, name, getattr(owner, name))
+                 for owner, name, _ in saved]
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    for (owner, name, key), (_, _, fn) in zip(saved, originals):
+        setattr(owner, name, timed(fn, key))
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in originals:
+            setattr(owner, name, fn)
+
+
+def _dp_run(torch, dev, kind: str, config, opt, batch, group=None,
+            compression=None, shares: int = 1) -> dict:
+    """DP_STEPS steps from the seed's parameters: ``kind`` "one" is the
+    one-process ``build_train_step`` on ``batch``; "plain" is
+    ``_dp_plain_step`` over ``shares`` equal shares of ``batch``, one a
+    rank;
+    "dp" is ``build_dp_train_step`` on this rank's share. Returns the
+    losses, step times, the DP step's split, peak memory and the final
+    parameters on the host."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import (build_dp_train_step,
+                                      init_dp_opt_state, shard_batch)
+    from repro_torch.training import build_train_step, init_state
+    from repro_torch.utils import tree_leaves
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if kind == "dp":
+        params = get_model(config).init(gen, config)
+        state = {"params": params,
+                 "opt": init_dp_opt_state(params, group, opt)}
+        dp_step = build_dp_train_step(config, opt, group, compression)
+        mine = shard_batch(batch, group)
+
+        def step(state):
+            state, m = dp_step(state, mine)
+            return state, m["loss"]
+    else:
+        state = init_state(gen, config, opt)
+        if kind == "one":
+            one_step = build_train_step(config, opt)
+
+            def step(state):
+                state, m = one_step(state, batch)
+                return state, m["loss"]
+        else:
+            plain = _dp_plain_step(torch, config, opt, compression)
+            n = batch["tokens"].shape[0] // shares
+            parts = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                     for i in range(shares)]
+
+            def step(state):
+                return plain(state, parts)
+    losses, times = [], []
+    with _dp_timers(torch) as spent:
+        for i in range(DP_STEPS):
+            if i == 1:                  # a step's split from the second
+                first = dict(spent)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            state, loss = step(state)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+    split = {k: (v - first[k]) / (DP_STEPS - 1) for k, v in spent.items()}
+    return {"losses": losses, "times": times, "split": split,
+            "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "params": [p.detach().cpu() for p in
+                       tree_leaves(state["params"])]}
+
+
+def _dp_held(torch, dev, got: dict, want: dict) -> dict:
+    """Two runs' losses and parameters: the largest loss difference; the
+    largest parameter difference; the elements outside rtol DP_RTOL and
+    atol DP_ATOL, and their share; the elements farther apart than two
+    AdamW trajectories can part (DP_PART) plus one bf16 ulp of the
+    parameter."""
+    loss = max(abs(a - b) for a, b in zip(got["losses"], want["losses"]))
+    worst, bad, beyond, n = 0.0, 0, 0, 0
+    for a, b in zip(got["params"], want["params"]):
+        a, b = a.to(dev).float(), b.to(dev).float()
+        d, mag = (a - b).abs(), b.abs()
+        worst = max(worst, float(d.max()))
+        bad += int((d > DP_ATOL + DP_RTOL * mag).sum())
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        beyond += int((d > DP_PART + ulp).sum())
+        n += d.numel()
+    return {"loss": loss, "worst": worst, "bad": bad, "share": bad / n,
+            "beyond": beyond}
+
+
+def _dp_ok(held: dict) -> bool:
+    return (held["loss"] <= DP_LOSS_ATOL and held["share"] <= DP_OFF_SHARE
+            and held["beyond"] == 0)
+
+
+def _dp_report(held: dict) -> str:
+    return (f"max |loss diff| {held['loss']:.3g} (limit {DP_LOSS_ATOL}), "
+            f"max |param diff| {held['worst']:.3g}, {held['bad']} elements "
+            f"outside rtol {DP_RTOL}, atol {DP_ATOL} (a {held['share']:.3g} "
+            f"share, limit {DP_OFF_SHARE}), {held['beyond']} beyond two "
+            f"AdamW trajectories ({DP_PART:.4g} + one bf16 ulp)")
+
+
+def _dp_line(label: str, run: dict) -> str:
+    steps = run["times"][1:]
+    split = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                      run["split"].items() if v)
+    return (f"{label}: losses {[round(x, 5) for x in run['losses']]}, step "
+            f"times (s) {[round(x, 4) for x in run['times']]}, from the "
+            f"second {sum(steps) / len(steps) * 1e3:.1f} ms a step"
+            + (f" (a step's mean: {split})" if split else "")
+            + f"; peak device memory {run['peak']:.2f} GB")
+
+
+def _dp_check(torch, dev, label: str, got: dict, want: dict,
+              held: bool = True) -> bool:
+    """Prints how far ``got`` is from ``want``; whether it is within the
+    bounds (always True when only reported)."""
+    res = _dp_held(torch, dev, got, want)
+    print(f"      {label}: {_dp_report(res)}"
+          + ("" if held else " (reported)"), flush=True)
+    return not held or _dp_ok(res)
+
+
+def _dp_gloo_rank(rank: int, world: int, init: str, device: str, results,
+                  ref_path: str) -> None:
+    """One of phase 28 (b)'s processes: the DP step over a gloo group on
+    the card at DP_GLOO_LAYERS layers, without and with int8, each held to
+    the plain runs in ``ref_path``."""
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.use_deterministic_algorithms(True)
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        dist.init_process_group("gloo", init_method=init, rank=rank,
+                                world_size=world)
+        try:
+            from repro_torch.configs import get_config
+            from repro_torch.configs.base import OptimizerConfig
+
+            ref = torch.load(ref_path)
+            config = get_config(TRAIN_ARCH).replace(
+                num_layers=DP_GLOO_LAYERS)
+            opt = OptimizerConfig(**DP_OPT)
+            batch = {"tokens": ref["tokens"].to(dev)}
+            out = {}
+            for comp in (None, "int8"):
+                run = _dp_run(torch, dev, "dp", config, opt, batch,
+                              dist.group.WORLD, comp)
+                out[comp] = {"line": _dp_line(f"rank {rank}, "
+                                              f"{comp or 'uncompressed'}",
+                                              run),
+                             "held": _dp_held(torch, dev, run, ref[comp])}
+                del run
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def dp_child() -> int:
+    """Phase 28, in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``, under deterministic algorithms. (a) NCCL
+    at world 1 (a group from a ``FileStore``) with internlm2-1.8b at full
+    width on TRAIN_B x TRAIN_S tokens with tests/test_dp.py's optimizer:
+    DP_STEPS steps of ``build_dp_train_step`` against the one-process
+    ``build_train_step`` from the same state, then with int8 against the
+    plain int8 step (``_dp_plain_step``), each within tests/test_dp.py's
+    bounds (the int8 run's distance from the uncompressed step reported);
+    step times split into gradients, collectives and the rest, peak
+    memory. (b) DP_GLOO_WORLD spawned processes on the card over gloo at
+    DP_GLOO_LAYERS layers (the depth cut), each on its TRAIN_B /
+    DP_GLOO_WORLD rows, without and with int8, held to the one-process
+    step and the plain int8 step over the same rows at that depth."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    opt = OptimizerConfig(**DP_OPT)
+    config = get_config(TRAIN_ARCH)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 29).integers(
+        0, config.vocab_size, (TRAIN_B, TRAIN_S)))
+    batch = {"tokens": tokens.to(dev)}
+    OUT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            group = dist.group.WORLD
+            runs = {"one": _dp_run(torch, dev, "one", config, opt, batch)}
+            runs["dp"] = _dp_run(torch, dev, "dp", config, opt, batch, group)
+            runs["dp int8"] = _dp_run(torch, dev, "dp", config, opt, batch,
+                                      group, "int8")
+        finally:
+            dist.destroy_process_group()
+        runs["plain int8"] = _dp_run(torch, dev, "plain", config, opt,
+                                     batch, compression="int8")
+        print(f"  (a) {TRAIN_ARCH} at full width, {TRAIN_B} x {TRAIN_S} "
+              f"tokens, {DP_STEPS} steps (lr {opt.lr}, warmup "
+              f"{opt.warmup_steps}, weight decay {opt.weight_decay}), NCCL "
+              f"world 1, deterministic algorithms:", flush=True)
+        for label, run in runs.items():
+            print(f"      {_dp_line(label, run)}", flush=True)
+        failed = [label for label, a, b, held in (
+            ("DP against the one-process step", "dp", "one", True),
+            ("DP int8 against the plain int8 step", "dp int8", "plain int8",
+             True),
+            ("DP int8 against the uncompressed one-process step", "dp int8",
+             "one", False))
+            if not _dp_check(torch, dev, label, runs[a], runs[b], held)]
+        del runs
+        torch.cuda.empty_cache()
+
+        config = config.replace(num_layers=DP_GLOO_LAYERS)
+        ref = {"tokens": tokens}
+        for comp, label in ((None, "the one-process step"),
+                            ("int8", "the plain int8 step over the ranks' "
+                                     "rows")):
+            run = (_dp_run(torch, dev, "one", config, opt, batch)
+                   if comp is None else
+                   _dp_run(torch, dev, "plain", config, opt, batch,
+                           compression="int8", shares=DP_GLOO_WORLD))
+            ref[comp] = {"losses": run["losses"], "params": run["params"]}
+            print(f"  (b) at {DP_GLOO_LAYERS} layers, "
+                  f"{_dp_line(label, run)}", flush=True)
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, ref_path)
+        del ref
+        t0 = time.perf_counter()
+        ranks = _spawn_group(DP_GLOO_WORLD, Path(tmp), dev,
+                             target=_dp_gloo_rank, extra=(ref_path,))
+        spawn_s = time.perf_counter() - t0
+    print(f"  (b) {DP_GLOO_WORLD} gloo processes on the card at "
+          f"{DP_GLOO_LAYERS} layers, {TRAIN_B // DP_GLOO_WORLD} rows each "
+          f"({spawn_s:.1f} s with their start):", flush=True)
+    for r, out in enumerate(ranks):
+        for comp, res in out.items():
+            want = "one-process" if comp is None else "plain int8"
+            print(f"      {res['line']}; against the {want} step: "
+                  f"{_dp_report(res['held'])}", flush=True)
+            if not _dp_ok(res["held"]):
+                failed.append(f"rank {r}, {comp or 'uncompressed'}")
+    if failed:
+        raise AssertionError(f"outside the bounds: {failed}")
+    return 0
+
+
+def dp_phase(torch, dev, smi: str) -> None:
+    """Phase 28: ``dp_child`` in a child process (the deterministic
+    algorithms need ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts), after
+    this process released what it held on the card."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    rc = subprocess.run([sys.executable, "-c",
+                         "import sys, chip_smoke; "
+                         "sys.exit(chip_smoke.dp_child())"],
+                        cwd=ROOT, env=_child_env(), timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"the data-parallel trainer failed (exit {rc})")
+    print(f"  the data-parallel trainer OK; "
+          f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
 
 
 @contextlib.contextmanager
@@ -4373,6 +5047,20 @@ def main() -> int:
         trained = train_phase(torch, dev, smi)
         for key in base_rows:
             flash_rows[key]["launches_train"] = _row_launches(trained, key)
+
+    with _phase("27", f"the tiled schedules at full width: {ARCH}'s "
+                      f"prefill of one {SCHED_S}-token sequence under each "
+                      f"schedule, and its train step on {SCHED_TRAIN_B} x "
+                      f"{SCHED_S} tokens:"):
+        scheduled = schedules_phase(torch, dev, smi)
+        for key in base_rows:
+            flash_rows[key]["launches_schedules"] = _row_launches(scheduled,
+                                                                  key)
+
+    with _phase("28", "the explicit-collective data-parallel trainer: NCCL "
+                      f"at world 1 at full width, then {DP_GLOO_WORLD} gloo "
+                      f"processes on the card:"):
+        dp_phase(torch, dev, smi)
 
     print(f"all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)

@@ -14,27 +14,33 @@ capacity factor and aux-loss weight, the hybrid family's block pattern,
 sliding window, RG-LRU width and conv width, rwkv6's WKV chunk and decay
 LoRA rank, whisper's encoder depth and frame count with
 ``is_encoder_decoder``, which the reference sets and reads nowhere, the VLM
-image prefix's length (``num_image_tokens``) and the training step's
-``remat`` policy. The
-reference scales gemma's and recurrentgemma's embeddings by sqrt(d_model)
-on a test of the arch's name (``layers.py:embed_tokens``); here
-``embed_scale`` says so in the arch's config file. The reference's
-``pad_attention_heads`` pads the heads to a mesh's tensor-parallel degree
-and pads 0 heads without a mesh; the port has no mesh yet, so the field
-comes with the mesh (ROADMAP Queue 1 item 9), as do ``sharding_overrides``
-(kimi-k2's expert and embedding sharding) and the all-to-all MoE path they
-select. ``scan_layers`` has no counterpart: the port runs its layers in a
-Python loop.
+image prefix's length (``num_image_tokens``), the training step's
+``remat`` policy, and the attention's schedule: ``attention_impl``, its
+tiles ``attention_block_q`` and ``attention_block_kv``, and
+``sharding_overrides``, of which the port reads only the ``_skip_blocks``
+key (``models/attention.py:attention_core``). The reference scales
+gemma's and recurrentgemma's embeddings by sqrt(d_model) on a test of the
+arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
+the arch's config file. The reference's ``pad_attention_heads`` pads the
+heads to a mesh's tensor-parallel degree and pads 0 heads without a mesh;
+the port has no mesh yet, so the field comes with the mesh (ROADMAP Queue
+1 item 9), as do the override keys a mesh reads (kimi-k2's expert and
+embedding sharding) and the all-to-all MoE path they select.
+``scan_layers`` has no counterpart: the port runs its layers in a Python
+loop.
 
 ``ShapeConfig``, ``SHAPES``, ``SMOKE_SHAPE``, ``applicable_shapes``,
 ``OptimizerConfig`` and ``RunConfig`` are the reference's, with its names
-and defaults; ``OptimizerConfig.zero1`` is kept as a field and read by
-the port's mesh (item 9).
+and defaults. ``OptimizerConfig.zero1`` and ``compression`` are the
+reference's GSPMD options, which ``optim/adamw.py`` refuses until the
+mesh (item 9); the data-parallel trainer (``parallel/dp.py``) reads
+neither, as the reference's does: it always shards its optimizer state
+and takes its compression as an argument.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -88,10 +94,15 @@ class ModelConfig:
     dtype: str = "bfloat16"        # activation/compute dtype
     param_dtype: str = "bfloat16"
     remat: str = "none"            # none | full | dots (training only)
-    # flash: the CUDA kernel for a causal prefill on the card, naive
-    # elsewhere; naive: naive everywhere. The reference's blocked and
-    # triangular schedules are not ported and are refused.
+    # flash | naive | blocked | triangular: flash is the reference's
+    # pallas, the CUDA kernel for a causal, window-free call on the card;
+    # the dispatch is models/attention.py:attention_core
     attention_impl: str = "flash"
+    attention_block_q: int = 512
+    attention_block_kv: int = 1024
+    # the reference's sharding overrides; the port reads "_skip_blocks"
+    sharding_overrides: dict = field(default_factory=dict, hash=False,
+                                     compare=False)
     # max positions for learned embeddings (0 => 8,192)
     max_position: int = 0
 

@@ -17,7 +17,7 @@ from repro_torch.kernels.flash_attention import kernel, ref
 NO_BACKWARD = (
     "flash_attention: the kernel has no backward pass (nor has the "
     "reference's Pallas kernel), so it is refused for inputs that require "
-    "grad; train with attention_impl='naive', as training.build_train_step "
+    "grad; train on the blocked schedule, as training.build_train_step "
     "does")
 
 

@@ -18,8 +18,9 @@ dense internlm2-1.8b (the default), gemma-7b, minitron-8b and
 starcoder2-3b, the MoE granite-moe-3b-a800m (kimi-k2-1t-a32b, about 1 T
 parameters, is served at ``--reduced`` only: it does not fit one card),
 the hybrid recurrentgemma-2b, whose attention is a 2,048-token sliding
-window over a rolling cache (naive attention, as the reference's: no flash
-kernel runs for it), the audio whisper-medium, the ssm rwkv6-7b,
+window over a rolling cache (the ``blocked`` schedule past 512 positions,
+naive below and in decode, as the reference's: no flash kernel runs for
+it), the audio whisper-medium, the ssm rwkv6-7b,
 attention-free with a constant-size state, and the vlm llava-next-34b.
 Each family's ``prefill`` builds its own cache (``init_cache`` of its
 module).
@@ -30,9 +31,9 @@ same generator right after the prompt, as the reference's producer draws
 them (``repro/launch/train.py:synthetic_producer``); a batch stacks them
 into ``batch["frames"]``. The reference's serve sends tokens only, so its
 whisper ``prefill`` cannot run there (``KeyError: 'frames'``). whisper's
-encoder and cross-attention take the naive attention (the reference's
-rule: its kernel is for causal calls), its decoder's causal prefill the
-flash kernel. A vlm request carries its ``image_embeds`` the same way,
+encoder runs the ``blocked`` schedule and its cross-attention the naive
+attention (the reference's rule: its kernel is for causal calls), its
+decoder's causal prefill the flash kernel. A vlm request carries its ``image_embeds`` the same way,
 (``num_image_tokens``, ``d_model``) fp32 drawn right after its prompt,
 stacked into ``batch["image_embeds"]``; its prefill runs the image prefix
 and the prompt as one causal sequence, so the cache holds

@@ -2,30 +2,39 @@
 a sliding window), non-causal self-attention and cross-attention
 (whisper), and the serve path's KV cache.
 
-The counterpart of ``repro/models/attention.py``, trimmed to the serve
-path. Two implementations of the same function:
+The counterpart of ``repro/models/attention.py``. Four implementations of
+one function, chosen by ``attention_impl`` and the call
+(``attention_core``, the reference's branches in the reference's order,
+``attention.py:253-269``):
 
-* ``naive`` — the full score matrix in fp32; the oracle, and what every
-              call that is not a causal, window-free prefill takes (decode,
-              Sq = 1, every windowed call, whisper's non-causal encoder
-              self-attention and every cross-attention).
-* ``flash`` — the CUDA flash kernel (``kernels/flash_attention``), taken
-              for causal, window-free attention with Sq > 1 on the card,
-              where the reference would take its Pallas kernel under
-              ``attention_impl='pallas'`` (``attention.py:258``, which also
-              asks for window 0); every other call takes the naive version.
+* ``flash``      — the CUDA flash kernel (``kernels/flash_attention``), the
+                   reference's ``pallas``: taken for a causal, window-free
+                   call with Sq > 1 on the card. The default.
+* ``naive``      — the full score matrix in fp32; the oracle, and what a
+                   call takes under ``naive``, at Sq = 1 (decode), or at
+                   Sq <= ``attention_block_q`` whatever the impl.
+* ``triangular`` — the causal schedule that issues only the (q, kv) tiles
+                   on or below the diagonal (and inside the window), for a
+                   causal self-attention past ``attention_block_q``.
+* ``blocked``    — the online softmax over (``attention_block_q`` x
+                   ``attention_block_kv``) tiles, every tile, or with the
+                   ``_skip_blocks`` override only those that can hold an
+                   unmasked pair: every other call past
+                   ``attention_block_q`` (a window, a non-causal encoder,
+                   a cross-attention, or a causal call on the CPU).
 
-``attention_impl`` is ``"flash"`` (the default) or ``"naive"`` (naive
-everywhere, so one model runs with and without the kernel). The
-reference's ``blocked`` and ``triangular`` schedules compute the naive
-function in tiles for XLA (ROADMAP Queue 1 item 7); a config that asks
-for one is refused, naming its item, rather than served otherwise. Where
-the reference would tile a long non-causal call (whisper's 1,500-frame
-encoder) as ``blocked``, the port computes the same function untiled. The
-reference's head padding (``pad_attention_heads``) pads H to a mesh's
+So, as in the reference, whisper's 1,500-frame encoder and
+recurrentgemma's windowed 2,560-token prefill run ``blocked``, and a
+train step, whose ``flash`` runs as ``blocked`` (``training.py``), runs
+the tiles under autograd. On the CPU a causal prefill under ``flash``
+takes the branches after the first, the plain versions of the kernel's
+function. The tiles compute in fp32 and return ``q.dtype``; the reference
+runs them as a ``lax.scan`` for XLA, the port as Python loops over static
+block indices, so an unreachable tile is never issued. The reference's
+head padding (``pad_attention_heads``) pads H to a mesh's
 tensor-parallel degree and pads 0 heads without one
-(``attention.py:317-320``); it comes with the port's mesh (ROADMAP Queue 1
-item 9).
+(``attention.py:317-320``); it comes with the port's mesh (ROADMAP Queue
+1 item 9).
 
 RoPE turns q and k only when ``config.pos_embedding == "rope"`` and the
 call is not a cross-attention (whisper's learned positions are added to
@@ -99,21 +108,157 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+# -- the tiled schedules ------------------------------------------------------------
+def blocked_tiles(nq: int, nk: int, bq: int, bkv: int, causal: bool,
+                  window: int, skip_blocks: bool) -> list[list[int]]:
+    """For each of ``nq`` q blocks, the kv blocks that ``blocked_attention``
+    issues: all ``nk``, or with ``skip_blocks`` those that can hold an
+    unmasked pair by the blocks' static layout: not wholly in the future
+    (causal) and not wholly before the window (the reference's
+    reachability, ``attention.py:145-156``)."""
+    tiles = []
+    for qi in range(nq):
+        row = []
+        for kj in range(nk):
+            q_lo, k_lo = qi * bq, kj * bkv
+            future = causal and k_lo > q_lo + bq - 1
+            before = window > 0 and q_lo - (k_lo + bkv - 1) >= window
+            if not (skip_blocks and (future or before)):
+                row.append(kj)
+        tiles.append(row)
+    return tiles
+
+
+def triangular_tiles(n: int, block: int, window: int) -> list[list[int]]:
+    """For each of ``n`` blocks of queries, the key blocks that
+    ``triangular_attention`` issues: those on or below the diagonal and,
+    with a window, not wholly before it (the reference's pair list,
+    ``attention.py:210-211``, in its order)."""
+    return [[ki for ki in range(qi + 1)
+             if window <= 0 or qi * block - (ki * block + block - 1) < window]
+            for qi in range(n)]
+
+
+def _blocks(x: torch.Tensor, n: int, b: int) -> torch.Tensor:
+    """(B, S, H, hd) as fp32 (B, H, n·b, hd), zero-padded at the end."""
+    x = x.float().transpose(1, 2)
+    if n * b > x.shape[2]:
+        x = torch.nn.functional.pad(x, (0, 0, 0, n * b - x.shape[2]))
+    return x.contiguous()
+
+
+def _block_pos(pos: torch.Tensor, n: int, b: int) -> torch.Tensor:
+    """(B, S) positions padded to n·b with -1, which masks them."""
+    if n * b > pos.shape[1]:
+        pos = torch.nn.functional.pad(pos, (0, n * b - pos.shape[1]),
+                                      value=-1)
+    return pos
+
+
+def _tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+           window: int, bq: int, bkv: int, tiles: list[list[int]]
+           ) -> torch.Tensor:
+    """The online softmax of each q block over its kv blocks ``tiles[qi]``,
+    in order: m, l and acc per q block, updated in the reference's order
+    (m_new, p, alpha, l_new, acc_new), then acc / max(l, 1e-30). A q row
+    whose first tiles are wholly masked sums exp(0) over them; the first
+    tile that holds a key for it sets alpha = exp(-1e30 - m) = 0 and erases
+    that sum (NEG_INF is finite, so no inf - inf makes a NaN).
+
+    The running max is taken without a gradient: the output does not
+    depend on it (it cancels between acc and l), so its derivative is zero
+    in exact arithmetic, and autograd keeps only each tile's p, not its
+    scores as well. ``jax.grad`` of the reference differentiates through
+    the max, which adds terms that cancel to round-off."""
+    B, Sq, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    nq, nk = len(tiles), -(-k.shape[1] // bkv)
+    qb, qpos = _blocks(q, nq, bq), _block_pos(qpos, nq, bq)
+    kb, vb = _blocks(k, nk, bkv), _blocks(v, nk, bkv)
+    kpos = _block_pos(kpos, nk, bkv)
+    out = []
+    for qi, row in enumerate(tiles):
+        q_i = qb[:, :, qi * bq:(qi + 1) * bq]
+        qp_i = qpos[:, qi * bq:(qi + 1) * bq]
+        m = q_i.new_full((B, H, bq), NEG_INF)
+        l = q_i.new_zeros((B, H, bq))
+        acc = q_i.new_zeros((B, H, bq, hd))
+        for kj in row:
+            ks = slice(kj * bkv, (kj + 1) * bkv)
+            s = torch.matmul(q_i, kb[:, :, ks].transpose(-1, -2)) * scale
+            mask = _pair_mask(qp_i, kpos[:, ks], causal, window)
+            s = s.masked_fill(~mask[:, None, :, :], NEG_INF)
+            m_new = torch.maximum(m, s.detach().amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.matmul(p, vb[:, :, ks])
+            m = m_new
+        out.append((acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype))
+    return torch.cat(out, dim=2).transpose(1, 2)[:, :Sq]
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      qpos: torch.Tensor, kpos: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      block_q: int = 512, block_kv: int = 1024,
+                      skip_blocks: bool = False) -> torch.Tensor:
+    """q: (B, Sq, H, hd), k, v: (B, Skv, H, hd) (KV already repeated) ->
+    (B, Sq, H, hd): the naive function over (block_q x block_kv) tiles,
+    every tile or, with ``skip_blocks``, the reachable ones
+    (``blocked_tiles``)."""
+    bq, bkv = min(block_q, q.shape[1]), min(block_kv, k.shape[1])
+    nq, nk = -(-q.shape[1] // bq), -(-k.shape[1] // bkv)
+    tiles = blocked_tiles(nq, nk, bq, bkv, causal, window, skip_blocks)
+    return _tiled(q, k, v, qpos, kpos, causal, window, bq, bkv, tiles)
+
+
+def triangular_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         qpos: torch.Tensor, kpos: torch.Tensor,
+                         causal: bool = True, window: int = 0,
+                         block: int = 512) -> torch.Tensor:
+    """Causal self-attention (Sq == Skv) over (block x block) tiles that
+    issues only the tiles on or below the diagonal and inside the window
+    (``triangular_tiles``): n(n+1)/2 of n² without a window."""
+    Sq = q.shape[1]
+    if Sq != k.shape[1]:
+        raise ValueError(f"the triangular schedule is for self-attention: "
+                         f"Sq {Sq} != Skv {k.shape[1]}")
+    b = min(block, Sq)
+    tiles = triangular_tiles(-(-Sq // b), b, window)
+    return _tiled(q, k, v, qpos, kpos, causal, window, b, b, tiles)
+
+
 # -- dispatch --------------------------------------------------------------------
+ATTENTION_IMPLS = ("flash", "naive", "blocked", "triangular")
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    qpos: torch.Tensor, kpos: torch.Tensor,
                    config: ModelConfig, causal: bool = True,
                    window: int = 0) -> torch.Tensor:
+    """The reference's dispatch (``attention.py:253-269``), branch for
+    branch, with ``flash`` for its ``pallas`` and the kernel taken only on
+    the card."""
     impl = config.attention_impl
-    if impl not in ("flash", "naive"):
-        raise NotImplementedError(f"attention_impl={impl!r} waits for "
-                                  f"ROADMAP Queue 1 item 7")
-    if (impl == "flash" and causal and window == 0 and q.shape[1] > 1
-            and q.is_cuda):
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl={impl!r}: one of "
+                         f"{ATTENTION_IMPLS}")
+    Sq = q.shape[1]
+    if impl == "flash" and causal and window == 0 and Sq > 1 and q.is_cuda:
         # like the reference's Pallas call, qpos/kpos are not read: the
         # causal prefill's positions are 0..S-1 on both sides
         return fa_ops.flash_attention(q, k, v)
-    return naive_attention(q, k, v, qpos, kpos, causal, window)
+    if impl == "naive" or Sq == 1 or Sq <= config.attention_block_q:
+        return naive_attention(q, k, v, qpos, kpos, causal, window)
+    if impl == "triangular" and causal and Sq == k.shape[1]:
+        return triangular_attention(q, k, v, qpos, kpos, causal, window,
+                                    block=config.attention_block_q)
+    return blocked_attention(
+        q, k, v, qpos, kpos, causal, window,
+        block_q=config.attention_block_q, block_kv=config.attention_block_kv,
+        skip_blocks=config.sharding_overrides.get("_skip_blocks", False))
 
 
 def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,

@@ -19,9 +19,11 @@ has no Pallas kernel for it, and the port writes none. The decode state is
 constant-size: the LRU state ``h`` (fp32), the conv's last ``conv_width -
 1`` inputs (activation dtype) and a ``local_window`` rolling KV buffer.
 
-The attention blocks take the window, so they run the naive attention, as
-the reference's do (its kernel is taken at window 0 only); no flash kernel
-runs in this family. Params and caches are per-layer dicts keyed
+The attention blocks take the window, so no flash kernel runs in this
+family (the reference takes its kernel at window 0 only): a prefill past
+``attention_block_q`` (recurrentgemma-2b's 2,560-token prompts) runs the
+``blocked`` schedule, as the reference's does, and a decode step the
+naive attention. Params and caches are per-layer dicts keyed
 ``layer_NN``, as the reference's, not stacked on L. ``loss_and_metrics``
 is the training loss, each layer under activation checkpointing when
 ``remat`` is not ``"none"``.

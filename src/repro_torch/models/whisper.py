@@ -11,11 +11,14 @@ decoder layer has causal self-attention with a KV cache, then
 cross-attention over the encoder's output, whose keys and values are
 projected once at prefill and reused by every decode step.
 
-Which attention runs where follows the reference's rule (its Pallas
-kernel for a causal, window-free call with Sq > 1 only): the encoder's
-non-causal self-attention and every cross-attention take the naive
-version, and only the decoder's causal self-attention prefill launches the
-flash kernel, at hd 64 for medium.
+Which attention runs where follows the reference's dispatch
+(``models/attention.py:attention_core``; its Pallas kernel for a causal,
+window-free call with Sq > 1 only): the encoder's non-causal
+self-attention over 1,500 frames, past ``attention_block_q``, runs the
+``blocked`` schedule; a cross-attention (384 queries for medium's served
+prompts) and every decode step take the naive version; and only the
+decoder's causal self-attention prefill launches the flash kernel, at hd
+64 for medium.
 
 The reference scans stacked (L, ...) parameter trees; here ``encoder`` and
 ``decoder`` are lists of per-layer dicts run in Python loops, as the

@@ -22,7 +22,8 @@ not fit beside the first. ZeRO-1 (``zero1``, with ``zero1_state_specs``)
 and int8 gradient compression (``compression``) come with the port's mesh
 (ROADMAP Queue 1 item 9); until then ``init_opt_state`` and
 ``adamw_update`` refuse a config that asks for either, rather than ignore
-it.
+it. The data-parallel trainer (``parallel/dp.py``) shards its own flat
+state and compresses its gradients without this module's update.
 """
 from __future__ import annotations
 

@@ -4,13 +4,15 @@ The counterpart of ``repro/training.py``. ``build_train_step`` and
 ``build_serve_fns`` produce the step functions that the streaming trainer
 (``launch/train.py``) and the server (``launch/serve.py``) run; the
 reference's ``shardings_for`` and ``lower_cell`` attach a mesh's specs and
-come with the port's mesh (ROADMAP Queue 1 item 9).
+come with the port's mesh (ROADMAP Queue 1 item 9). The data-parallel
+step over a process group is ``parallel/dp.py``.
 
-The train step takes gradients by autograd and runs the model with
-``attention_impl="naive"``: that is the function the reference's default
-``blocked`` schedule computes in tiles, and the reference never trains
-through its Pallas kernel, which has no backward pass (nor has the port's
-flash kernel, which refuses inputs that require grad).
+The train step takes gradients by autograd through the config's attention
+schedule, as the reference's ``jax.grad`` goes through its ``lax.scan``:
+``naive``, ``blocked`` and ``triangular`` as asked, and ``flash`` (the
+default) as ``blocked``, the reference's default: the reference never
+trains through its Pallas kernel, which has no backward pass, nor can the
+port through its flash kernel, which refuses inputs that require grad.
 """
 from __future__ import annotations
 
@@ -43,14 +45,23 @@ def loss_and_grads(params: dict, batch: dict, config: ModelConfig
             tree_map(lambda _: next(grads), live))
 
 
+def train_config(config: ModelConfig) -> ModelConfig:
+    """The config a train step runs: ``flash``, which has no backward pass,
+    as ``blocked``; any other schedule as it is."""
+    if config.attention_impl == "flash":
+        return config.replace(attention_impl="blocked")
+    return config
+
+
 def build_train_step(config: ModelConfig, opt: OptimizerConfig
                      ) -> Callable[[dict, dict], tuple[dict, dict]]:
     """``train_step(state, batch) -> (state, metrics)``: the loss and its
-    gradients with respect to ``state['params']`` (``loss_and_grads``, the
-    attention naive), then one AdamW step, written into ``state`` in place
-    (the reference donates it). Metrics: 'loss', 'aux_loss', 'lr',
-    'grad_norm' and 'total_loss', fp32 scalars on the state's device."""
-    config = config.replace(attention_impl="naive")
+    gradients with respect to ``state['params']`` (``loss_and_grads``, on
+    ``train_config``'s schedule), then one AdamW step, written into
+    ``state`` in place (the reference donates it). Metrics: 'loss',
+    'aux_loss', 'lr', 'grad_norm' and 'total_loss', fp32 scalars on the
+    state's device."""
+    config = train_config(config)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, metrics, grads = loss_and_grads(state["params"], batch, config)

@@ -281,22 +281,29 @@ def test_torch_unported_arch_names_its_roadmap_item():
         get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("change,item", [
-    ({"family": "vlm", "attention_impl": "blocked"}, 7),
-    ({"attention_impl": "blocked"}, 7),
-    ({"attention_impl": "triangular"}, 7),
+@pytest.mark.parametrize("change", [
+    {"family": "vlm", "attention_impl": "blocked"},
+    {"attention_impl": "blocked"},
+    {"attention_impl": "triangular"},
 ])
-def test_torch_unported_paths_are_refused(change, item):
-    """A config asking for a schedule the port has not taken up raises,
-    naming the ROADMAP item that brings it, instead of serving something
-    else; the VLM family, served since item 6, refuses it too."""
-    _, tcfg = _configs(**change)
-    tok = torch.zeros((1, 3), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item}$"):
-        model = get_model(tcfg)
-        params = model.init(torch.Generator().manual_seed(0), tcfg)
-        model.prefill(params, {"tokens": tok}, tcfg)
+def test_torch_schedule_configs_are_served(change):
+    """A config asking for a tiled schedule is served (ROADMAP Queue 1
+    item 7, once refused): with blocks of 4 queries and 8 keys an 11-token
+    prefill runs the tiles, and it and a decode step give the naive run's
+    logits (fp32, 1e-5); the VLM family too."""
+    _, tcfg = _configs(attention_block_q=4, attention_block_kv=8, **change)
+    model = get_model(tcfg)
+    params = model.init(torch.Generator().manual_seed(0), tcfg)
+    tok = torch.from_numpy(_tokens(21, (2, 11), tcfg.vocab_size)).long()
+    nxt = torch.from_numpy(_tokens(22, (2, 1), tcfg.vocab_size)).long()
+    out = {}
+    for cfg in (tcfg, tcfg.replace(attention_impl="naive")):
+        logits, cache = model.prefill(params, {"tokens": tok}, cfg,
+                                      max_len=12)
+        step, _ = model.decode_step(params, nxt, cache, cfg)
+        out[cfg.attention_impl] = (logits, step)
+    for got, want in zip(out[change["attention_impl"]], out["naive"]):
+        _close(got, want.numpy(), 1e-5)
 
 
 def test_torch_dense_path_refuses_a_window_and_says_why():

@@ -1,15 +1,17 @@
 """The port's training loss against the reference, on the CPU: the
 cross-entropy and ``_chunked_ce``, ``loss_and_metrics`` and its gradients
 for every ported arch, the chunked WKV's gradient, the flash wrapper's
-refusal under autograd, and the train step's naive attention. The loss
+refusal under autograd, and the train step's attention schedule. The loss
 curves and AdamW are in tests/test_torch_optim.py, the train loop in
 tests/test_torch_train_loop.py, the VLM family in tests/test_torch_vlm.py.
 
 The same weights (the reference's random init, converted by
 ``repro_torch.models.convert``) and the same numpy inputs go through
-``repro`` and ``repro_torch``. The reference trains with its default
-``attention_impl="blocked"`` (the naive function in tiles); the port's
-step runs the naive attention. Tolerances, fp32: the loss within 1e-5
+``repro`` and ``repro_torch``. Both train on ``attention_impl="blocked"``
+(the naive function in tiles; the port's default ``flash`` trains as
+``blocked``), which at these lengths, under ``attention_block_q``,
+dispatches to the naive attention; tests/test_torch_attention_schedules.py
+runs the tiles. Tolerances, fp32: the loss within 1e-5
 relative; each gradient leaf within 1e-4 of that leaf's largest magnitude
 (the backward pass sums over the batch and the sequence in another
 order); a 5-step loss curve within 1e-4 relative (AdamW's first steps
@@ -272,8 +274,11 @@ def test_torch_flash_refuses_inputs_that_require_grad(which):
 
 
 def test_torch_train_step_runs_the_naive_attention():
-    """The step's model config is the naive one: on the card no flash
-    launch, on the CPU the same function."""
+    """The step's model config is the reference's default schedule,
+    ``blocked``, for the port's default ``flash``, which has no backward:
+    on the card no flash launch; at these 12 tokens, under
+    ``attention_block_q``, the dispatch computes it naive, as the
+    reference's does."""
     _, tcfg = _configs("internlm2-1.8b")
     assert tcfg.attention_impl == "flash"
     seen = []
@@ -293,7 +298,7 @@ def test_torch_train_step_runs_the_naive_attention():
             state, _tbatch(_batch(tcfg, 1)))
     finally:
         model.loss_and_metrics = real
-    assert seen == ["naive"]
+    assert seen == ["blocked"]
     assert set(metrics) == {"loss", "aux_loss", "lr", "grad_norm",
                             "total_loss"}
 
