@@ -4585,8 +4585,9 @@ def _dp_timers(torch):
 
 
 def _dp_run(torch, dev, kind: str, config, opt, batch, group=None,
-            compression=None, shares: int = 1) -> dict:
-    """DP_STEPS steps from the seed's parameters: ``kind`` "one" is the
+            compression=None, shares: int = 1, steps: int = DP_STEPS
+            ) -> dict:
+    """``steps`` steps from the seed's parameters: ``kind`` "one" is the
     one-process ``build_train_step`` on ``batch``; "plain" is
     ``_dp_plain_step`` over ``shares`` equal shares of ``batch``, one a
     rank;
@@ -4631,7 +4632,7 @@ def _dp_run(torch, dev, kind: str, config, opt, batch, group=None,
                 return plain(state, parts)
     losses, times = [], []
     with _dp_timers(torch) as spent:
-        for i in range(DP_STEPS):
+        for i in range(steps):
             if i == 1:                  # a step's split from the second
                 first = dict(spent)
             torch.cuda.synchronize(dev)
@@ -4639,7 +4640,7 @@ def _dp_run(torch, dev, kind: str, config, opt, batch, group=None,
             state, loss = step(state)
             losses.append(float(loss))
             times.append(time.perf_counter() - t0)
-    split = {k: (v - first[k]) / (DP_STEPS - 1) for k, v in spent.items()}
+    split = {k: (v - first[k]) / (steps - 1) for k, v in spent.items()}
     return {"losses": losses, "times": times, "split": split,
             "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
             "params": [p.detach().cpu() for p in
@@ -4854,6 +4855,492 @@ def dp_phase(torch, dev, smi: str) -> None:
           f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
 
 
+# phase 29: the mesh (parallel/sharding.py, training.shardings_for, ZeRO-1
+# in optim/adamw.py), in a child process under deterministic algorithms as
+# phase 28: (a) NCCL at world 1 on a (data 1, model 1) mesh at full width:
+# the zero1=True train cell against the one-process step, a prefill cell
+# on flash and a decode on a placed cache; (b) two gloo processes on the
+# card (their collectives staged through the host) at phase 28's depth
+# cut on a ZeRO-1 mesh and a tensor-parallel one
+MESH_STEPS, MESH_GLOO_STEPS, MESH_DECODE = 4, 2, 8
+# (label, mesh shape, activation dtype, held to phase 28's rule): under
+# tensor parallelism each row-parallel product is two partial sums added
+# in the activations' dtype, so in bf16 the gradients part from the
+# one-process step's by bf16 round-off and more elements step by +-lr
+# differently than phase 28's share allows (reported); in fp32 the rule
+# holds the split to fp32 round-off
+MESH_GLOO_RUNS = (("ZeRO-1, (data 2, model 1)", (2, 1), "bfloat16", True),
+                  ("tensor parallel, (data 1, model 2)", (1, 2), "bfloat16",
+                   False),
+                  ("tensor parallel, (data 1, model 2), fp32 activations",
+                   (1, 2), "float32", True))
+MESH_TP = (1, 2)
+MESH_LAUNCHES = "mesh_launches.json"
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.parallel.sharding import is_dtensor
+    from repro_torch.utils import tree_leaves
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree) if is_dtensor(t))
+
+
+def _busy_ms(torch, fn) -> tuple[float, float]:
+    """(wall ms, device busy ms) of ``fn()`` under the profiler; busy 0
+    when the trace comes back empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, sum(_device_us(torch, prof).values()) / 1e3
+
+
+def _mesh_run(torch, dev, config, opt, batch, mesh, steps: int,
+              profile: bool = False) -> dict:
+    """``steps`` steps of ``build_train_step`` on the cell
+    ``shardings_for`` gives ``mesh``, the state drawn from SEED and placed
+    by the cell's specs, the batch by its batch specs; the losses, step
+    times, this rank's bytes of parameters and optimizer state, the
+    seconds in host-staged collectives a step (gloo), peak memory, and the
+    gathered parameters on the host. With ``profile`` one more step is
+    profiled."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.parallel import sharding
+    from repro_torch.training import build_train_step, init_state, \
+        shardings_for
+    from repro_torch.utils import tree_leaves
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    B, S = batch["tokens"].shape
+    cell = shardings_for(config, ShapeConfig("mesh", S, B, "train"), mesh,
+                         opt)
+    state = cell.place(init_state(torch.Generator(device=dev).manual_seed(
+        SEED), config, opt), cell.state_specs)
+    placed = cell.place(batch, cell.batch_specs)
+    step = build_train_step(config, opt)
+    sizes = {"params": _local_bytes(state["params"]),
+             "state": _local_bytes({k: state["opt"][k]
+                                    for k in ("m", "v", "master")})}
+    staged = sharding.host_staged_class()
+    losses, times, coll = [], [], []
+    with sharding.use_mesh(cell.mesh, cell.rules):
+        for _ in range(steps):
+            torch.cuda.synchronize(dev)
+            c0, t0 = staged.seconds, time.perf_counter()
+            state, m = step(state, placed)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t0)
+            coll.append(staged.seconds - c0)
+        busy = None
+        if profile:
+            def one():
+                nonlocal state
+                state, m = step(state, placed)
+                float(m["loss"])
+            busy = _busy_ms(torch, one)
+    later = coll[1:] or coll
+    split = ({"host-staged collectives": sum(later) / len(later)}
+             if any(coll) else {})
+    return {"losses": losses, "times": times, "collectives": coll,
+            "split": split, "bytes": sizes, "busy": busy,
+            "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "params": [p.detach().cpu() for p in tree_leaves(
+                sharding.gather_tree(state["params"]))]}
+
+
+def _mesh_serve(torch, dev, config, params, tokens, mesh, decode: int
+                ) -> dict:
+    """The prefill cell's (``shardings_for``) prefill of ``tokens`` on
+    ``mesh``, the parameters and the batch placed, the cache placed by the
+    prefill, then ``decode`` greedy steps; beside it the same on the plain
+    parameters. Returns the flash launches by instance and the heads they
+    ran on (global, local) in the sharded prefill, both runs' last-token
+    logits, greedy tokens and times."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import attention
+    from repro_torch.parallel.sharding import is_dtensor, use_mesh, whole
+    from repro_torch.training import build_serve_fns, shardings_for
+
+    B, S = tokens.shape
+    cell = shardings_for(config, ShapeConfig("mesh", S, B, "prefill"), mesh)
+    prefill, step = build_serve_fns(config)
+    heads, core = set(), attention._local_core
+
+    def counted(q, *args):
+        heads.add((q.shape[2], q.to_local().shape[2]))
+        return core(q, *args)
+
+    def run(params, batch) -> dict:
+        """The prefill twice (the second timed: the first also fills
+        DTensor's sharding caches), then the decode, its steps after the
+        first timed."""
+        out = {}
+        with torch.inference_mode():
+            prefill(params, batch, S + decode)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            kernels.reset_launch_counts()
+            logits, cache = prefill(params, batch, S + decode)
+            torch.cuda.synchronize(dev)
+            out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            out["launched"] = _launched(
+                fk.flash_attention.launches_by_instance)
+            out["logits"] = whole(logits).float()
+            toks = []
+            for i in range(decode):
+                if i == 1:
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                tok = torch.argmax(whole(logits)[:, -1], -1)[:, None]
+                toks.append(tok)
+                logits, cache = step(params, tok, cache)
+            torch.cuda.synchronize(dev)
+            out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / max(
+                1, decode - 1)
+            # plain numbers: a result crosses processes after its sender
+            # exits
+            out["tokens"] = torch.cat(toks, 1).cpu().tolist()
+            out["cache_placed"] = all(
+                is_dtensor(t) for t in cache.values()
+                if isinstance(t, torch.Tensor))
+        return out
+
+    plain = run(params, {"tokens": tokens})
+    attention._local_core = counted
+    try:
+        with use_mesh(cell.mesh, cell.rules):
+            got = run(cell.place(params, cell.param_specs),
+                      cell.place({"tokens": tokens}, cell.batch_specs))
+    finally:
+        attention._local_core = core
+    got["heads"] = sorted(heads)
+    got["diff"] = _max_err(torch, got.pop("logits"), plain.pop("logits"))
+    got["same_tokens"] = got["tokens"] == plain["tokens"]
+    got["plain"] = plain
+    return got
+
+
+def _serve_line(label: str, got: dict) -> str:
+    return (f"{label}: flash {got['launched']} on (global, local) heads "
+            f"{got['heads']}, cache placed {got['cache_placed']}; "
+            f"last-token logits max|diff| {got['diff']:.4g} from the "
+            f"unsharded prefill (limit {MAX_PREFILL_LOGIT_DIFF}); "
+            f"{MESH_DECODE} decode steps' tokens equal the unsharded "
+            f"run's: {got['same_tokens']}; "
+            f"prefill {got['prefill_ms']:.1f} ms (unsharded "
+            f"{got['plain']['prefill_ms']:.1f}), a decode step "
+            f"{got['decode_ms']:.1f} ms (unsharded "
+            f"{got['plain']['decode_ms']:.1f})")
+
+
+def _mesh_gloo_rank(rank: int, world: int, init: str, device: str,
+                    results, ref_path: str) -> None:
+    """One of phase 29 (b)'s processes, on the host-staged gloo backend:
+    MESH_GLOO_STEPS steps on each of MESH_GLOO_RUNS against the
+    one-process step in ``ref_path`` at DP_GLOO_LAYERS layers, then the
+    tensor-parallel mesh's prefill on its local heads."""
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.use_deterministic_algorithms(True)
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        from repro_torch.parallel.sharding import register_host_staged
+        dist.init_process_group(register_host_staged(), init_method=init,
+                                rank=rank, world_size=world)
+        try:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            from repro_torch.configs import get_config
+            from repro_torch.configs.base import OptimizerConfig
+            from repro_torch.models.registry import get_model
+
+            ref = torch.load(ref_path)
+            config = get_config(TRAIN_ARCH).replace(
+                num_layers=DP_GLOO_LAYERS)
+            opt = OptimizerConfig(**{**DP_OPT, "zero1": True})
+            batch = {"tokens": ref["tokens"].to(dev)}
+            out = {"errors": {}}
+            meshes = {}
+            for label, shape, dtype, _ in MESH_GLOO_RUNS:
+                if shape not in meshes:
+                    meshes[shape] = init_device_mesh(
+                        "cuda", shape, mesh_dim_names=("data", "model"))
+                mesh = meshes[shape]
+                try:
+                    run = _mesh_run(torch, dev, config.replace(dtype=dtype),
+                                    opt, batch, mesh, MESH_GLOO_STEPS)
+                    out[label] = {
+                        "line": _dp_line(f"rank {rank}, {label}", run),
+                        "bytes": run["bytes"], "times": run["times"],
+                        "collectives": run["collectives"],
+                        "held": _dp_held(torch, dev, run, ref["one"][dtype])}
+                    del run
+                except Exception:
+                    out["errors"][label] = traceback.format_exc()
+                torch.cuda.empty_cache()
+                if shape == MESH_TP and "tp_serve" not in out:
+                    try:
+                        params = get_model(config).init(torch.Generator(
+                            device=dev).manual_seed(SEED), config)
+                        out["tp_serve"] = _mesh_serve(
+                            torch, dev, config, params, batch["tokens"], mesh,
+                            MESH_DECODE)
+                        del params
+                    except Exception:
+                        out["errors"]["tp_serve"] = traceback.format_exc()
+                    torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _mesh_world1_train(torch, dev, config, batch, mesh) -> list[str]:
+    """Phase 29 (a)'s train cell against the one-process step; the
+    failures."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.training import build_train_step, init_state
+
+    plain = OptimizerConfig(**DP_OPT)
+    one = _dp_run(torch, dev, "one", config, plain, batch, steps=MESH_STEPS)
+    state = init_state(torch.Generator(device=dev).manual_seed(SEED), config,
+                       plain)
+    step = build_train_step(config, plain)
+
+    def one_step():
+        nonlocal state
+        state, m = step(state, batch)
+        float(m["loss"])
+    one_step()
+    one_busy = _busy_ms(torch, one_step)
+    del state, step
+    torch.cuda.empty_cache()
+    meshed = _mesh_run(torch, dev, config, OptimizerConfig(
+        **{**DP_OPT, "zero1": True}), batch, mesh, MESH_STEPS, profile=True)
+    print(f"      {_dp_line('one process (zero1=False)', one)}", flush=True)
+    print(f"      {_dp_line('the mesh (zero1=True)', meshed)}; this rank's "
+          f"parameters {meshed['bytes']['params'] / 1e9:.3f} GB, optimizer "
+          f"state {meshed['bytes']['state'] / 1e9:.3f} GB", flush=True)
+    (w1, b1), (w2, b2) = one_busy, meshed["busy"]
+    print(f"      a profiled step: one process wall {w1:.1f} ms, device busy "
+          f"{b1:.1f} ms; the mesh wall {w2:.1f} ms, device busy {b2:.1f} ms: "
+          f"DTensor's dispatch {w2 - w1:.1f} ms a step on the host"
+          + ("" if b1 and b2 else " (a trace came back empty: device time "
+             "not measured)"), flush=True)
+    if not _dp_check(torch, dev, "the mesh against the one-process step",
+                     meshed, one):
+        return ["(a) the mesh's train step"]
+    return []
+
+
+def _mesh_world1_serve(torch, dev, config, batch, mesh
+                       ) -> tuple[list[str], dict]:
+    """Phase 29 (a)'s prefill cell and decode; the failures and the flash
+    launches of the sharded prefill."""
+    from repro_torch.models.registry import get_model
+
+    params = get_model(config).init(torch.Generator(device=dev).manual_seed(
+        SEED), config)
+    served = _mesh_serve(torch, dev, config, params, batch["tokens"], mesh,
+                         MESH_DECODE)
+    del params
+    torch.cuda.empty_cache()
+    print(f"      {_serve_line(f'the prefill cell, {TRAIN_B} x {TRAIN_S}', served)}",
+          flush=True)
+    want = {("wgmma", config.resolved_head_dim): config.num_layers}
+    if served["launched"] != want or not served["diff"] <= \
+            MAX_PREFILL_LOGIT_DIFF or not served["cache_placed"]:
+        return [f"(a) the prefill cell: launches {served['launched']} (want "
+                f"{want}), logits {served['diff']}"], served["launched"]
+    return [], served["launched"]
+
+
+def _mesh_gloo(torch, dev, config, tokens, batch, tmp: str
+               ) -> tuple[list[str], dict]:
+    """Phase 29 (b); the failures and the tensor-parallel prefill's flash
+    launches over the ranks."""
+    from repro_torch.configs.base import OptimizerConfig
+
+    ref = {"tokens": tokens, "one": {}}
+    for dtype in sorted({dtype for _, _, dtype, _ in MESH_GLOO_RUNS}):
+        small = config.replace(num_layers=DP_GLOO_LAYERS, dtype=dtype)
+        run = _dp_run(torch, dev, "one", small, OptimizerConfig(**DP_OPT),
+                      batch, steps=MESH_GLOO_STEPS)
+        print(f"  (b) at {DP_GLOO_LAYERS} layers, {dtype} activations, "
+              f"{_dp_line('the one-process step', run)}", flush=True)
+        ref["one"][dtype] = {"losses": run["losses"],
+                             "params": run["params"]}
+        del run
+        torch.cuda.empty_cache()
+    ref_path = os.path.join(tmp, "ref.pt")
+    torch.save(ref, ref_path)
+    del ref
+    t0 = time.perf_counter()
+    ranks = _spawn_group(DP_GLOO_WORLD, Path(tmp), dev,
+                         target=_mesh_gloo_rank, extra=(ref_path,))
+    print(f"  (b) {DP_GLOO_WORLD} gloo processes on the card, collectives "
+          f"staged through the host, at {DP_GLOO_LAYERS} layers "
+          f"({time.perf_counter() - t0:.1f} s with their start):",
+          flush=True)
+    failed, launched = [], {}
+    for r, out in enumerate(ranks):
+        for label in ([r[0] for r in MESH_GLOO_RUNS] + ["tp_serve"]):
+            if label in out.get("errors", {}):
+                print(f"      rank {r}, {label} failed:\n"
+                      f"{out['errors'][label]}", flush=True)
+                failed.append(f"(b) rank {r}, {label}")
+        for label, _, _, held in MESH_GLOO_RUNS:
+            if label not in out:
+                continue
+            res = out[label]
+            steps, coll = res["times"][1:], res["collectives"][1:]
+            share = sum(coll) / sum(steps) if steps else 0.0
+            print(f"      {res['line']}; this rank's parameters "
+                  f"{res['bytes']['params'] / 1e9:.3f} GB, optimizer state "
+                  f"{res['bytes']['state'] / 1e9:.3f} GB; collectives "
+                  f"{share:.3f} of a step; against the one-process step: "
+                  f"{_dp_report(res['held'])}"
+                  + ("" if held else " (reported)"), flush=True)
+            if held and not _dp_ok(res["held"]):
+                failed.append(f"(b) rank {r}, {label}")
+        if "tp_serve" not in out:
+            continue
+        tp = out["tp_serve"]
+        print(f"      rank {r}, "
+              f"{_serve_line('the tensor-parallel prefill', tp)}",
+              flush=True)
+        for key, n in tp["launched"].items():
+            launched[key] = launched.get(key, 0) + n
+        want = {("wgmma", config.resolved_head_dim): DP_GLOO_LAYERS}
+        local = config.num_heads // MESH_TP[1]
+        if tp["launched"] != want or tp["heads"] != [(config.num_heads,
+                                                      local)] or \
+                not tp["diff"] <= MAX_PREFILL_LOGIT_DIFF:
+            failed.append(f"(b) rank {r}, the tensor-parallel prefill")
+    return failed, launched
+
+
+def mesh_child() -> int:
+    """Phase 29, in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``, under deterministic algorithms, with
+    tests/test_dp.py's optimizer and ``zero1=True`` (the reference's
+    default). (a) NCCL at world 1, a (data 1, model 1) mesh, internlm2-1.8b
+    at full width on TRAIN_B x TRAIN_S tokens: MESH_STEPS steps of the
+    ``shardings_for`` train cell against the one-process ``zero1=False``
+    step from the same state, within phase 28's rule; each step's time
+    and a profiled step of each, so that the mesh's extra wall time over
+    the same device work is DTensor's dispatch; the prefill cell of the
+    same tokens on flash, every launch on the local heads, its logits
+    against the unsharded prefill's; MESH_DECODE decode steps on the
+    cache the prefill placed. (b) two spawned processes on the card over
+    the host-staged gloo backend at DP_GLOO_LAYERS layers: each of
+    MESH_GLOO_RUNS within the same rule of the one-process step at that
+    depth (the bf16 tensor-parallel run reported), this rank's bytes, the collectives' share of a step, and the
+    tensor-parallel prefill on 8 of the 16 heads a rank. A part that
+    raises is reported and the next one runs; the phase fails after."""
+    import json
+    import tempfile
+    import traceback
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    config = get_config(TRAIN_ARCH)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 29).integers(
+        0, config.vocab_size, (TRAIN_B, TRAIN_S)))
+    batch = {"tokens": tokens.to(dev)}
+    OUT.mkdir(parents=True, exist_ok=True)
+    failed, counts = [], {"mesh": {}, "mesh_gloo_tp": {}}
+
+    def part(label, fn, default):
+        try:
+            return fn()
+        except Exception:
+            print(f"      {label} raised:\n{traceback.format_exc()}",
+                  flush=True)
+            failed.append(f"{label} raised")
+            return default
+
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("data", "model"))
+            print(f"  (a) {TRAIN_ARCH} at full width, {TRAIN_B} x {TRAIN_S} "
+                  f"tokens, NCCL world 1 on a (data 1, model 1) mesh, "
+                  f"deterministic algorithms:", flush=True)
+            failed += part("(a) the train cell", lambda: _mesh_world1_train(
+                torch, dev, config, batch, mesh), [])
+            torch.cuda.empty_cache()
+            bad, counts["mesh"] = part("(a) the prefill cell", lambda:
+                                       _mesh_world1_serve(torch, dev, config,
+                                                          batch, mesh),
+                                       ([], {}))
+            failed += bad
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        bad, counts["mesh_gloo_tp"] = part("(b) the gloo processes", lambda:
+                                           _mesh_gloo(torch, dev, config,
+                                                      tokens, batch, tmp),
+                                           ([], {}))
+        failed += bad
+    (OUT / MESH_LAUNCHES).write_text(json.dumps({
+        name: [[k[0], k[1], n] for k, n in c.items()]
+        for name, c in counts.items()}))
+    if failed:
+        raise AssertionError(f"outside the bounds: {failed}")
+    return 0
+
+
+def mesh_phase(torch, dev, smi: str) -> dict:
+    """Phase 29: ``mesh_child`` in a child process, as phase 28 runs its
+    own. Returns the flash launches of (a)'s prefill cell ('mesh') and of
+    (b)'s tensor-parallel prefill over its ranks ('mesh_gloo_tp'), by
+    (design, head dim)."""
+    import json
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    (OUT / MESH_LAUNCHES).unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, "-c",
+                         "import sys, chip_smoke; "
+                         "sys.exit(chip_smoke.mesh_child())"],
+                        cwd=ROOT, env=_child_env(), timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"the mesh failed (exit {rc})")
+    counts = json.loads((OUT / MESH_LAUNCHES).read_text())
+    print(f"  the mesh OK; {time.perf_counter() - t_phase:.1f} s, on {smi}",
+          flush=True)
+    return {name: {(d, hd): n for d, hd, n in rows}
+            for name, rows in counts.items()}
+
+
 @contextlib.contextmanager
 def _phase(label: str, title: str):
     """Prints a phase's header, and its own wall time when it ends."""
@@ -5061,6 +5548,16 @@ def main() -> int:
                       f"at world 1 at full width, then {DP_GLOO_WORLD} gloo "
                       f"processes on the card:"):
         dp_phase(torch, dev, smi)
+
+    with _phase("29", f"the mesh: {TRAIN_ARCH} on a (data 1, model 1) "
+                      f"mesh at NCCL world 1 at full width, then "
+                      f"{DP_GLOO_WORLD} gloo processes on the card on "
+                      f"ZeRO-1 and tensor-parallel meshes:"):
+        meshed = mesh_phase(torch, dev, smi)
+        for key in FLASH_ROWS:
+            for name, counts in meshed.items():
+                flash_rows[key]["launches_" + name] = _row_launches(counts,
+                                                                    key)
 
     print(f"all phases in {time.perf_counter() - t_script:.1f} s",
           flush=True)

@@ -17,23 +17,26 @@ LoRA rank, whisper's encoder depth and frame count with
 image prefix's length (``num_image_tokens``), the training step's
 ``remat`` policy, and the attention's schedule: ``attention_impl``, its
 tiles ``attention_block_q`` and ``attention_block_kv``, and
-``sharding_overrides``, of which the port reads only the ``_skip_blocks``
-key (``models/attention.py:attention_core``). The reference scales
+``sharding_overrides``, the rule table's overrides of the mesh
+(``parallel/sharding.py``), whose ``_skip_blocks`` key the attention's
+dispatch also reads (``models/attention.py:attention_core``). The
+reference scales
 gemma's and recurrentgemma's embeddings by sqrt(d_model) on a test of the
 arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
-the arch's config file. The reference's ``pad_attention_heads`` pads the
-heads to a mesh's tensor-parallel degree and pads 0 heads without a mesh;
-the port has no mesh yet, so the field comes with the mesh (ROADMAP Queue
-1 item 9), as do the override keys a mesh reads (kimi-k2's expert and
-embedding sharding) and the all-to-all MoE path they select.
-``scan_layers`` has no counterpart: the port runs its layers in a Python
-loop.
+the arch's config file. ``pad_attention_heads`` pads the query heads
+(and the repeated K/V) with zero heads to the next multiple of a mesh's
+'model' axis when that axis does not divide them, and pads none without
+a mesh (``models/attention.py:attention_layer``). The all-to-all MoE path
+that the ``_moe_impl`` override selects comes later (ROADMAP Queue 1 item
+9c). ``scan_layers`` has no counterpart: the port runs its layers in a
+Python loop.
 
 ``ShapeConfig``, ``SHAPES``, ``SMOKE_SHAPE``, ``applicable_shapes``,
 ``OptimizerConfig`` and ``RunConfig`` are the reference's, with its names
 and defaults. ``OptimizerConfig.zero1`` and ``compression`` are the
-reference's GSPMD options, which ``optim/adamw.py`` refuses until the
-mesh (item 9); the data-parallel trainer (``parallel/dp.py``) reads
+reference's GSPMD options: ``optim/adamw.py`` shards its state over a
+mesh's 'data' axis by ``zero1`` and, as the reference's, never reads
+``compression``; the data-parallel trainer (``parallel/dp.py``) reads
 neither, as the reference's does: it always shards its optimizer state
 and takes its compression as an argument.
 """
@@ -100,7 +103,9 @@ class ModelConfig:
     attention_impl: str = "flash"
     attention_block_q: int = 512
     attention_block_kv: int = 1024
-    # the reference's sharding overrides; the port reads "_skip_blocks"
+    pad_attention_heads: bool = False  # pad H to the mesh's 'model' axis
+    # logical axis -> mesh axes overrides of the rule table, and the
+    # "_skip_blocks" option of the attention's dispatch
     sharding_overrides: dict = field(default_factory=dict, hash=False,
                                      compare=False)
     # max positions for learned embeddings (0 => 8,192)

@@ -4,11 +4,9 @@ vocab=64000, anyres tiling (frontend stubbed: precomputed patch embeddings).
 
 The numbers of ``repro/configs/llava_next_34b.py``: 576 image embeddings
 a request (one 24x24 anyres tile, the frontend a stub), prepended to the
-token embeddings. The reference also sets ``pad_attention_heads=True``,
-which pads the 56 heads to a mesh's tensor-parallel degree and pads none
-without a mesh (``repro/models/attention.py:200-201``), so on one card it
-is the same function; the field comes with the port's mesh (ROADMAP
-Queue 1 item 9).
+token embeddings. ``pad_attention_heads`` pads the 56 heads to a mesh's
+'model' axis where it does not divide them (64 on a 16-way axis) and pads
+none without a mesh, so on one card it is the same function.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -27,6 +25,7 @@ CONFIG = ModelConfig(
     norm="rmsnorm",
     rope_theta=5_000_000.0,
     num_image_tokens=576,          # one 24x24 anyres tile (stub embeddings)
+    pad_attention_heads=True,      # heads % TP != 0: pad, don't replicate
     remat="full",
 )
 

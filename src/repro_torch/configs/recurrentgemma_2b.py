@@ -6,8 +6,8 @@ window 2048, head_dim=256, tied embeddings, logits soft-cap 30.
 The numbers of ``repro/configs/recurrentgemma_2b.py``, and
 ``embed_scale``, which the reference derives from the name. ``remat`` is
 the reference's ``"full"``, kept by ``reduced()`` as the reference's
-keeps it. ``pad_attention_heads`` is not a field of the port (it comes
-with the mesh); without a mesh the reference pads no head.
+keeps it. ``pad_attention_heads`` pads the 10 heads to a mesh's 'model'
+axis where it does not divide them; without a mesh no head is padded.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -32,6 +32,7 @@ CONFIG = ModelConfig(
     lru_width=2560,
     conv_width=4,
     logits_soft_cap=30.0,
+    pad_attention_heads=True,      # heads % TP != 0: pad, don't replicate
     rope_theta=10_000.0,
     remat="full",
 )

@@ -2,8 +2,9 @@
 vocab=49152 — GQA, RoPE, LayerNorm, non-gated GELU MLP.
 [arXiv:2402.19173; hf]
 
-The numbers of ``repro/configs/starcoder2_3b.py``, but its head padding,
-which pads 0 heads without a mesh.
+The numbers of ``repro/configs/starcoder2_3b.py``, head padding
+included: 24 heads pad to 32 on a 16-way 'model' axis, and to none
+without a mesh.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -21,6 +22,7 @@ CONFIG = ModelConfig(
     mlp_gated=False,
     norm="layernorm",
     rope_theta=100_000.0,
+    pad_attention_heads=True,      # heads % TP != 0: pad, don't replicate
     remat="full",
 )
 

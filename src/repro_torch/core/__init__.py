@@ -14,7 +14,7 @@ import importlib
 from typing import Any
 
 _EXPORTS = {
-    "bridge": ("TorchBridge", "rank_of", "world_of"),
+    "bridge": ("TorchBridge", "make_worker_mesh", "rank_of", "world_of"),
     "broker": ("Broker", "InMemoryPartitionLog", "OffsetRange",
                "PartitionLog", "Record", "create_rdd"),
     "dstream": ("BatchInfo", "StreamingContext", "StreamProgress"),

@@ -46,6 +46,21 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "mean": dist.ReduceOp.SUM}
 
 
+def make_worker_mesh(device_type: str = "cuda",
+                     axis_name: str = "workers"):
+    """A 1-D ``DeviceMesh`` named ``axis_name`` over every process of the
+    default process group, the counterpart of the reference's
+    ``make_worker_mesh`` over its devices (``repro/core/bridge.py:45``).
+    A mesh spans processes here, so the group must be made first."""
+    if not dist.is_initialized():
+        raise ValueError("make_worker_mesh: a mesh spans the processes of "
+                         "torch.distributed's default group; make it first "
+                         "(a group of one process is world 1)")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=(axis_name,))
+
+
 class TorchBridge:
     """Runs collective programs over RDD partitions on the local ranks
     ``devices`` of this process and the processes of ``group``.

@@ -30,11 +30,20 @@ the tiles under autograd. On the CPU a causal prefill under ``flash``
 takes the branches after the first, the plain versions of the kernel's
 function. The tiles compute in fp32 and return ``q.dtype``; the reference
 runs them as a ``lax.scan`` for XLA, the port as Python loops over static
-block indices, so an unreachable tile is never issued. The reference's
-head padding (``pad_attention_heads``) pads H to a mesh's
-tensor-parallel degree and pads 0 heads without one
-(``attention.py:317-320``); it comes with the port's mesh (ROADMAP Queue
-1 item 9).
+block indices, so an unreachable tile is never issued.
+
+Under a mesh (``parallel/sharding.py``) q, k and v are constrained to
+('batch', 'seq', 'heads'/'kv_heads', 'head_dim') as the reference's are
+(``attention.py:308-330``); a projection's output is constrained to its
+head view's spec before the reshape into heads, so that a 'model' axis
+that divides a weight's columns but not its head count leaves the heads
+whole instead of meeting an uneven reshape. With
+``pad_attention_heads``, when the mesh's 'model' axis is larger than 1
+and does not divide H, q (and K/V after the repeat) are padded with zero
+heads to the next multiple, and the padding is sliced off before the out
+projection (``attention.py:312-331,381``); without a mesh no head is
+padded. ``attention_core`` runs on each rank's own (batch, heads) block,
+the flash kernel included (``_local_core``).
 
 RoPE turns q and k only when ``config.pos_embedding == "rope"`` and the
 call is not a cross-attention (whisper's learned positions are added to
@@ -60,7 +69,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, normal_init
+from repro_torch.models.layers import apply_rope, normal_init, seq_whole
+from repro_torch.parallel.sharding import (current_mesh, current_rules,
+                                           drop_indivisible, is_dtensor,
+                                           like, local_shard,
+                                           logical_constraint,
+                                           mesh_size, model_degree,
+                                           placements, redistribute, summed,
+                                           whole)
 
 NEG_INF = -1e30
 
@@ -78,6 +94,12 @@ def init_attention(gen: torch.Generator, config: ModelConfig,
             "wo": normal_init(gen, (h * hd, d), std_o, dtype)}
 
 
+def attention_specs() -> dict:
+    """Logical axes of ``init_attention``'s tree."""
+    return {"wq": ("embed_fsdp", "heads"), "wk": ("embed_fsdp", "kv_heads"),
+            "wv": ("embed_fsdp", "kv_heads"), "wo": ("heads", "embed_fsdp")}
+
+
 # -- masking ---------------------------------------------------------------------
 def _pair_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                window: int) -> torch.Tensor:
@@ -90,7 +112,17 @@ def _pair_mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     return valid
 
 
-def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, n: int, hd: int,
+                 axis: str = "heads") -> torch.Tensor:
+    """(B, S, n·hd) -> (B, S, n, hd); under a mesh the projection first
+    takes the spec of its head view, ('batch', 'seq', ``axis``) with the
+    axes that do not divide n dropped."""
+    mesh = current_mesh()
+    if mesh is not None and mesh_size(mesh) > 1:
+        view = tuple(x.shape[:-1]) + (n, hd)
+        spec = drop_indivisible(current_rules().spec(
+            ("batch", "seq", axis, "head_dim"), mesh), view, mesh)
+        x = redistribute(x, mesh, placements(spec[:3], mesh))
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
@@ -234,6 +266,32 @@ def triangular_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 ATTENTION_IMPLS = ("flash", "naive", "blocked", "triangular")
 
 
+def _local_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                qpos: torch.Tensor, kpos: torch.Tensor, config: ModelConfig,
+                causal: bool, window: int) -> torch.Tensor:
+    """``attention_core`` of DTensors on each rank's own (batch, heads)
+    block, which holds every pair it attends: k and v take q's
+    placements, which may shard only the batch and the heads, the
+    positions this rank's rows, and the output keeps q's placements. So
+    the flash kernel, the naive form and the tiles each run on plain
+    tensors, as ``local_map`` would run them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh, places = q.device_mesh, summed(q.placements)
+    if any(not (isinstance(p, Replicate) or (isinstance(p, Shard)
+                                             and p.dim in (0, 2)))
+           for p in places):
+        raise ValueError(f"attention on DTensors shards only the batch "
+                         f"and the heads; q is placed {places}")
+    q, k, v = (redistribute(t, mesh, places) for t in (q, k, v))
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in places]
+    qpos, kpos = (local_shard(whole(t), mesh, rows) for t in (qpos, kpos))
+    out = attention_core(q.to_local(), k.to_local(), v.to_local(), qpos,
+                         kpos, config, causal, window)
+    return DTensor.from_local(out, mesh, places, run_check=False)
+
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    qpos: torch.Tensor, kpos: torch.Tensor,
                    config: ModelConfig, causal: bool = True,
@@ -245,6 +303,8 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl={impl!r}: one of "
                          f"{ATTENTION_IMPLS}")
+    if is_dtensor(q):
+        return _local_core(q, k, v, qpos, kpos, config, causal, window)
     Sq = q.shape[1]
     if impl == "flash" and causal and window == 0 and Sq > 1 and q.is_cuda:
         # like the reference's Pallas call, qpos/kpos are not read: the
@@ -287,22 +347,39 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     hd = config.resolved_head_dim
     g = h // kh
     dtype = x.dtype
+    x = seq_whole(x)
+    if kv_source is not None:
+        kv_source = seq_whole(kv_source)
 
     q = _split_heads(x @ params["wq"].to(dtype), h, hd)
     if precomputed_kv is not None:
         k, v = precomputed_kv
     else:
         src = x if kv_source is None else kv_source
-        k = _split_heads(src @ params["wk"].to(dtype), kh, hd)
-        v = _split_heads(src @ params["wv"].to(dtype), kh, hd)
+        k = _split_heads(src @ params["wk"].to(dtype), kh, hd, "kv_heads")
+        v = _split_heads(src @ params["wv"].to(dtype), kh, hd, "kv_heads")
     cross = kv_source is not None or precomputed_kv is not None
     if config.pos_embedding == "rope" and not cross:
         q = apply_rope(q, positions, config.rope_theta)
         k = apply_rope(k, positions, config.rope_theta)
+    q = logical_constraint(q, "batch", "seq", "heads", "head_dim")
+    k = logical_constraint(k, "batch", "seq", "kv_heads", "head_dim")
+    v = logical_constraint(v, "batch", "seq", "kv_heads", "head_dim")
+
+    # head padding: zero heads up to a multiple of the 'model' axis, so
+    # that the heads shard instead of every rank computing all of them
+    m = model_degree()
+    pad_h = (-h) % m if config.pad_attention_heads and m > 1 else 0
+    if pad_h:
+        q = logical_constraint(torch.nn.functional.pad(
+            q, (0, 0, 0, pad_h)), "batch", "seq", "heads", "head_dim")
 
     def rep(t: torch.Tensor) -> torch.Tensor:
         # repeat KV to the full H heads (the reference's 4-D layout)
-        return torch.repeat_interleave(t, g, dim=2) if g > 1 else t
+        t = torch.repeat_interleave(t, g, dim=2) if g > 1 else t
+        if pad_h:
+            t = torch.nn.functional.pad(t, (0, 0, 0, pad_h))
+        return logical_constraint(t, "batch", "seq", "heads", "head_dim")
 
     new_cache = None
     if cross:
@@ -322,21 +399,21 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
         if window > 0 and S >= Smax:
             # keep the last window, rotated so that slot(p) == p % Smax
             shift = (S - Smax) % Smax
-            ck.copy_(torch.roll(k[:, S - Smax:], shift, dims=1))
-            cv.copy_(torch.roll(v[:, S - Smax:], shift, dims=1))
+            ck.copy_(like(torch.roll(k[:, S - Smax:], shift, dims=1), ck))
+            cv.copy_(like(torch.roll(v[:, S - Smax:], shift, dims=1), cv))
         else:
             n = min(S, Smax)
             start = min(max(pos, 0), Smax - n)  # dynamic_update_slice's clamp
-            ck[:, start:start + n] = k[:, :n].to(ck.dtype)
-            cv[:, start:start + n] = v[:, :n].to(cv.dtype)
+            ck[:, start:start + n] = like(k[:, :n].to(ck.dtype), ck)
+            cv[:, start:start + n] = like(v[:, :n].to(cv.dtype), cv)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
     else:
         # decode; with a window the buffer wraps in place
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]
         Smax = ck.shape[1]
         slot = pos % Smax if window > 0 else min(pos, Smax - 1)
-        ck[:, slot:slot + 1] = k.to(ck.dtype)
-        cv[:, slot:slot + 1] = v.to(cv.dtype)
+        ck[:, slot:slot + 1] = like(k.to(ck.dtype), ck)
+        cv[:, slot:slot + 1] = like(v.to(cv.dtype), cv)
         # absolute positions of the cache slots; -1 marks not-yet-filled
         idx = torch.arange(Smax, device=x.device)
         if window > 0:
@@ -351,7 +428,9 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
                              causal=True, window=window)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
 
-    out = out.reshape(B, S, h * hd) @ params["wo"].to(dtype)
+    if pad_h:
+        out = out[:, :, :h]
+    out = seq_whole(out.reshape(B, S, h * hd) @ params["wo"].to(dtype))
     return out, new_cache
 
 

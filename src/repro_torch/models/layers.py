@@ -24,6 +24,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import (current_mesh, current_rules,
+                                           logical_constraint, use_mesh)
 
 
 # -- initialisers --------------------------------------------------------------
@@ -78,6 +80,13 @@ def init_norm(config: ModelConfig, dtype: torch.dtype,
     return {"scale": fill(d, dtype=dtype, device=device)}
 
 
+def norm_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_norm``'s tree."""
+    if config.norm == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
+    return {"scale": ("embed",)}
+
+
 # -- activations -----------------------------------------------------------------
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
@@ -104,16 +113,38 @@ def init_mlp(gen: torch.Generator, config: ModelConfig,
     return params
 
 
+def mlp_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_mlp``'s tree."""
+    specs = {"w_up": ("embed_fsdp", "ff"), "w_down": ("ff", "embed_fsdp")}
+    if config.mlp_gated:
+        specs["w_gate"] = ("embed_fsdp", "ff")
+    return specs
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) activations with the sequence whole on every rank, under
+    a mesh: before a projection, the all-gather of Megatron's sequence
+    parallelism, and after a projection over sharded columns, the sum of
+    its partial products. XLA places both for the reference. The port
+    places them by hand, because DTensor flattens a tensor whose batch and
+    sequence are sharded at once (the product's input, or its gradient
+    in the backward pass) into strided shards, whose redistributions it
+    plans by a search that takes seconds on a 3-D mesh."""
+    return logical_constraint(x, "batch", "seq", "embed")
+
+
 def mlp(x: torch.Tensor, params: dict, config: ModelConfig) -> torch.Tensor:
     """Gated: act(x W_gate) * (x W_up), then W_down; ungated: act(x W_up),
     then W_down."""
+    x = seq_whole(x)
     dtype = x.dtype
     up = x @ params["w_up"].to(dtype)
     if config.mlp_gated:
         h = activation(x @ params["w_gate"].to(dtype), config.hidden_act) * up
     else:
         h = activation(up, config.hidden_act)
-    return h @ params["w_down"].to(dtype)
+    h = logical_constraint(h, "batch", "seq", "ff")
+    return seq_whole(h @ params["w_down"].to(dtype))
 
 
 # -- embeddings ----------------------------------------------------------------
@@ -133,12 +164,37 @@ def init_embedding(gen: torch.Generator, config: ModelConfig,
     return params
 
 
+def embedding_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_embedding``'s tree."""
+    specs = {"tok": ("vocab", "embed_fsdp")}
+    if config.pos_embedding == "learned":
+        specs["pos"] = ("null", "embed_fsdp")
+    if not config.tie_embeddings:
+        specs["lm_head"] = ("embed_fsdp", "vocab")
+    return specs
+
+
+def lookup(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``, the rows of a table. A DTensor table's by
+    ``F.embedding``, whose backward DTensor shards (its strategy for the
+    indexing's backward, ``index_put``, fails in torch 2.11), with the
+    pending sum of a row-sharded table taken at once: the all-reduce of a
+    vocab-parallel embedding (DTensor's masked pending sum breaks when it
+    meets another placement)."""
+    from repro_torch.parallel.sharding import is_dtensor, redistribute, \
+        summed
+    if not is_dtensor(table):
+        return table[idx]
+    out = F.embedding(idx, table)
+    return redistribute(out, out.device_mesh, summed(out.placements))
+
+
 def embed_tokens(tokens: torch.Tensor, params: dict,
                  config: ModelConfig) -> torch.Tensor:
     """The table's rows in the activation dtype; with ``embed_scale``, times
     sqrt(d_model) rounded to that dtype first (55.5 for gemma-7b in bf16),
     as the reference multiplies."""
-    x = params["tok"].to(config.activation_dtype)[tokens]
+    x = lookup(params["tok"].to(config.activation_dtype), tokens)
     if config.embed_scale:
         x = x * torch.tensor(math.sqrt(config.d_model), dtype=x.dtype,
                              device=x.device)
@@ -221,7 +277,10 @@ def remat(fn: Callable, policy: str) -> Callable:
     ``"full"`` keeps only its inputs and recomputes the rest in the
     backward pass (``jax.checkpoint``), ``"dots"`` also keeps the outputs
     of its unbatched matmuls, ``"none"`` keeps everything. The values are
-    the same under every policy; with grad off ``fn`` runs as it is."""
+    the same under every policy; with grad off ``fn`` runs as it is. The
+    recompute runs under the mesh and rules active at the forward pass:
+    on the card autograd runs the backward pass on threads of its own, to
+    which ``use_mesh``'s thread-local context does not reach."""
     if policy == "none":
         return fn
     if policy not in ("full", "dots"):
@@ -234,6 +293,12 @@ def remat(fn: Callable, policy: str) -> Callable:
     def run(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        mesh, rules = current_mesh(), current_rules()
+
+        def in_context(*a):
+            with use_mesh(mesh, rules):
+                return fn(*a)
+
+        return checkpoint(in_context, *args, use_reentrant=False, **kw)
 
     return run

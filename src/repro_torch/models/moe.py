@@ -34,10 +34,16 @@ differs in how, not what:
   reference takes a segment sum: no atomics, so it is deterministic on the
   card.
 
-The reference's ``padded_experts`` and ``moe_layer_a2a`` (the all-to-all
-over an expert mesh) come with the port's mesh (ROADMAP Queue 1 item 9);
-without a mesh the reference falls back to ``moe_layer``, which is what the
-port runs.
+Under a mesh (``x`` a DTensor) the route runs on the tokens made whole
+on every rank, where DTensor has no sharding strategy for the sort and
+the ``searchsorted`` of step 2 nor for the dispatch's writes: every rank
+routes the whole batch, as the reference's global capacity asks, and the
+capacity buffer and the expert products are constrained to ('experts',
+'expert_cap', 'embed'/'ff'), as the reference's are; the combine reads the
+whole expert output again. The reference's ``padded_experts`` and
+``moe_layer_a2a`` (the all-to-all over an expert mesh) come later
+(ROADMAP Queue 1 item 9c); without a mesh the reference falls back to
+``moe_layer``, which is what the port runs.
 """
 from __future__ import annotations
 
@@ -48,6 +54,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation, normal_init
+from repro_torch.parallel.sharding import (is_dtensor, logical_constraint,
+                                           replicated, whole)
 
 
 def init_moe(gen: torch.Generator, config: ModelConfig,
@@ -61,6 +69,17 @@ def init_moe(gen: torch.Generator, config: ModelConfig,
             "w_gate": normal_init(gen, (e, d, f), std_in, dtype),
             "w_up": normal_init(gen, (e, d, f), std_in, dtype),
             "w_down": normal_init(gen, (e, f, d), std_out, dtype)}
+
+
+def moe_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_moe``'s tree: the reference's, whose
+    ``_moe_impl == "a2a"`` override puts whole experts on ('model',
+    'data')."""
+    a2a = config.sharding_overrides.get("_moe_impl") == "a2a"
+    ax = "experts_a2a" if a2a else "experts"
+    in_ax = "null" if a2a else "expert_in"
+    return {"router": ("embed", "null"), "w_gate": (ax, in_ax, "ff"),
+            "w_up": (ax, in_ax, "ff"), "w_down": (ax, "ff", in_ax)}
 
 
 def _positions_in_expert(expert_idx: torch.Tensor,
@@ -107,10 +126,11 @@ def moe_layer(x: torch.Tensor, params: dict, config: ModelConfig
     B, S, D = x.shape
     E, K = config.num_experts, config.experts_per_token
     T = B * S
-    xt = x.reshape(T, D)
+    mesh = x.device_mesh if is_dtensor(x) else None
+    xt = whole(x).reshape(T, D)
 
     # -- router (fp32) and the Switch-style load-balance aux loss ----------
-    probs, gates, top_idx = route(xt, params["router"], K)
+    probs, gates, top_idx = route(xt, whole(params["router"]), K)
     density = F.one_hot(top_idx[:, 0], E).float().mean(0)
     router_mean = probs.mean(0)
     aux = (density * router_mean).sum() * E * config.router_aux_loss
@@ -124,18 +144,29 @@ def moe_layer(x: torch.Tensor, params: dict, config: ModelConfig
     keep = pos < cap
     safe_pos = torch.where(keep, pos, cap - 1)
     rows = torch.where(keep, slot_expert * cap + pos, E * cap)
-    buf = x.new_zeros((E * cap + 1, D))         # + the dropped slots' row
+    buf = xt.new_zeros((E * cap + 1, D))        # + the dropped slots' row
     buf[rows] = xt[slot_token]
     buf = buf[:E * cap].view(E, cap, D)
+    if mesh is not None:
+        buf = logical_constraint(replicated(buf, mesh), "experts",
+                                 "expert_cap", "embed")
 
     # -- expert compute (batched products) ----------------------------------
     dtype = x.dtype
     up = torch.bmm(buf, params["w_up"].to(dtype))
     gate = torch.bmm(buf, params["w_gate"].to(dtype))
     h = activation(gate, config.hidden_act) * up
-    out_buf = torch.bmm(h, params["w_down"].to(dtype))        # (E, C, D)
+    h = logical_constraint(h, "experts", "expert_cap", "ff")
+    out_buf = whole(torch.bmm(h, params["w_down"].to(dtype)))  # (E, C, D)
 
     # -- combine --------------------------------------------------------------
     slot_out = torch.where(keep[:, None], out_buf[slot_expert, safe_pos], 0)
     combined = (slot_out * slot_gate[:, None].to(dtype)).view(T, K, D).sum(1)
-    return combined.reshape(B, S, D).to(x.dtype), aux
+    out = combined.reshape(B, S, D).to(x.dtype)
+    if mesh is not None:
+        # back to DTensors, so that their gradients come back as local
+        # tensors through ``whole``
+        out = logical_constraint(replicated(out, mesh), "batch", "seq",
+                                 "embed")
+        aux = replicated(aux, mesh)
+    return out, aux

@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.parallel.sharding import logical_constraint, place_logical
 
 _C = 8.0  # RG-LRU sharpness constant
 
@@ -98,6 +99,31 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
     return params
 
 
+_REC_SPECS = {
+    "w_in_x": ("embed_fsdp", "lru"), "w_in_gate": ("embed_fsdp", "lru"),
+    "conv_w": ("conv", "lru"), "conv_b": ("lru",),
+    "wa": ("null", "lru"), "ba": ("lru",),
+    "wx": ("null", "lru"), "bx": ("lru",),
+    "lam": ("lru",), "w_out": ("lru", "embed_fsdp"),
+}
+
+
+def param_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init``'s tree (``repro/models/rglru.py:95``);
+    the reference's attention blocks leave out a gated MLP's switch."""
+    mlp_s = {"w_up": ("embed_fsdp", "ff"), "w_down": ("ff", "embed_fsdp"),
+             "w_gate": ("embed_fsdp", "ff")}
+    specs: dict = {"embed": L.embedding_specs(config)}
+    for i, kind in enumerate(layer_kinds(config)):
+        blk: dict = {"rec": dict(_REC_SPECS)} if kind == "rec" else \
+            {"attn": attn.attention_specs()}
+        blk.update(mlp=dict(mlp_s), norm1=L.norm_specs(config),
+                   norm2=L.norm_specs(config))
+        specs[_key(i)] = blk
+    specs["final_norm"] = L.norm_specs(config)
+    return specs
+
+
 # -- RG-LRU core -------------------------------------------------------------------
 def _gates(x32: torch.Tensor, p: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """(log a_t, i_t ⊙ x_t) in fp32."""
@@ -153,15 +179,17 @@ def _rec_block(x: torch.Tensor, p: dict, state: dict
     causal conv and the RG-LRU, gated, projected out. ``state``: 'h' (B,
     W) fp32 and 'conv' (B, cw - 1, W)."""
     dtype = x.dtype
+    x = L.seq_whole(x)
     gate = L.activation(x @ p["w_in_gate"].to(dtype), "gelu")
-    h = x @ p["w_in_x"].to(dtype)
+    # the conv and the scan run along the whole sequence
+    h = logical_constraint(x @ p["w_in_x"].to(dtype), "batch", "seq", "lru")
     h, conv_tail = _causal_conv(h, p["conv_w"], p["conv_b"], state["conv"])
     if x.shape[1] == 1:
         y, h_last = _rg_lru_step(h[:, 0], p, state["h"])
         y = y[:, None]
     else:
         y, h_last = _rg_lru(h, p, state["h"])
-    out = (y * gate) @ p["w_out"].to(dtype)
+    out = L.seq_whole((y * gate) @ p["w_out"].to(dtype))
     return out, {"h": h_last.float(), "conv": conv_tail}
 
 
@@ -191,8 +219,9 @@ def _layer(x: torch.Tensor, p: dict, kind: str, config: ModelConfig,
             nc = {"k": nc["k"], "v": nc["v"]}
     x = x + a
     h = L.apply_norm(x, p["norm2"], config)
-    return x + L.mlp(h, p["mlp"], config), \
-        None if layer_cache is None else nc
+    x = logical_constraint(x + L.mlp(h, p["mlp"], config), "batch",
+                           "act_seq", "embed")
+    return x, None if layer_cache is None else nc
 
 
 def _forward(params: dict, tokens: torch.Tensor, config: ModelConfig,
@@ -205,6 +234,7 @@ def _forward(params: dict, tokens: torch.Tensor, config: ModelConfig,
     B, S = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], config)
     positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
+    x = logical_constraint(x, "batch", "act_seq", "embed")
     if cache is None:
         for i, kind in enumerate(layer_kinds(config)):
             def layer(x: torch.Tensor, p: dict, kind: str = kind
@@ -243,13 +273,27 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def cache_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_cache``'s tree (``repro/models/rglru.py:248``)."""
+    specs: dict = {"pos": ()}
+    for i, kind in enumerate(layer_kinds(config)):
+        if kind == "rec":
+            specs[_key(i)] = {"h": ("batch", "lru"),
+                              "conv": ("batch", "conv", "lru")}
+        else:
+            kv = ("batch", "null", "kv_heads", "head_dim")
+            specs[_key(i)] = {"k": kv, "v": kv}
+    return specs
+
+
 def prefill(params: dict, batch: dict, config: ModelConfig,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt ``batch['tokens']`` (B, S), fill a fresh cache for
     ``max_len`` (default S) tokens, return last-token logits (B, 1, V)."""
     tokens = batch["tokens"]
-    cache = init_cache(config, tokens.shape[0], max_len or tokens.shape[1],
-                       tokens.device)
+    cache = place_logical(init_cache(config, tokens.shape[0],
+                                     max_len or tokens.shape[1],
+                                     tokens.device), cache_specs(config))
     x, cache = _forward(params, tokens, config, cache, 0)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache
 

@@ -33,8 +33,9 @@ reference's and updated in place; ``init_cache`` ignores ``max_len``, as
 the reference's does. The layers are a list of per-layer dicts, as in the
 port's transformer. ``loss_and_metrics`` is the training loss (chunked
 from a zero state; the chunked WKV's coefficients out of place while
-autograd records); ``param_specs`` and ``cache_specs`` come with the mesh
-(ROADMAP Queue 1 item 9).
+autograd records). ``param_specs`` and ``cache_specs`` give the trees'
+logical axes; under a mesh the WKV runs on each rank's own (batch, heads)
+block (``_wkv_local``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.parallel.sharding import (is_dtensor, like,
+                                           logical_constraint,
+                                           place_logical, redistribute,
+                                           summed)
 
 
 # -- init ------------------------------------------------------------------------
@@ -94,6 +99,30 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
               for _ in range(config.num_layers)]
     return {"embed": embed, "layers": layers,
             "final_norm": L.init_norm(config, dtype, gen.device)}
+
+
+def _block_specs(config: ModelConfig) -> dict:
+    """One layer's logical axes (``repro/models/rwkv6.py:71``)."""
+    return {
+        "mu": ("null", "embed"), "w_r": ("embed_fsdp", "heads"),
+        "w_k": ("embed_fsdp", "heads"), "w_v": ("embed_fsdp", "heads"),
+        "w_g": ("embed_fsdp", "heads"), "w_o": ("heads", "embed_fsdp"),
+        "w0": ("heads",), "w_lora_a": ("embed_fsdp", "null"),
+        "w_lora_b": ("null", "heads"), "u": ("heads",),
+        "ln_x_scale": ("embed",), "ln_x_bias": ("embed",),
+        "cmu": ("null", "embed"), "w_ck": ("embed_fsdp", "ff"),
+        "w_cv": ("ff", "embed_fsdp"), "w_cr": ("embed_fsdp", "null"),
+        "norm1": L.norm_specs(config), "norm2": L.norm_specs(config),
+    }
+
+
+def param_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init``'s tree (``repro/models/rwkv6.py:97``),
+    each layer's without the reference's leading "layers" axis."""
+    return {"embed": L.embedding_specs(config),
+            "layers": [_block_specs(config)
+                       for _ in range(config.num_layers)],
+            "final_norm": L.norm_specs(config)}
 
 
 # -- WKV ---------------------------------------------------------------------------
@@ -181,6 +210,55 @@ def _token_shift(x: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([prev[:, None], x[:, :-1]], dim=1)
 
 
+def _wkv(mode: str, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+         chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV by ``mode``: "chunked", "recurrent" or "decode" (T == 1);
+    returns (y (B, T, H, V), the new state)."""
+    if mode == "chunked":
+        return _wkv_chunked(r, k, v, logw, u, state, chunk)
+    if mode == "recurrent":
+        return _wkv_recurrent(r, k, v, logw, u, state)
+    if mode == "decode":
+        y, state = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u,
+                             state)
+        return y[:, None], state
+    raise ValueError(f"unknown WKV mode {mode!r}")
+
+
+def _wkv_local(mode: str, r, k, v, logw, u, state, chunk: int):
+    """``_wkv`` of DTensors on each rank's own (batch, heads) block, which
+    holds every term of its recurrence: r, k, v and log w take r's
+    placements (the batch and the heads sharded at most), u its heads',
+    the state its batch's and heads'; y keeps r's placements. DTensor would
+    otherwise meet the batch and the heads merged into one sharded
+    dimension in the WKV's products."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, places = r.device_mesh, summed(r.placements)
+    if any(not (isinstance(p, Replicate) or (isinstance(p, Shard)
+                                             and p.dim in (0, 2)))
+           for p in places):
+        raise ValueError(f"the WKV on DTensors shards only the batch and "
+                         f"the heads; r is placed {places}")
+
+    def moved(dims: dict) -> tuple:
+        return tuple(Shard(dims[p.dim]) if isinstance(p, Shard)
+                     and p.dim in dims else Replicate() for p in places)
+
+    u_places, s_places = moved({2: 0}), moved({0: 0, 2: 1})
+    local = [redistribute(t, mesh, places).to_local() for t in (r, k, v,
+                                                                  logw)]
+    # each rank's rows give u's gradient a part of its sum over the batch
+    u_grad = tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else q
+                   for p, q in zip(places, u_places))
+    u = redistribute(u, mesh, u_places).to_local(grad_placements=u_grad)
+    y, new = _wkv(mode, *local, u,
+                  redistribute(state, mesh, s_places).to_local(), chunk)
+    return (DTensor.from_local(y, mesh, places, run_check=False),
+            DTensor.from_local(new, mesh, s_places, run_check=False))
+
+
 def _time_mix(x: torch.Tensor, xs: torch.Tensor, p: dict,
               config: ModelConfig, state: torch.Tensor, mode: str
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -203,24 +281,17 @@ def _time_mix(x: torch.Tensor, xs: torch.Tensor, p: dict,
     # data-dependent decay (Finch): log w = -exp(w0 + tanh(x A) B) <= 0
     lora = torch.tanh(xw @ p["w_lora_a"].to(dtype)) @ p["w_lora_b"].to(dtype)
     logw = -torch.exp(p["w0"].float() + lora.float()).reshape(B, T, H, K)
+    r = logical_constraint(r, "batch", "seq", "heads", "head_dim")
+    k = logical_constraint(k, "batch", "seq", "heads", "head_dim")
     u = p["u"].float().reshape(H, K)
-
-    if mode == "chunked":
-        y, state = _wkv_chunked(r, k, v, logw, u, state, config.rwkv_chunk)
-    elif mode == "recurrent":
-        y, state = _wkv_recurrent(r, k, v, logw, u, state)
-    elif mode == "decode":          # T == 1
-        y, state = _wkv_step(r[:, 0], k[:, 0], v[:, 0], logw[:, 0], u,
-                             state)
-        y = y[:, None]
-    else:
-        raise ValueError(f"unknown WKV mode {mode!r}")
+    wkv = _wkv_local if is_dtensor(r) else _wkv
+    y, state = wkv(mode, r, k, v, logw, u, state, config.rwkv_chunk)
     # per-head group norm, gate, project out
     mean = torch.mean(y, dim=-1, keepdim=True)
     var = torch.var(y, dim=-1, keepdim=True, correction=0)
     yn = ((y - mean) * torch.rsqrt(var + 64e-5)).reshape(B, T, D).to(dtype)
     yn = yn * p["ln_x_scale"].to(dtype) + p["ln_x_bias"].to(dtype)
-    return (yn * F.silu(g)) @ p["w_o"].to(dtype), state
+    return L.seq_whole((yn * F.silu(g)) @ p["w_o"].to(dtype)), state
 
 
 def _channel_mix(x: torch.Tensor, xs: torch.Tensor, p: dict,
@@ -231,7 +302,9 @@ def _channel_mix(x: torch.Tensor, xs: torch.Tensor, p: dict,
     xk = x + (xs - x) * cmu[0]
     xr = x + (xs - x) * cmu[1]
     kk = torch.square(torch.relu(xk @ p["w_ck"].to(dtype)))
-    return torch.sigmoid(xr @ p["w_cr"].to(dtype)) * (kk @ p["w_cv"].to(dtype))
+    kk = logical_constraint(kk, "batch", "seq", "ff")
+    return L.seq_whole(torch.sigmoid(xr @ p["w_cr"].to(dtype))
+                       * (kk @ p["w_cv"].to(dtype)))
 
 
 def _block(x: torch.Tensor, p: dict, config: ModelConfig, state: dict,
@@ -239,15 +312,16 @@ def _block(x: torch.Tensor, p: dict, config: ModelConfig, state: dict,
     """One layer: time mix and channel mix, each after its LayerNorm and
     token shift. ``state``: that layer's 'S', 'tshift', 'cshift'; returns
     (x, the layer's new state)."""
-    h = L.apply_norm(x, p["norm1"], config)
+    h = L.seq_whole(L.apply_norm(x, p["norm1"], config))
     xs = _token_shift(h, state["tshift"])
     new_tshift = h[:, -1]
     a, S = _time_mix(h, xs, p, config, state["S"], mode)
-    x = x + a
-    h = L.apply_norm(x, p["norm2"], config)
+    x = logical_constraint(x + a, "batch", "act_seq", "embed")
+    h = L.seq_whole(L.apply_norm(x, p["norm2"], config))
     xs = _token_shift(h, state["cshift"])
     new_cshift = h[:, -1]
     x = x + _channel_mix(h, xs, p, config)
+    x = logical_constraint(x, "batch", "act_seq", "embed")
     return x, {"S": S, "tshift": new_tshift, "cshift": new_cshift}
 
 
@@ -266,6 +340,14 @@ def init_state(config: ModelConfig, batch: int,
             "pos": 0}
 
 
+def cache_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_state``'s tree, stacked on L as the
+    reference's (``repro/models/rwkv6.py:255``)."""
+    return {"S": ("layers", "batch", "heads", "null", "null"),
+            "tshift": ("layers", "batch", "embed"),
+            "cshift": ("layers", "batch", "embed"), "pos": ()}
+
+
 def init_cache(config: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
     """``init_state``: the state is constant-size, so ``max_len`` is not
@@ -280,7 +362,8 @@ def _run(params: dict, tokens: torch.Tensor, config: ModelConfig,
     stacked from the layers' (each layer then under activation
     checkpointing when ``remat`` is not ``"none"``, as the reference
     checkpoints its scan body)."""
-    x = L.embed_tokens(tokens, params["embed"], config)
+    x = logical_constraint(L.embed_tokens(tokens, params["embed"], config),
+                           "batch", "act_seq", "embed")
     names = ("S", "tshift", "cshift")
     if torch.is_grad_enabled():
         def block(x: torch.Tensor, p: dict, layer_state: dict):
@@ -299,7 +382,7 @@ def _run(params: dict, tokens: torch.Tensor, config: ModelConfig,
             x, ns = _block(x, p, config, {name: state[name][i]
                                           for name in names}, mode)
             for name, t in ns.items():
-                state[name][i].copy_(t)
+                state[name][i].copy_(like(t, state[name][i]))
     x = L.apply_norm(x, params["final_norm"], config)
     return x, {**state, "pos": state["pos"] + tokens.shape[1]}
 
@@ -310,7 +393,8 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     from a zero state; returns last-token logits (B, 1, V) and the state.
     ``max_len`` is not read."""
     tokens = batch["tokens"]
-    state = init_state(config, tokens.shape[0], tokens.device)
+    state = place_logical(init_state(config, tokens.shape[0], tokens.device),
+                          cache_specs(config))
     x, state = _run(params, tokens, config, state, mode="chunked")
     return L.lm_logits(x[:, -1:], params["embed"], config), state
 

@@ -18,6 +18,10 @@ here), and is updated in place. ``loss_and_metrics`` is the training loss:
 the next-token cross-entropy by ``_chunked_ce``, whose (B, S, V) logits
 never exist at once, plus the MoE layers' aux loss; a VLM sequence's last
 image position predicts its first token, and no image position is a target.
+``param_specs`` and ``cache_specs`` give the trees' logical axes
+(``parallel/sharding.py``); the residual stream is constrained where the
+reference's is, and under a mesh the loss's chunks take the vocabulary
+whole before the target's gather.
 """
 from __future__ import annotations
 
@@ -27,6 +31,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.parallel.sharding import (is_dtensor, local_shard,
+                                           logical_constraint,
+                                           place_logical, redistribute,
+                                           summed, whole)
 
 
 # -- init ----------------------------------------------------------------------
@@ -40,6 +48,29 @@ def _init_block(gen: torch.Generator, config: ModelConfig,
     params["norm1"] = L.init_norm(config, dtype, gen.device)
     params["norm2"] = L.init_norm(config, dtype, gen.device)
     return params
+
+
+def _block_specs(config: ModelConfig) -> dict:
+    """One block's logical axes (``repro/models/transformer.py:48``),
+    the MoE's with the reference's a2a choice of axes."""
+    specs: dict = {"attn": attn.attention_specs()}
+    if config.num_experts > 0:
+        specs["moe"] = moe_lib.moe_specs(config)
+    else:
+        specs["mlp"] = L.mlp_specs(config)
+    specs["norm1"] = L.norm_specs(config)
+    specs["norm2"] = L.norm_specs(config)
+    return specs
+
+
+def param_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init``'s tree (``repro/models/transformer.py:84``):
+    each layer's dict takes the reference's stacked spec without its
+    leading "layers" axis."""
+    return {"embed": L.embedding_specs(config),
+            "layers": [_block_specs(config)
+                       for _ in range(config.num_layers)],
+            "final_norm": L.norm_specs(config)}
 
 
 def init(gen: torch.Generator, config: ModelConfig) -> dict:
@@ -79,13 +110,14 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
     h = L.apply_norm(x, block_params["norm1"], config)
     a, new_cache = attn.attention_layer(h, block_params["attn"], config,
                                         positions, cache=cache)
-    x = x + a
+    x = logical_constraint(x + a, "batch", "act_seq", "embed")
     h = L.apply_norm(x, block_params["norm2"], config)
     if config.num_experts > 0:
         m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
     else:
         m, aux = L.mlp(h, block_params["mlp"], config), None
-    return x + m, aux, new_cache
+    x = logical_constraint(x + m, "batch", "act_seq", "embed")
+    return x, aux, new_cache
 
 
 def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
@@ -135,8 +167,8 @@ def _embed_inputs(params: dict, batch: dict, config: ModelConfig,
     B, S = x.shape[:2]
     positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
     if config.pos_embedding == "learned":
-        x = x + params["embed"]["pos"].to(x.dtype)[positions]
-    return x, positions
+        x = x + L.lookup(params["embed"]["pos"].to(x.dtype), positions)
+    return logical_constraint(x, "batch", "act_seq", "embed"), positions
 
 
 # -- losses ------------------------------------------------------------------------
@@ -147,18 +179,22 @@ def _chunked_ce(x: torch.Tensor, params: dict, config: ModelConfig,
     ``targets`` without the (B, S, V) logits: ``chunk`` positions at a time,
     each chunk's head product and logsumexp under activation checkpointing
     (recomputed in the backward pass), the sums carried in fp32 in chunk
-    order as the reference's scan carries them."""
-    B, S, D = x.shape
-    n = -(-S // chunk)
-    pad = n * chunk - S
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-        targets = torch.nn.functional.pad(targets, (0, pad))
-        mask = torch.nn.functional.pad(mask, (0, pad))
+    order as the reference's scan carries them. The reference pads the
+    last chunk with masked positions, which add exact zeros; the port cuts
+    it short instead (DTensor's pad strategy in torch 2.11 leaves a
+    placement a mesh dimension short)."""
+    x = L.seq_whole(x)
+    n = -(-x.shape[1] // chunk)
 
     def chunk_nll(xc: torch.Tensor, tc: torch.Tensor, mc: torch.Tensor
                   ) -> torch.Tensor:
-        logits = L.lm_logits(xc, params["embed"], config).float()
+        # the vocabulary whole on every rank of the 'model' axis: DTensor
+        # has no working strategy for the target's gather on a sharded one
+        logits = logical_constraint(
+            L.lm_logits(xc, params["embed"], config).float(), "batch",
+            "seq", None)
+        if is_dtensor(logits):
+            return _local_nll(logits, tc, mc)
         logz = torch.logsumexp(logits, dim=-1)
         tl = torch.gather(logits, -1, tc[..., None])[..., 0]
         return torch.sum((logz - tl) * mc.float())
@@ -172,6 +208,29 @@ def _chunked_ce(x: torch.Tensor, params: dict, config: ModelConfig,
                                         mask[:, cols])
         mask_sum = mask_sum + torch.sum(mask[:, cols].float())
     return loss_sum / torch.clamp(mask_sum, min=1.0)
+
+
+def _local_nll(logits, targets: torch.Tensor, mask: torch.Tensor):
+    """A chunk's masked NLL sum from DTensor logits whose vocabulary is
+    whole on every rank: each rank sums its own rows, and the sums are a
+    pending sum over the mesh axes that shard the batch (DTensor's gather
+    on these logits leaves a masked pending sum that torch 2.11 fails to
+    reduce)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, places = logits.device_mesh, summed(logits.placements)
+    if any(isinstance(p, Shard) and p.dim != 0 for p in places):
+        raise ValueError(f"the loss's logits shard only the batch; they "
+                         f"are placed {places}")
+    logits = redistribute(logits, mesh, places).to_local()
+    targets, mask = (local_shard(whole(t), mesh, places)
+                     for t in (targets, mask))
+    logz = torch.logsumexp(logits, dim=-1)
+    tl = torch.gather(logits, -1, targets[..., None])[..., 0]
+    part = torch.sum((logz - tl) * mask.float())
+    return DTensor.from_local(part, mesh, [
+        Partial() if isinstance(p, Shard) else Replicate() for p in places],
+        run_check=False)
 
 
 def next_token_targets(x: torch.Tensor, batch: dict
@@ -216,6 +275,13 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
             "v": layer["v"].new_zeros(shape), "pos": 0}
 
 
+def cache_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_cache``'s tree, stacked on L as the
+    reference's (``repro/models/transformer.py:266``)."""
+    kv = ("layers", "batch", "null", "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "pos": ()}
+
+
 def prefill(params: dict, batch: dict, config: ModelConfig,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Run the full prompt ``batch['tokens']`` (B, S), behind its image
@@ -226,8 +292,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     ``max_len``."""
     tokens = batch["tokens"]
     x, positions = _embed_inputs(params, batch, config)
-    cache = init_cache(config, tokens.shape[0], max_len or x.shape[1],
-                       tokens.device)
+    cache = place_logical(init_cache(config, tokens.shape[0],
+                                     max_len or x.shape[1], tokens.device),
+                          cache_specs(config))
     x, _, cache = _run_layers(x, params, config, positions, cache)
     x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache

@@ -29,7 +29,8 @@ place. ``loss_and_metrics`` is the training loss: the frames through the
 encoder, the tokens through the decoder without a cache, each layer of
 both under activation checkpointing when ``remat`` is not ``"none"``, as
 the reference checkpoints its scan bodies. ``param_specs`` and
-``cache_specs`` come with the mesh (ROADMAP Queue 1 item 9).
+``cache_specs`` give the trees' logical axes, and the residual stream is
+constrained where the reference's is (``parallel/sharding.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +40,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
+from repro_torch.parallel.sharding import (like, logical_constraint,
+                                           place_logical)
 
 
 # -- init ------------------------------------------------------------------------
@@ -80,6 +83,24 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
             "dec_norm": L.init_norm(config, dtype, gen.device)}
 
 
+def param_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init``'s tree (``repro/models/whisper.py:70``),
+    each layer's without the reference's leading "layers" axis."""
+    norm_s = L.norm_specs(config)
+    enc = {"attn": attn.attention_specs(), "mlp": L.mlp_specs(config),
+           "norm1": dict(norm_s), "norm2": dict(norm_s)}
+    dec = {"self_attn": attn.attention_specs(),
+           "cross_attn": attn.attention_specs(), "mlp": L.mlp_specs(config),
+           "norm1": dict(norm_s), "norm2": dict(norm_s),
+           "norm3": dict(norm_s)}
+    return {"embed": L.embedding_specs(config),
+            "enc_pos": ("frames", "embed_fsdp"),
+            "encoder": [dict(enc) for _ in range(config.encoder_layers)],
+            "enc_norm": dict(norm_s),
+            "decoder": [dict(dec) for _ in range(config.num_layers)],
+            "dec_norm": dict(norm_s)}
+
+
 # -- encoder -----------------------------------------------------------------------
 def encode(params: dict, frames: torch.Tensor,
            config: ModelConfig) -> torch.Tensor:
@@ -90,6 +111,7 @@ def encode(params: dict, frames: torch.Tensor,
     B, T, _ = x.shape
     x = x + params["enc_pos"].to(x.dtype)[None, :T]
     positions = torch.arange(T, device=x.device).expand(B, T)
+    x = logical_constraint(x, "batch", "act_seq", "embed")
 
     def block(x: torch.Tensor, p: dict) -> torch.Tensor:
         h = L.apply_norm(x, p["norm1"], config)
@@ -97,7 +119,8 @@ def encode(params: dict, frames: torch.Tensor,
                                     causal=False)
         x = x + a
         h = L.apply_norm(x, p["norm2"], config)
-        return x + L.mlp(h, p["mlp"], config)
+        return logical_constraint(x + L.mlp(h, p["mlp"], config), "batch",
+                                  "act_seq", "embed")
 
     block = L.remat(block, L.layer_policy(config))
     for p in params["encoder"]:
@@ -128,15 +151,17 @@ def _dec_layer(x: torch.Tensor, p: dict, config: ModelConfig,
         c, cross = attn.attention_layer(h, p["cross_attn"], config,
                                         positions, kv_source=enc_out)
         if layer_cache is not None:
-            layer_cache["cross_k"].copy_(cross["k"])
-            layer_cache["cross_v"].copy_(cross["v"])
+            for name in ("k", "v"):
+                ref = layer_cache["cross_" + name]
+                ref.copy_(like(cross[name], ref))
     else:                           # decode: reuse the cached K/V
         c, _ = attn.attention_layer(
             h, p["cross_attn"], config, positions,
             precomputed_kv=(layer_cache["cross_k"], layer_cache["cross_v"]))
     x = x + c
     h = L.apply_norm(x, p["norm3"], config)
-    return x + L.mlp(h, p["mlp"], config)
+    return logical_constraint(x + L.mlp(h, p["mlp"], config), "batch",
+                              "act_seq", "embed")
 
 
 def _decode_layers(params: dict, x: torch.Tensor, config: ModelConfig,
@@ -171,7 +196,8 @@ def _embed_dec(params: dict, tokens: torch.Tensor, config: ModelConfig,
     B, S = tokens.shape
     x = L.embed_tokens(tokens, params["embed"], config)
     positions = start_pos + torch.arange(S, device=tokens.device).expand(B, S)
-    return x + params["embed"]["pos"].to(x.dtype)[positions], positions
+    x = x + L.lookup(params["embed"]["pos"].to(x.dtype), positions)
+    return logical_constraint(x, "batch", "act_seq", "embed"), positions
 
 
 # -- serving -----------------------------------------------------------------------
@@ -191,6 +217,14 @@ def init_cache(config: ModelConfig, batch: int, max_len: int,
             "cross_k": zeros(T), "cross_v": zeros(T), "pos": 0}
 
 
+def cache_specs(config: ModelConfig) -> dict:
+    """Logical axes of ``init_cache``'s tree, stacked on L as the
+    reference's (``repro/models/whisper.py:206``)."""
+    kv = ("layers", "batch", "null", "kv_heads", "head_dim")
+    return {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv,
+            "pos": ()}
+
+
 def prefill(params: dict, batch: dict, config: ModelConfig,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """Encode ``batch['frames']`` (B, encoder_seq, D), run the prompt
@@ -199,8 +233,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     last-token logits (B, 1, V)."""
     tokens = batch["tokens"]
     enc_out = encode(params, batch["frames"], config)
-    cache = init_cache(config, tokens.shape[0], max_len or tokens.shape[1],
-                       tokens.device)
+    cache = place_logical(init_cache(config, tokens.shape[0],
+                                     max_len or tokens.shape[1],
+                                     tokens.device), cache_specs(config))
     x, positions = _embed_dec(params, tokens, config, 0)
     x, cache = _decode_layers(params, x, config, positions, enc_out, cache)
     x = L.apply_norm(x, params["dec_norm"], config)

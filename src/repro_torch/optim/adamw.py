@@ -18,21 +18,35 @@ counts one more dimension (``reference_ndim``): the same leaves decay.
 The update writes the parameters, the master copy and the moments in
 place and returns them: the reference's train step donates its state
 (``donate_argnums``), and at full width a second copy of the state would
-not fit beside the first. ZeRO-1 (``zero1``, with ``zero1_state_specs``)
-and int8 gradient compression (``compression``) come with the port's mesh
-(ROADMAP Queue 1 item 9); until then ``init_opt_state`` and
-``adamw_update`` refuse a config that asks for either, rather than ignore
-it. The data-parallel trainer (``parallel/dp.py``) shards its own flat
-state and compresses its gradients without this module's update.
+not fit beside the first.
+
+ZeRO-1 under a mesh (parameters that are DTensors, placed by
+``training.shardings_for``): ``init_opt_state`` places 'm', 'v' and
+'master' by ``zero1_state_specs``, each parameter's spec with the 'data'
+(and 'pod') axis added, so each rank holds 1/data of every leaf that an
+axis divides. The update then runs on the state's shards: each gradient
+is redistributed to its state's placements (from the pending sum of a
+data-sharded batch, a reduce-scatter), clipped, updated in the
+reference's fp32 order, and the new parameter, cast to its dtype, is
+redistributed back to the parameter's placements (an all-gather).
+Without a mesh ``zero1`` and ``compression`` are read as the reference's
+``init_opt_state`` and ``adamw_update`` read them, which is not at all:
+a ``zero1=True`` step is the ``zero1=False`` step, and int8 compression
+belongs to the data-parallel trainer (``parallel/dp.py``), which shards
+its own flat state.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Sequence
 
 import torch
 
 from repro_torch.configs.base import DTYPES, OptimizerConfig
+from repro_torch.parallel.sharding import (P, PartitionSpec, is_dtensor,
+                                           map_specs, mesh_axes,
+                                           placements, redistribute,
+                                           shape_of, spec_of)
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -62,31 +76,93 @@ def clip_by_global_norm(grads: Any, max_norm: float
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gnorm
 
 
+# -- ZeRO-1 sharding --------------------------------------------------------------
+def add_zero_axis(spec: Sequence[Any], shape: tuple[int, ...], mesh: Any,
+                  axis: str = "data") -> PartitionSpec:
+    """``axis`` added to the first unsharded dimension it divides
+    (``repro/optim/adamw.py:110``); the spec as it was when the mesh lacks
+    the axis, already uses it (FSDP weights), or no dimension fits."""
+    sizes = mesh_axes(mesh)
+    if axis not in sizes:
+        return P(*spec)
+    used = {a for part in spec if part is not None
+            for a in (part if isinstance(part, tuple) else (part,))}
+    if axis in used:
+        return P(*spec)
+    n = sizes[axis]
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, cur) in enumerate(zip(shape, parts)):
+        if cur is None and dim % n == 0 and dim >= n:
+            parts[i] = axis
+            return P(*parts)
+    return P(*spec)
+
+
+def zero1_state_specs(param_specs: Any, param_shapes: Any, mesh: Any,
+                      config: OptimizerConfig) -> dict:
+    """The optimizer state's spec tree (``repro/optim/adamw.py:129``):
+    with ``zero1`` each leaf's parameter spec plus 'data', then 'pod'
+    (``add_zero_axis``); 'step' replicated. The port's layers are per-layer
+    leaves, so where the reference's stacked (L, ...) leaf takes the axis
+    on L, the port's takes it on the leaf's first divisible dimension, or
+    stays replicated when none divides (ROADMAP Queue 3)."""
+    def zspec(spec: Any, leaf: Any) -> PartitionSpec:
+        if not config.zero1:
+            return P(*spec)
+        spec = add_zero_axis(spec, shape_of(leaf), mesh, axis="data")
+        return add_zero_axis(spec, shape_of(leaf), mesh, axis="pod")
+
+    mz = map_specs(zspec, param_specs, param_shapes)
+    state = {"m": mz, "v": mz, "step": P()}
+    if config.master_fp32:
+        state["master"] = mz
+    return state
+
+
 # -- state ---------------------------------------------------------------------------
-def _refuse_mesh_options(config: OptimizerConfig) -> None:
-    if config.zero1 or config.compression is not None:
-        raise NotImplementedError(
-            f"adamw: zero1={config.zero1}, compression="
-            f"{config.compression!r}: ZeRO-1 and gradient compression come "
-            f"with the port's mesh (ROADMAP Queue 1 item 9); pass "
-            f"zero1=False and compression=None")
+def _zero_placed(p: torch.Tensor, t: torch.Tensor,
+                 config: OptimizerConfig) -> torch.Tensor:
+    """``t``, a state leaf made like the DTensor parameter ``p``, placed
+    by ``p``'s spec with the ZeRO axes (``zero1_state_specs``' rule); a
+    copy of this rank's block only, so the full leaf is freed."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = p.device_mesh
+    spec = spec_of(p.placements, mesh)
+    zspec = zero1_state_specs(spec, p, mesh, config)["m"]
+    t = redistribute(t, mesh, placements(zspec, mesh))
+    return DTensor.from_local(t.to_local().clone(), mesh, t.placements,
+                              run_check=False)
 
 
 def init_opt_state(params: Any, config: OptimizerConfig) -> dict:
     """'m', 'v': zeros in ``state_dtype``; 'step': an int32 zero; with
-    ``master_fp32`` 'master', an fp32 copy of the parameters."""
-    _refuse_mesh_options(config)
+    ``master_fp32`` 'master', an fp32 copy of the parameters. A DTensor
+    parameter's leaves are placed by ``zero1_state_specs``."""
     sdtype = DTYPES[config.state_dtype]
-    device = tree_leaves(params)[0].device
-    state = {"m": tree_map(lambda p: torch.zeros_like(p, dtype=sdtype),
-                           params),
-             "v": tree_map(lambda p: torch.zeros_like(p, dtype=sdtype),
-                           params),
+    first = tree_leaves(params)[0]
+    device = (first.to_local() if is_dtensor(first) else first).device
+
+    def leaf(p: torch.Tensor, make) -> torch.Tensor:
+        t = make(p)
+        return _zero_placed(p, t, config) if is_dtensor(p) else t
+
+    state = {"m": tree_map(lambda p: leaf(
+                 p, lambda q: torch.zeros_like(q, dtype=sdtype)), params),
+             "v": tree_map(lambda p: leaf(
+                 p, lambda q: torch.zeros_like(q, dtype=sdtype)), params),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     if config.master_fp32:
-        state["master"] = tree_map(
-            lambda p: p.detach().to(torch.float32, copy=True), params)
+        state["master"] = tree_map(lambda p: leaf(
+            p, lambda q: q.detach().to(torch.float32, copy=True)), params)
     return state
+
+
+def _to_state(g: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """A gradient on its state leaf's placements (a DTensor state's)."""
+    if is_dtensor(m):
+        return redistribute(g, m.device_mesh, m.placements)
+    return g
 
 
 def reference_ndim(params: Any) -> Any:
@@ -105,8 +181,10 @@ def reference_ndim(params: Any) -> Any:
 def adamw_update(params: Any, grads: Any, state: dict,
                  config: OptimizerConfig) -> tuple[Any, dict, dict]:
     """One AdamW step, written into ``params`` and ``state`` in place.
-    Returns (params, state, {'lr', 'grad_norm'})."""
-    _refuse_mesh_options(config)
+    Returns (params, state, {'lr', 'grad_norm'}). Under a mesh each
+    gradient is first redistributed to its state's placements, and the
+    new parameter back to the parameter's (the module's docstring)."""
+    grads = tree_map(_to_state, grads, state["m"])
     step = state["step"] + 1
     lr = lr_schedule(step, config)
     if config.grad_clip > 0:
@@ -134,7 +212,10 @@ def adamw_update(params: Any, grads: Any, state: dict,
         v.copy_(v32.to(sdtype))
         if p_ref is not p:
             p_ref.copy_(new)
-        p.copy_(new.to(p.dtype))
+        new = new.to(p.dtype)
+        if is_dtensor(p):
+            new = redistribute(new, p.device_mesh, p.placements)
+        p.copy_(new)
 
     tree_map(upd, ref, grads, state["m"], state["v"], params,
              reference_ndim(params))

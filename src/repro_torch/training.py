@@ -2,10 +2,15 @@
 
 The counterpart of ``repro/training.py``. ``build_train_step`` and
 ``build_serve_fns`` produce the step functions that the streaming trainer
-(``launch/train.py``) and the server (``launch/serve.py``) run; the
-reference's ``shardings_for`` and ``lower_cell`` attach a mesh's specs and
-come with the port's mesh (ROADMAP Queue 1 item 9). The data-parallel
-step over a process group is ``parallel/dp.py``.
+(``launch/train.py``) and the server (``launch/serve.py``) run.
+``shardings_for`` gathers a cell's specs on a mesh (the reference's
+GSPMD ``in_shardings``), and ``CellShardings.place`` puts a state, batch
+or cache on the mesh by them, as DTensors: the same step functions then
+run on the placed trees under ``use_mesh(cell.mesh, cell.rules)``, DTensor
+propagating the shardings where XLA's compiler does in the reference.
+The reference's ``lower_cell`` lowers a cell for its dry-run and comes
+with the port's (ROADMAP Queue 1 item 10). The data-parallel step over a
+process group is ``parallel/dp.py``.
 
 The train step takes gradients by autograd through the config's attention
 schedule, as the reference's ``jax.grad`` goes through its ``lax.scan``:
@@ -16,14 +21,22 @@ port through its flash kernel, which refuses inputs that require grad.
 """
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, OptimizerConfig
-from repro_torch.models.registry import get_model
-from repro_torch.optim import adamw_update, init_opt_state
+from repro_torch.configs import batch_specs_logical, input_specs
+from repro_torch.configs.base import ModelConfig, OptimizerConfig, ShapeConfig
+from repro_torch.models.registry import get_model, param_shapes
+from repro_torch.optim import adamw_update, init_opt_state, zero1_state_specs
+from repro_torch.parallel.sharding import (ShardingRules, is_dtensor,
+                                           place_tree, tree_specs_shaped)
 from repro_torch.utils import tree_leaves, tree_map
+
+
+def rules_for(config: ModelConfig) -> ShardingRules:
+    return ShardingRules(overrides=dict(config.sharding_overrides))
 
 
 def loss_and_grads(params: dict, batch: dict, config: ModelConfig
@@ -60,15 +73,17 @@ def build_train_step(config: ModelConfig, opt: OptimizerConfig
     ``train_config``'s schedule), then one AdamW step, written into
     ``state`` in place (the reference donates it). Metrics: 'loss',
     'aux_loss', 'lr', 'grad_norm' and 'total_loss', fp32 scalars on the
-    state's device."""
+    state's device (plain tensors, the same on every rank, under a
+    mesh)."""
     config = train_config(config)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, metrics, grads = loss_and_grads(state["params"], batch, config)
         params, opt_state, opt_metrics = adamw_update(
             state["params"], grads, state["opt"], opt)
+        metrics = {**metrics, **opt_metrics, "total_loss": loss}
         return ({"params": params, "opt": opt_state},
-                {**metrics, **opt_metrics, "total_loss": loss})
+                {k: _plain(v) for k, v in metrics.items()})
 
     return train_step
 
@@ -95,3 +110,67 @@ def init_state(gen: torch.Generator, config: ModelConfig,
     'opt': ``init_opt_state``}; every leaf its own tensor."""
     params = get_model(config).init(gen, config)
     return {"params": params, "opt": init_opt_state(params, opt)}
+
+
+def _plain(x: Any) -> Any:
+    """A DTensor metric as the full tensor, the same on every rank."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+# -- sharding assembly -------------------------------------------------------------
+@dataclass
+class CellShardings:
+    """Every spec of one (arch x shape x mesh) cell
+    (``repro/training.py:80``): the parameters', and the train state's,
+    the batch's and the cache's where the cell's kind has them."""
+    mesh: Any
+    rules: ShardingRules
+    param_specs: Any
+    state_specs: Any | None = None          # train
+    batch_specs: Any | None = None
+    cache_specs: Any | None = None          # prefill and decode
+
+    def place(self, tree: Any, specs: Any) -> Any:
+        """``tree`` on the cell's ``DeviceMesh`` by ``specs`` (one of the
+        cell's spec trees): each tensor a DTensor of this rank's block,
+        the same full tree being on every rank; the counterpart of
+        ``jit``'s ``in_shardings``."""
+        return place_tree(tree, specs, self.mesh)
+
+
+def shardings_for(config: ModelConfig, shape: ShapeConfig, mesh: Any,
+                  opt: OptimizerConfig | None = None) -> CellShardings:
+    """The cell's specs on ``mesh`` (a ``DeviceMesh`` or an abstract
+    mesh), each with the axes that do not divide its leaf dropped
+    (``repro/training.py:95``): train the state's (the parameters' and
+    ``zero1_state_specs``) and the batch's; prefill the batch's and the
+    cache's for ``seq_len`` positions; decode the tokens' and the
+    cache's."""
+    model = get_model(config)
+    rules = rules_for(config)
+    shapes = param_shapes(config)
+    pspecs = tree_specs_shaped(model.param_specs(config), shapes, mesh,
+                               rules)
+    cell = CellShardings(mesh=mesh, rules=rules, param_specs=pspecs)
+    logical = batch_specs_logical(config, shape)
+    inputs = input_specs(config, shape)
+    if shape.kind == "train":
+        cell.state_specs = {
+            "params": pspecs,
+            "opt": zero1_state_specs(pspecs, shapes, mesh,
+                                     opt or OptimizerConfig())}
+        cell.batch_specs = tree_specs_shaped(logical["batch"],
+                                             inputs["batch"], mesh, rules)
+    elif shape.kind == "prefill":
+        cache = model.init_cache(config, shape.global_batch, shape.seq_len,
+                                 torch.device("meta"))
+        cell.batch_specs = tree_specs_shaped(logical["batch"],
+                                             inputs["batch"], mesh, rules)
+        cell.cache_specs = tree_specs_shaped(model.cache_specs(config),
+                                             cache, mesh, rules)
+    else:
+        cell.batch_specs = tree_specs_shaped(logical["tokens"],
+                                             inputs["tokens"], mesh, rules)
+        cell.cache_specs = tree_specs_shaped(model.cache_specs(config),
+                                             inputs["cache"], mesh, rules)
+    return cell

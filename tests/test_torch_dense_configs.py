@@ -70,9 +70,7 @@ def _t(x, dtype):
 @pytest.mark.parametrize("arch", DENSE)
 def test_torch_dense_config_has_the_reference_numbers(arch):
     """Every field the port shares with the reference holds the same
-    value, at the full config and at reduced(). The reference's
-    ``pad_attention_heads`` is not one: it pads 0 heads without a mesh,
-    and the port has none yet."""
+    value, at the full config and at reduced(), head padding included."""
     for reduced in (False, True):
         jcfg = jax_get_config(arch, reduced=reduced)
         tcfg = get_config(arch, reduced=reduced)
@@ -80,7 +78,8 @@ def test_torch_dense_config_has_the_reference_numbers(arch):
                   "num_kv_heads", "d_ff", "vocab_size", "head_dim",
                   "hidden_act", "mlp_gated", "norm", "norm_offset",
                   "rope_theta", "tie_embeddings", "local_window",
-                  "is_encoder_decoder", "dtype", "param_dtype"):
+                  "is_encoder_decoder", "dtype", "param_dtype",
+                  "pad_attention_heads"):
             assert getattr(tcfg, f) == getattr(jcfg, f), (reduced, f)
         assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 

@@ -187,22 +187,37 @@ def test_torch_init_opt_state_copies_the_master():
 
 @pytest.mark.parametrize("change", [dict(zero1=True),
                                     dict(zero1=False, compression="int8")])
-def test_torch_adamw_refuses_the_mesh_options(change):
-    """ZeRO-1 and gradient compression come with the port's mesh; a config
-    asking for either is refused by both entry points, not ignored. The
-    reference's defaults ask for ZeRO-1."""
+def test_torch_adamw_reads_the_mesh_options_as_the_reference(change):
+    """Without a mesh ``zero1`` and ``compression`` change nothing, as in
+    the reference's ``init_opt_state`` and ``adamw_update``: the config is
+    accepted, and its step equals the ``zero1=False, compression=None``
+    step and the reference's ``adamw_update`` on the same inputs (ZeRO-1
+    over a mesh is tests/test_torch_mesh.py's). The reference's defaults
+    ask for ZeRO-1."""
     assert OptimizerConfig().zero1 is JOptimizerConfig().zero1 is True
-    cfg = OptimizerConfig(**change)
-    params = {"w": torch.ones((2, 3))}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 9"):
-        init_opt_state(params, cfg)
-    state = init_opt_state(params, OptimizerConfig(zero1=False))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1 item 9"):
-        adamw_update(params, {"w": torch.ones((2, 3))}, state, cfg)
-    assert int(state["step"]) == 0 and torch.equal(params["w"],
-                                                   torch.ones((2, 3)))
+    rng = np.random.default_rng(5)
+    p0 = rng.standard_normal((3, 4)).astype(np.float32)
+    g = rng.standard_normal((3, 4)).astype(np.float32)
+    kw = dict(lr=1e-2, warmup_steps=0, total_steps=10)
+    outs = []
+    for cfg in (OptimizerConfig(**kw, **change),
+                OptimizerConfig(**kw, zero1=False, compression=None)):
+        params = {"w": torch.from_numpy(p0.copy())}
+        state = init_opt_state(params, cfg)
+        params, state, _ = adamw_update(params, {"w": torch.from_numpy(g)},
+                                        state, cfg)
+        outs.append((params["w"].clone(), state["m"]["w"].clone(),
+                     int(state["step"])))
+    (got, m_got, step_got), (want, m_want, step_want) = outs
+    assert torch.equal(got, want) and torch.equal(m_got, m_want)
+    assert step_got == step_want == 1
+    jcfg = JOptimizerConfig(**kw, **change)
+    jparams = {"w": jnp.asarray(p0)}
+    jp, _, _ = jadamw.adamw_update(jparams, {"w": jnp.asarray(g)},
+                                   jadamw.init_opt_state(jparams, jcfg),
+                                   jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jp["w"]), rtol=1e-6,
+                               atol=1e-7)
 
 
 @pytest.mark.parametrize("name", ["OptimizerConfig", "RunConfig",
