@@ -283,6 +283,26 @@ Phases, each fatal on failure:
      rest, peak memory; (b) two spawned gloo processes on the card at a
      depth cut of 2 layers, 2 rows each, without and with int8, held to
      the one-process step and the plain int8 step over the same rows.
+ 29. the mesh in a child process under deterministic algorithms:
+     internlm2-1.8b's ``shardings_for`` train and prefill cells on a
+     (data 1, model 1) mesh at NCCL world 1 at full width, then ZeRO-1 and
+     tensor-parallel meshes of two host-staged gloo processes at 2 layers.
+ 30. the all-to-all MoE and the pipeline in a child process under
+     deterministic algorithms: (a) granite-moe-3b-a800m at full width with
+     the a2a overrides at NCCL world 1 on a (data 1, model 1) mesh, the
+     reference's fallback, its bf16 prefill bit-equal to the unpadded
+     scatter run's with 32 wgmma launches; (b) two host-staged gloo
+     processes on (data 2, model 1), each owning 20 of the 40 experts a
+     layer at full width and depth: the bf16 prefill of 4 x 1,024 (32
+     wgmma launches a rank) and 8 decode steps, the fp32 prefill at
+     capacity factor 5.0 with every layer's a2a output held to
+     ``moe_layer`` on its own input (rtol/atol 2e-3, aux 1e-5), and a
+     train step at 2 layers whose gradients are held to the one-process
+     scatter step's (1e-4 of each leaf's largest magnitude); (c)
+     internlm2-1.8b's 24 blocks in fp32 over 2 pipeline stages of gloo
+     processes, forward (2e-5) and the gradients of sum(y^2) (2e-4)
+     against the blocks in sequence; times, the host-staged collectives'
+     share and peak memory throughout.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
@@ -298,7 +318,10 @@ phase 23's as ``launches_audio`` and ``launches_audio_fp32_invariant``;
 the flash rows up to hd 128 carry phase 25's serve stream as
 ``launches_vlm``, its fp32 invariant as ``launches_vlm_fp32_invariant``,
 phase 26's training runs as ``launches_train``, 0, and phase 27's flash
-prefill as ``launches_schedules``; every
+prefill as ``launches_schedules``; every flash row carries phase 29's
+``launches_mesh`` and ``launches_mesh_gloo_tp`` and phase 30's
+``launches_moe_a2a`` ((a)), ``launches_moe_a2a_gloo`` ((b)'s bf16
+prefills over both ranks) and ``launches_moe_a2a_gloo_fp32``; every
 flash row carries phase 9's own launches of its instances as
 ``launches_kernel_checks``), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
@@ -5341,6 +5364,640 @@ def mesh_phase(torch, dev, smi: str) -> dict:
             for name, rows in counts.items()}
 
 
+# phase 30: the all-to-all MoE (models/moe.py's moe_layer_a2a, the block's
+# _moe_impl branch) and the GPipe pipeline (parallel/pp.py), in a child
+# process under deterministic algorithms as phases 28-29: (a) NCCL at world
+# 1 on a (data 1, model 1) mesh, the reference's fallback to the scatter
+# dispatch; (b) two host-staged gloo processes on (data 2, model 1), each
+# owning 20 of granite's 40 experts a layer, its tokens routed by
+# all-to-all; (c) two host-staged gloo processes as the 2 stages of a
+# (pod 2, data 1, model 1) mesh, internlm2-1.8b's 24 blocks in fp32
+A2A_OVERRIDES = {"_moe_impl": "a2a", "_moe_pad_experts": 2}
+A2A_WORLD, A2A_DECODE = 2, 8
+# the fp32 prefill's and the train step's tokens a row: the reference's
+# local buffer, (experts a rank, ranks x capacity, d_model), is 10 GB a
+# layer in fp32 at capacity factor 5.0 and 1,024 tokens a row, with as
+# much again for its products, in each of the two processes on one card
+A2A_FP32_S, A2A_TRAIN_S, A2A_TRAIN_LAYERS = 512, 256, 2
+A2A_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_multidevice.py:240
+A2A_AUX_RTOL = 1e-5
+PP_B, PP_S, PP_MICRO = 4, 1024, 4
+PP_FWD_TOL, PP_GRAD_TOL = 2e-5, 2e-4    # tests/test_multidevice.py:268-276
+A2A_LAUNCHES = "a2a_launches.json"
+
+
+def _own(tree):
+    """A placed tree whose sharded leaves are copies of this rank's
+    blocks, so that the full tensors they were cut from can be freed."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.parallel.sharding import is_dtensor
+
+    def own(t):
+        if not is_dtensor(t) or t.to_local().numel() == t.numel():
+            return t
+        return DTensor.from_local(t.to_local().clone(), t.device_mesh,
+                                  t.placements, run_check=False)
+    if isinstance(tree, dict):
+        return {k: _own(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_own(v) for v in tree]
+    return own(tree)
+
+
+def _within(torch, got, want, rtol: float, atol: float) -> bool:
+    return bool(((got - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def _a2a_world1(torch, dev) -> tuple[list[str], dict]:
+    """Phase 30 (a): the failures and the a2a run's flash launches."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import padded_experts
+    from repro_torch.parallel.sharding import use_mesh, whole
+    from repro_torch.training import shardings_for
+
+    config = get_config(MOE_ARCH)
+    a2a = config.replace(sharding_overrides=A2A_OVERRIDES)
+    params = _draw(torch, dev, config)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 30).integers(
+        0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    cell = shardings_for(a2a, ShapeConfig("a2a", MODEL_S, MODEL_B, "prefill"),
+                         mesh)
+    with torch.inference_mode():
+        plain, _ = transformer.prefill(params, {"tokens": tokens}, config)
+        placed = cell.place(params, cell.param_specs)
+        batch = cell.place({"tokens": tokens}, cell.batch_specs)
+        with use_mesh(cell.mesh, cell.rules):
+            transformer.prefill(placed, batch, a2a)
+            torch.cuda.synchronize(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, _ = transformer.prefill(placed, batch, a2a)
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = _launched(fk.flash_attention.launches_by_instance)
+        equal = torch.equal(whole(logits), plain)
+    print(f"  (a) {MOE_ARCH} at full width in bf16, the a2a overrides "
+          f"{A2A_OVERRIDES} (E_pad {padded_experts(a2a)} of "
+          f"{config.num_experts}), NCCL world 1 on a (data 1, model 1) mesh, "
+          f"no expert axis larger than 1, so the reference's fallback: "
+          f"prefill of {MODEL_B} x {MODEL_S} tokens {ms:.1f} ms with flash "
+          f"{launched}, last-token logits bit-equal to the unpadded scatter "
+          f"run's without a mesh: {equal}", flush=True)
+    want = {("wgmma", config.resolved_head_dim): config.num_layers}
+    if not equal or launched != want:
+        return [f"(a) bit-equal {equal}, launches {launched} (want "
+                f"{want})"], launched
+    return [], launched
+
+
+def _a2a_recording(moe, whole):
+    """Records each call of ``moe.moe_layer_a2a`` inside the block:
+    (the input, the output, the aux loss), each whole (a collective on
+    every rank)."""
+    seen, fn = [], moe.moe_layer_a2a
+
+    def recording(h, params, config):
+        out, aux = fn(h, params, config)
+        seen.append((whole(h), whole(out), whole(aux)))
+        return out, aux
+    return seen, fn, recording
+
+
+def _a2a_bf16(torch, dev, mesh, rank: int) -> dict:
+    """Phase 30 (b)'s bf16 prefill of MODEL_B x MODEL_S tokens (phase (a)'s)
+    with the a2a branch, timed as the first (DTensor's sharding caches
+    cold), then A2A_DECODE greedy decode steps; rank 0 also runs the
+    one-process scatter prefill on the full tree first."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import sharding
+    from repro_torch.training import shardings_for
+
+    config = get_config(MOE_ARCH)
+    a2a = config.replace(sharding_overrides=A2A_OVERRIDES)
+    params = get_model(config).init(torch.Generator(device=dev).manual_seed(
+        SEED), config)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 30).integers(
+        0, config.vocab_size, (MODEL_B, MODEL_S))).to(dev)
+    out = {}
+    with torch.inference_mode():
+        plain = (transformer.prefill(params, {"tokens": tokens}, config)[0]
+                 if rank == 0 else None)
+        cell = shardings_for(a2a, ShapeConfig("a2a", MODEL_S, MODEL_B,
+                                              "prefill"), mesh)
+        placed = _own(cell.place(params, cell.param_specs))
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out["bytes"] = _local_bytes(placed)
+        batch = cell.place({"tokens": tokens}, cell.batch_specs)
+        staged = sharding.host_staged_class()
+        max_len = MODEL_S + A2A_DECODE
+        with sharding.use_mesh(cell.mesh, cell.rules):
+            torch.cuda.synchronize(dev)
+            kernels.reset_launch_counts()
+            c0, t0 = staged.seconds, time.perf_counter()
+            logits, cache = transformer.prefill(placed, batch, a2a, max_len)
+            torch.cuda.synchronize(dev)
+            out["prefill_s"] = time.perf_counter() - t0
+            out["prefill_coll"] = staged.seconds - c0
+            out["launched"] = _launched(
+                fk.flash_attention.launches_by_instance)
+            logits = sharding.whole(logits)
+            if plain is not None:
+                out["diff"] = _max_err(torch, logits.float(), plain.float())
+            toks = []
+            for i in range(A2A_DECODE):
+                if i == 1:
+                    torch.cuda.synchronize(dev)
+                    c0, t0 = staged.seconds, time.perf_counter()
+                tok = torch.argmax(logits[:, -1], -1)[:, None]
+                toks.append(tok)
+                logits, cache = transformer.decode_step(placed, tok, cache,
+                                                        a2a)
+                logits = sharding.whole(logits)
+            torch.cuda.synchronize(dev)
+            out["decode_s"] = (time.perf_counter() - t0) / (A2A_DECODE - 1)
+            out["decode_coll"] = (staged.seconds - c0) / (A2A_DECODE - 1)
+            out["tokens"] = torch.cat(toks, 1).cpu().tolist()
+            out["finite"] = bool(torch.isfinite(logits).all())
+    out["peak"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def _a2a_fp32(torch, dev, mesh, rank: int) -> dict:
+    """Phase 30 (b)'s fp32 prefill of MODEL_B x A2A_FP32_S tokens at the
+    drop-free capacity factor E/k: each layer's a2a output and aux loss
+    held against ``moe_layer`` on that layer's own input and weights, and
+    (reported) the logits' difference from the one-process scatter
+    prefill and the share of routing decisions that differ from it."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import sharding
+    from repro_torch.training import shardings_for
+
+    config = get_config(MOE_ARCH)
+    config = config.replace(
+        dtype="float32", param_dtype="float32",
+        capacity_factor=config.num_experts / config.experts_per_token)
+    a2a = config.replace(sharding_overrides=A2A_OVERRIDES)
+    K = config.experts_per_token
+    params = get_model(config).init(torch.Generator(device=dev).manual_seed(
+        SEED), config)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 31).integers(
+        0, config.vocab_size, (MODEL_B, A2A_FP32_S))).to(dev)
+    T = MODEL_B * A2A_FP32_S
+    out = {}
+    with torch.inference_mode():
+        if rank == 0:
+            with _capture(moe, "moe_layer") as ins:
+                plain, _ = transformer.prefill(params, {"tokens": tokens},
+                                               config)
+            routes = [moe.route(h.reshape(T, -1), params["layers"][i]["moe"][
+                "router"], K)[2].sort(-1).values for i, h in enumerate(ins)]
+            del ins
+            # every layer's whole experts, kept on the host for the checks
+            kept = [{k: v.to("cpu") for k, v in layer["moe"].items()}
+                    for layer in params["layers"]]
+        cell = shardings_for(a2a, ShapeConfig("a2a", A2A_FP32_S, MODEL_B,
+                                              "prefill"), mesh)
+        placed = _own(cell.place(params, cell.param_specs))
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        batch = cell.place({"tokens": tokens}, cell.batch_specs)
+        seen, fn, recording = _a2a_recording(moe, sharding.whole)
+        moe.moe_layer_a2a = recording
+        try:
+            with sharding.use_mesh(cell.mesh, cell.rules):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                logits, _ = transformer.prefill(placed, batch, a2a)
+                torch.cuda.synchronize(dev)
+                out["prefill_s"] = time.perf_counter() - t0
+        finally:
+            moe.moe_layer_a2a = fn
+        out["launched"] = _launched(fk.flash_attention.launches_by_instance)
+        out["peak"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        logits = sharding.whole(logits).float()
+        worst, aux_worst, flips, held = 0.0, 0.0, [], True
+        for i, (h, got, aux) in enumerate(seen if rank == 0 else ()):
+            layer = {k: v.to(dev) for k, v in kept[i].items()}
+            want, aux0 = moe.moe_layer(h, layer, config)
+            worst = max(worst, _max_err(torch, got, want))
+            aux_rel = abs(float(aux) - float(aux0)) / abs(float(aux0))
+            aux_worst = max(aux_worst, aux_rel)
+            held = held and _within(torch, got, want, **A2A_TOL) and \
+                aux_rel <= A2A_AUX_RTOL
+            mine = moe.route(h.reshape(T, -1), layer["router"], K)[2]
+            flips.append(int((mine.sort(-1).values != routes[i]).any(-1)
+                             .sum()))
+        out["layers"] = len(seen)
+        if rank == 0:
+            out.update(held=held, worst=worst, aux_worst=aux_worst,
+                       flips=flips,
+                       diff=_max_err(torch, logits, plain.float()),
+                       finite=bool(torch.isfinite(logits).all()))
+    return out
+
+
+def _a2a_train(torch, dev, mesh, rank: int) -> dict:
+    """Phase 30 (b)'s train step: granite at A2A_TRAIN_LAYERS layers, fp32,
+    capacity factor E/k, the loss's gradients through the all-to-alls on
+    ``shardings_for``'s train cell against the one-process scatter step's
+    (rank 0), within TRAIN_GRAD_TOL of each leaf's largest magnitude."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, ShapeConfig
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import sharding
+    from repro_torch.training import loss_and_grads, shardings_for, \
+        train_config
+    from repro_torch.utils import tree_leaves
+
+    config = get_config(MOE_ARCH)
+    config = train_config(config.replace(
+        num_layers=A2A_TRAIN_LAYERS, dtype="float32", param_dtype="float32",
+        capacity_factor=config.num_experts / config.experts_per_token))
+    a2a = config.replace(sharding_overrides=A2A_OVERRIDES)
+    params = get_model(config).init(torch.Generator(device=dev).manual_seed(
+        SEED), config)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 32).integers(
+        0, config.vocab_size, (MODEL_B, A2A_TRAIN_S))).to(dev)
+    out = {}
+    if rank == 0:
+        loss0, _, want = loss_and_grads(params, {"tokens": tokens}, config)
+        want = tree_leaves(want)
+    cell = shardings_for(a2a, ShapeConfig("a2a", A2A_TRAIN_S, MODEL_B,
+                                          "train"), mesh, OptimizerConfig())
+    placed = _own(cell.place(params, cell.state_specs["params"]))
+    del params
+    torch.cuda.empty_cache()
+    batch = cell.place({"tokens": tokens}, cell.batch_specs)
+    staged = sharding.host_staged_class()
+    with sharding.use_mesh(cell.mesh, cell.rules):
+        torch.cuda.synchronize(dev)
+        c0, t0 = staged.seconds, time.perf_counter()
+        loss, _, grads = loss_and_grads(placed, batch, a2a)
+        torch.cuda.synchronize(dev)
+        out["step_s"] = time.perf_counter() - t0
+        out["coll"] = staged.seconds - c0
+        got = tree_leaves(sharding.gather_tree(grads))
+        loss = float(sharding.whole(loss))
+    if rank == 0:
+        errs = [_max_err(torch, g.float(), w.float())
+                / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want)]
+        out.update(leaves=len(got), worst=max(errs),
+                   held=len(got) == len(want) and max(errs) <= TRAIN_GRAD_TOL,
+                   loss=loss, loss0=float(loss0))
+    return out
+
+
+def _a2a_gloo_rank(rank: int, world: int, init: str, device: str,
+                   results) -> None:
+    """One of phase 30 (b)'s processes, on the host-staged gloo backend,
+    on a (data 2, model 1) mesh: the bf16 prefill and decode, the fp32
+    prefill held layer by layer, the train step's gradients."""
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.use_deterministic_algorithms(True)
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        from repro_torch.parallel.sharding import register_host_staged
+        dist.init_process_group(register_host_staged(), init_method=init,
+                                rank=rank, world_size=world)
+        try:
+            from torch.distributed.device_mesh import init_device_mesh
+            mesh = init_device_mesh("cuda", (world, 1),
+                                    mesh_dim_names=("data", "model"))
+            out = {"errors": {}}
+            for label, fn in (("bf16", _a2a_bf16), ("fp32", _a2a_fp32),
+                              ("train", _a2a_train)):
+                try:
+                    out[label] = fn(torch, dev, mesh, rank)
+                except Exception:
+                    out["errors"][label] = traceback.format_exc()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _a2a_gloo(torch, dev, tmp: str) -> tuple[list[str], dict, dict]:
+    """Phase 30 (b); the failures and the flash launches over the ranks of
+    the bf16 and the fp32 prefills."""
+    from repro_torch.configs import get_config
+
+    config = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    store = Path(tmp) / "a2a"          # a store of its own: (c) follows
+    store.mkdir()
+    ranks = _spawn_group(A2A_WORLD, store, dev, target=_a2a_gloo_rank)
+    print(f"  (b) {A2A_WORLD} host-staged gloo processes on a (data "
+          f"{A2A_WORLD}, model 1) mesh, {MOE_ARCH} at full width and depth "
+          f"with {A2A_OVERRIDES}, {config.num_experts // A2A_WORLD} of its "
+          f"{config.num_experts} experts a layer on each process "
+          f"({time.perf_counter() - t0:.1f} s with their start):",
+          flush=True)
+    failed, launched, launched32 = [], {}, {}
+    hd = config.resolved_head_dim
+    for r, out in enumerate(ranks):
+        for label, err in out["errors"].items():
+            print(f"      rank {r}, {label} failed:\n{err}", flush=True)
+            failed.append(f"(b) rank {r}, {label}")
+        if "bf16" in out:
+            b = out["bf16"]
+            for key, n in b["launched"].items():
+                launched[key] = launched.get(key, 0) + n
+            print(f"      rank {r}, bf16: this rank's parameters "
+                  f"{b['bytes'] / 1e9:.3f} GB; prefill of {MODEL_B} x "
+                  f"{MODEL_S} tokens ({MODEL_B // A2A_WORLD} rows a rank) "
+                  f"{b['prefill_s'] * 1e3:.1f} ms, flash {b['launched']}, "
+                  f"host-staged collectives {b['prefill_coll'] * 1e3:.1f} ms "
+                  f"(share {b['prefill_coll'] / b['prefill_s']:.3f})"
+                  + (f", last-token logits max|diff| {b['diff']:.4g} from "
+                     f"the one-process scatter prefill (reported: bf16, and "
+                     f"capacity drops are per rank here)" if "diff" in b
+                     else "")
+                  + f"; {A2A_DECODE} decode steps, "
+                  f"{b['decode_s'] * 1e3:.1f} ms a step after the first "
+                  f"(collectives {b['decode_coll'] * 1e3:.1f} ms), tokens "
+                  f"{b['tokens']}; peak {b['peak']:.2f} GB", flush=True)
+            if b["launched"] != {("wgmma", hd): config.num_layers} or \
+                    not b["finite"]:
+                failed.append(f"(b) rank {r}, the bf16 prefill")
+        if "fp32" in out:
+            f = out["fp32"]
+            for key, n in f["launched"].items():
+                launched32[key] = launched32.get(key, 0) + n
+            line = (f"      rank {r}, fp32 at capacity factor "
+                    f"{config.num_experts / config.experts_per_token}: "
+                    f"prefill of {MODEL_B} x {A2A_FP32_S} tokens "
+                    f"{f['prefill_s'] * 1e3:.1f} ms (with each layer's "
+                    f"input and output gathered), flash {f['launched']}, "
+                    f"peak {f['peak']:.2f} GB")
+            if "held" in f:
+                T = MODEL_B * A2A_FP32_S
+                line += (f"; each of {f['layers']} layers' a2a output "
+                         f"against moe_layer on its own input: largest "
+                         f"max|diff| {f['worst']:.3g} (rtol/atol "
+                         f"{A2A_TOL['atol']}), aux {f['aux_worst']:.3g} "
+                         f"relative (limit {A2A_AUX_RTOL}): held "
+                         f"{f['held']}; reported: last-token logits max|diff|"
+                         f" {f['diff']:.4g} from the one-process scatter "
+                         f"prefill, routing decisions that differ from its "
+                         f"{sum(f['flips'])} of {f['layers'] * T} (by layer "
+                         f"{f['flips']})")
+                if not (f["held"] and f["finite"] and
+                        f["layers"] == config.num_layers):
+                    failed.append(f"(b) rank {r}, the fp32 prefill")
+            print(line, flush=True)
+            if f["launched"] != {("tf32x3", hd): config.num_layers}:
+                failed.append(f"(b) rank {r}, the fp32 prefill's launches")
+        if "train" in out:
+            t = out["train"]
+            line = (f"      rank {r}, train step at {A2A_TRAIN_LAYERS} "
+                    f"layers, {MODEL_B} x {A2A_TRAIN_S} tokens, fp32: loss "
+                    f"and gradients {t['step_s'] * 1e3:.1f} ms, host-staged "
+                    f"collectives {t['coll'] * 1e3:.1f} ms")
+            if "held" in t:
+                line += (f"; against the one-process scatter step: loss "
+                         f"{t['loss']:.6f} / {t['loss0']:.6f}, the largest "
+                         f"gradient difference {t['worst']:.3g} of its "
+                         f"leaf's largest magnitude over {t['leaves']} "
+                         f"leaves (limit {TRAIN_GRAD_TOL}): held {t['held']}")
+                if not t["held"]:
+                    failed.append(f"(b) rank {r}, the train step")
+            print(line, flush=True)
+    return failed, launched, launched32
+
+
+def _pp_rank(rank: int, world: int, init: str, device: str,
+             results) -> None:
+    """One of phase 30 (c)'s two stages, on the host-staged gloo backend:
+    ``pipeline_layers`` over TRAIN_ARCH's blocks in fp32 (the train
+    config's schedule, its remat), forward and the gradient of sum(y²)
+    with respect to this stage's blocks, then the same blocks in sequence
+    in this process, held to each other."""
+    import traceback
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.use_deterministic_algorithms(True)
+        dev = torch.device(device)
+        torch.cuda.set_device(dev)
+        from repro_torch.parallel.sharding import register_host_staged
+        dist.init_process_group(register_host_staged(), init_method=init,
+                                rank=rank, world_size=world)
+        try:
+            out = _pp_run(torch, dev, rank, world)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, None, out))
+    except BaseException:
+        results.put((rank, traceback.format_exc(), None))
+        raise
+
+
+def _pp_run(torch, dev, rank: int, world: int) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+    from repro_torch.models.registry import get_model
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.pp import pipeline_layers
+    from repro_torch.training import rules_for, train_config
+    from repro_torch.utils import tree_leaves
+
+    config = train_config(get_config(TRAIN_ARCH).replace(
+        dtype="float32", param_dtype="float32"))
+    mesh = init_device_mesh("cuda", (world, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    layers = get_model(config).init(torch.Generator(device=dev).manual_seed(
+        SEED), config)["layers"]
+    x = torch.randn((PP_B, PP_S, config.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 30))
+    per = config.num_layers // world
+    mine = tree_leaves(layers[rank * per:(rank + 1) * per])
+    for p in tree_leaves(layers):
+        p.requires_grad_()
+
+    def block(rows: int):
+        positions = torch.arange(PP_S, device=dev).expand(rows, PP_S)
+        return L.remat(lambda h, p: transformer._block(
+            h, p, config, positions, None)[0], config.remat)
+
+    staged = sharding.host_staged_class()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+    c0, t0 = staged.seconds, time.perf_counter()
+    with sharding.use_mesh(mesh, rules_for(config)):
+        y = pipeline_layers(block(PP_B // PP_MICRO), layers, x, mesh,
+                            config.num_layers, PP_MICRO)
+        grads = torch.autograd.grad((y ** 2).sum(), mine)
+    torch.cuda.synchronize(dev)
+    out = {"pipe_s": time.perf_counter() - t0, "coll": staged.seconds - c0,
+           "peak": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "stage_params": sum(p.numel() for p in mine)}
+    t0 = time.perf_counter()
+    run = block(PP_B)
+    want = x
+    for p in layers:
+        want = run(want, p)
+    g_want = torch.autograd.grad((want ** 2).sum(), mine)
+    torch.cuda.synchronize(dev)
+    out["seq_s"] = time.perf_counter() - t0
+    scale = float(want.detach().abs().max())
+    out["fwd"] = _max_err(torch, y.detach(), want.detach()) / scale
+    out["grad"] = max(_max_err(torch, g, w) / max(float(w.abs().max()), 1e-30)
+                      for g, w in zip(grads, g_want))
+    out["finite"] = bool(torch.isfinite(y).all())
+    out["leaves"] = len(mine)
+    return out
+
+
+def _pp_gloo(torch, dev, tmp: str) -> list[str]:
+    """Phase 30 (c); the failures."""
+    from repro_torch.configs import get_config
+
+    config = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    store = Path(tmp) / "pp"
+    store.mkdir()
+    ranks = _spawn_group(A2A_WORLD, store, dev, target=_pp_rank)
+    print(f"  (c) {TRAIN_ARCH}'s {config.num_layers} blocks at full width in "
+          f"fp32 as {A2A_WORLD} pipeline stages of host-staged gloo "
+          f"processes on (pod {A2A_WORLD}, data 1, model 1), x ({PP_B}, "
+          f"{PP_S}, {config.d_model}) in {PP_MICRO} microbatches "
+          f"({time.perf_counter() - t0:.1f} s with their start):", flush=True)
+    failed = []
+    for r, out in enumerate(ranks):
+        print(f"      stage {r}: {out['leaves']} leaves "
+              f"({out['stage_params'] / 1e9:.3f} B parameters); forward and "
+              f"the gradient of sum(y^2) {out['pipe_s']:.2f} s, the hops and "
+              f"the broadcast (host-staged) {out['coll']:.2f} s (share "
+              f"{out['coll'] / out['pipe_s']:.3f}), peak {out['peak']:.2f} "
+              f"GB; the same blocks in sequence in this process "
+              f"{out['seq_s']:.2f} s; output max|diff| {out['fwd']:.3g} of "
+              f"its largest magnitude (limit {PP_FWD_TOL}), gradients "
+              f"{out['grad']:.3g} of each leaf's (limit {PP_GRAD_TOL})",
+              flush=True)
+        if not (out["fwd"] <= PP_FWD_TOL and out["grad"] <= PP_GRAD_TOL
+                and out["finite"]):
+            failed.append(f"(c) stage {r}")
+    return failed
+
+
+def a2a_pp_child() -> int:
+    """Phase 30, in a child process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG``, under deterministic algorithms: (a)
+    ``_a2a_world1``, (b) ``_a2a_gloo``, (c) ``_pp_gloo``. A part that
+    raises is reported and the next one runs; the phase fails after."""
+    import json
+    import tempfile
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda", 0)
+    OUT.mkdir(parents=True, exist_ok=True)
+    failed, counts = [], {"moe_a2a": {}, "moe_a2a_gloo": {},
+                          "moe_a2a_gloo_fp32": {}}
+
+    def part(label, fn, default):
+        try:
+            return fn()
+        except Exception:
+            print(f"      {label} raised:\n{traceback.format_exc()}",
+                  flush=True)
+            failed.append(f"{label} raised")
+            return default
+
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1, device_id=dev)
+        try:
+            bad, counts["moe_a2a"] = part(
+                "(a) the fallback", lambda: _a2a_world1(torch, dev), ([], {}))
+            failed += bad
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+        bad, counts["moe_a2a_gloo"], counts["moe_a2a_gloo_fp32"] = part(
+            "(b) the all-to-all", lambda: _a2a_gloo(torch, dev, tmp),
+            ([], {}, {}))
+        failed += bad
+        failed += part("(c) the pipeline", lambda: _pp_gloo(torch, dev, tmp),
+                       [])
+    (OUT / A2A_LAUNCHES).write_text(json.dumps({
+        name: [[k[0], k[1], n] for k, n in c.items()]
+        for name, c in counts.items()}))
+    if failed:
+        raise AssertionError(f"outside the bounds: {failed}")
+    return 0
+
+
+def a2a_pp_phase(torch, dev, smi: str) -> dict:
+    """Phase 30: ``a2a_pp_child`` in a child process, as phases 28-29 run
+    theirs. Returns the flash launches of (a)'s prefill ('moe_a2a'), of
+    (b)'s bf16 prefills over its ranks ('moe_a2a_gloo') and of its fp32
+    prefills ('moe_a2a_gloo_fp32'), by (design, head dim)."""
+    import json
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    (OUT / A2A_LAUNCHES).unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, "-c",
+                         "import sys, chip_smoke; "
+                         "sys.exit(chip_smoke.a2a_pp_child())"],
+                        cwd=ROOT, env=_child_env(), timeout=900).returncode
+    if rc != 0:
+        raise AssertionError(f"the all-to-all MoE and the pipeline failed "
+                             f"(exit {rc})")
+    counts = json.loads((OUT / A2A_LAUNCHES).read_text())
+    print(f"  the all-to-all MoE and the pipeline OK; "
+          f"{time.perf_counter() - t_phase:.1f} s, on {smi}", flush=True)
+    return {name: {(d, hd): n for d, hd, n in rows}
+            for name, rows in counts.items()}
+
+
 @contextlib.contextmanager
 def _phase(label: str, title: str):
     """Prints a phase's header, and its own wall time when it ends."""
@@ -5556,6 +6213,16 @@ def main() -> int:
         meshed = mesh_phase(torch, dev, smi)
         for key in FLASH_ROWS:
             for name, counts in meshed.items():
+                flash_rows[key]["launches_" + name] = _row_launches(counts,
+                                                                    key)
+
+    with _phase("30", f"the all-to-all MoE and the pipeline: {MOE_ARCH} "
+                      f"at NCCL world 1, then its experts routed across "
+                      f"{A2A_WORLD} gloo processes; {TRAIN_ARCH}'s blocks "
+                      f"over {A2A_WORLD} pipeline stages:"):
+        routed = a2a_pp_phase(torch, dev, smi)
+        for key in FLASH_ROWS:
+            for name, counts in routed.items():
                 flash_rows[key]["launches_" + name] = _row_launches(counts,
                                                                     key)
 

@@ -26,9 +26,9 @@ arch's name (``layers.py:embed_tokens``); here ``embed_scale`` says so in
 the arch's config file. ``pad_attention_heads`` pads the query heads
 (and the repeated K/V) with zero heads to the next multiple of a mesh's
 'model' axis when that axis does not divide them, and pads none without
-a mesh (``models/attention.py:attention_layer``). The all-to-all MoE path
-that the ``_moe_impl`` override selects comes later (ROADMAP Queue 1 item
-9c). ``scan_layers`` has no counterpart: the port runs its layers in a
+a mesh (``models/attention.py:attention_layer``). The ``_moe_impl: "a2a"``
+override selects the all-to-all MoE path and ``_moe_pad_experts`` its
+expert padding (``models/moe.py``). ``scan_layers`` has no counterpart: the port runs its layers in a
 Python loop.
 
 ``ShapeConfig``, ``SHAPES``, ``SMOKE_SHAPE``, ``applicable_shapes``,

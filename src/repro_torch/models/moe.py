@@ -40,32 +40,56 @@ the ``searchsorted`` of step 2 nor for the dispatch's writes: every rank
 routes the whole batch, as the reference's global capacity asks, and the
 capacity buffer and the expert products are constrained to ('experts',
 'expert_cap', 'embed'/'ff'), as the reference's are; the combine reads the
-whole expert output again. The reference's ``padded_experts`` and
-``moe_layer_a2a`` (the all-to-all over an expert mesh) come later
-(ROADMAP Queue 1 item 9c); without a mesh the reference falls back to
-``moe_layer``, which is what the port runs.
+whole expert output again.
+
+``moe_layer_a2a`` is the reference's explicit all-to-all expert
+parallelism, which the ``_moe_impl: "a2a"`` override selects: experts
+padded to a multiple of ``_moe_pad_experts`` (``padded_experts``), each
+rank of the ('model', 'data') expert group owning whole experts,
+model-major (``parallel/sharding.py``'s ``MODEL_MAJOR``), each rank
+routing its own tokens with one all-to-all out and one back a buffer,
+on ``torch.distributed``'s ``all_to_all_single`` over the expert group;
+without a mesh, an expert axis larger than 1 or an even split of the
+experts it falls back to ``moe_layer``, as the reference does.
 """
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation, normal_init
-from repro_torch.parallel.sharding import (is_dtensor, logical_constraint,
+from repro_torch.parallel.sharding import (MODEL_MAJOR, P, current_mesh,
+                                           is_dtensor, local_shard,
+                                           logical_constraint, mesh_axes,
+                                           placements, redistribute,
                                            replicated, whole)
+
+
+def padded_experts(config: ModelConfig) -> int:
+    """E rounded up to a multiple of ``_moe_pad_experts`` when the config
+    takes the all-to-all path, so that each device owns whole experts
+    (kimi-k2: 384 -> 512 on 256 devices); E otherwise."""
+    pad_to = int(config.sharding_overrides.get("_moe_pad_experts", 0))
+    if pad_to and config.sharding_overrides.get("_moe_impl") == "a2a":
+        return -(-config.num_experts // pad_to) * pad_to
+    return config.num_experts
 
 
 def init_moe(gen: torch.Generator, config: ModelConfig,
              dtype: torch.dtype) -> dict:
-    """The router (D, E) in fp32, ``w_gate`` and ``w_up`` (E, D, F) and
-    ``w_down`` (E, F, D) in ``dtype``, with the reference's std."""
-    d, f, e = config.d_model, config.d_ff, config.num_experts
+    """The router (D, E) in fp32, ``w_gate`` and ``w_up`` (E_pad, D, F)
+    and ``w_down`` (E_pad, F, D) in ``dtype``, with the reference's std;
+    E_pad is ``padded_experts``, and the router never routes a padded
+    expert."""
+    d, f, e = config.d_model, config.d_ff, padded_experts(config)
     std_in = 1.0 / math.sqrt(d)
     std_out = 1.0 / math.sqrt(f) / math.sqrt(2.0 * config.num_layers)
-    return {"router": normal_init(gen, (d, e), std_in, torch.float32),
+    return {"router": normal_init(gen, (d, config.num_experts), std_in,
+                                  torch.float32),
             "w_gate": normal_init(gen, (e, d, f), std_in, dtype),
             "w_up": normal_init(gen, (e, d, f), std_in, dtype),
             "w_down": normal_init(gen, (e, f, d), std_out, dtype)}
@@ -170,3 +194,243 @@ def moe_layer(x: torch.Tensor, params: dict, config: ModelConfig
                                  "embed")
         aux = replicated(aux, mesh)
     return out, aux
+
+
+# -- explicit all-to-all expert parallelism -------------------------------------
+# The reference's shard_map refuses tokens that do not split over its
+# in_specs (a decode's S = 1 over a 'model' axis larger than 1, say): run
+# on 8 virtual devices at (data 4, model 2), its decode raises ValueError
+A2A_REFUSED = (
+    "moe_layer_a2a: tokens of shape {shape} do not split over the mesh's "
+    "{spec} (sizes {sizes}); each rank routes its own block of tokens, "
+    "and the reference's shard_map refuses such a split (a decode's one "
+    "position over a 'model' axis larger than 1 among them)")
+
+
+def _expert_group(mesh, axes: tuple[str, ...]) -> tuple:
+    """The process group of this rank's expert group, the ranks that share
+    its coordinates off ``axes`` (its pod), and ``owner``: owner[j] is the
+    expert block (``axes``' coordinates, the first the most significant,
+    the reference's ``axis_index(axes)``) of the group's rank j. A group
+    over one axis is the mesh's own; one over two is made once for the
+    mesh, by every rank, and kept on the mesh."""
+    import torch.distributed as dist
+
+    groups = mesh.__dict__.setdefault("_expert_groups", {})
+    if axes in groups:
+        return groups[axes]
+    names = list(mesh.mesh_dim_names)
+    keep = [names.index(a) for a in axes]
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    else:
+        rest = [i for i in range(len(names)) if i not in keep]
+        blocks = mesh.mesh.permute(*rest, *keep).reshape(
+            -1, math.prod(mesh.mesh.shape[i] for i in keep))
+        group, _ = dist.new_subgroups_by_enumeration(blocks.tolist())
+
+    def block(rank: int) -> int:
+        coord = (mesh.mesh == rank).nonzero()[0].tolist()
+        b = 0
+        for i in keep:
+            b = b * mesh.mesh.shape[i] + coord[i]
+        return b
+
+    groups[axes] = group, [block(r)
+                           for r in dist.get_process_group_ranks(group)]
+    return groups[axes]
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all of a (n, ...) buffer over the expert group:
+    block i goes to expert block i, and block i of the result came from
+    expert block i. Its transpose is itself, so the backward pass sends
+    each gradient block back where its rows came from."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Any, owner: list
+                ) -> torch.Tensor:
+        ctx.group, ctx.owner = group, owner
+        return _all_to_all(x, group, owner)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _all_to_all(g, ctx.group, ctx.owner), None, None
+
+
+def _all_to_all(x: torch.Tensor, group: Any, owner: list) -> torch.Tensor:
+    import torch.distributed as dist
+
+    ident = owner == sorted(owner)
+    send = x if ident else x[torch.tensor(owner, device=x.device)]
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send.contiguous(), group=group)
+    if ident:
+        return out
+    back = torch.empty(len(owner), dtype=torch.long)
+    back[torch.tensor(owner)] = torch.arange(len(owner))
+    return out[back.to(x.device)]
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean over the expert group (the reference's ``pmean``) of a
+    tensor each rank computes from its own tokens. The result is the same
+    on every rank of the group and its gradient arrives so: the gradient of
+    a rank's own term is the mean's, 1/n of it, with no communication."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Any, n: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        ctx.n = n
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g / ctx.n, None, None
+
+
+def _local(t: torch.Tensor, mesh, places: tuple, grad_places=None
+           ) -> torch.Tensor:
+    """This rank's block of ``t`` placed by ``places``: a DTensor's local
+    tensor after a redistribute, whose gradient comes back on
+    ``grad_places``; a plain tensor's block (``local_shard``)."""
+    if is_dtensor(t):
+        return redistribute(t, mesh, places).to_local(
+            grad_placements=grad_places)
+    return local_shard(t, mesh, places)
+
+
+def _partial_where_replicated(places: tuple, mesh) -> tuple:
+    """``places`` with a pending sum on every mesh dimension larger than 1
+    that replicates: the gradient of a tensor each rank uses on its own
+    tokens is the sum of the ranks' parts there."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    sizes = list(mesh_axes(mesh).values())
+    return tuple(Partial() if isinstance(p, Replicate) and n > 1 else p
+                 for p, n in zip(places, sizes))
+
+
+def moe_layer_a2a(x: torch.Tensor, params: dict, config: ModelConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``moe_layer_a2a``: x (B, S, D) -> (out, aux), MoE
+    with hand-placed all-to-all routing on the active ``DeviceMesh``.
+
+    Each rank of the expert group (the mesh's 'model' and 'data' axes of
+    size > 1, model-major) owns E_pad/n whole experts and routes its own
+    block of tokens, (B/|pod·data|, S/|model|, D): the router in fp32, the
+    aux loss over the group's mean density and router mean; each routed
+    slot goes to its expert's owner, at most ``cap = ceil(T_local·k/n ·
+    capacity_factor)`` slots to a rank (the rest drop), the rows, their
+    experts and their gates in three buffers, one all-to-all each; the
+    owner puts what it received into (E_pad/n, n·cap, D), no second drop,
+    runs its experts by ``torch.bmm``, weights each row by its gate and
+    sends it back, one all-to-all; each rank sums its tokens' slots in
+    fp32. The buffers are written as ``moe_layer``'s is, each kept slot to
+    its own row. The result is a DTensor of those blocks and the aux loss
+    a replicated one; gradients flow back through the reverse all-to-alls.
+    Without a mesh, with no expert axis larger than 1, or when E_pad does
+    not split over the group, ``moe_layer``; tokens that do not split
+    over the mesh are refused (``A2A_REFUSED``)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = current_mesh()
+    if mesh is None:
+        return moe_layer(x, params, config)
+    sizes = mesh_axes(mesh)
+    # expert ownership follows the 'experts_a2a' rule's order, MODEL_MAJOR
+    axes = tuple(a for a in MODEL_MAJOR if sizes.get(a, 1) > 1)
+    if not axes:
+        return moe_layer(x, params, config)
+    n_dev = math.prod(sizes[a] for a in axes)
+    E_pad = params["w_up"].shape[0]
+    if E_pad % n_dev:
+        return moe_layer(x, params, config)
+    e_per = E_pad // n_dev
+    E, K = config.num_experts, config.experts_per_token
+
+    # x arrives (batch@[pod,]data, act_seq@model); the weights are per-rank
+    # expert blocks, replicated over 'pod' (pod stays pure data parallel)
+    bspec = tuple(a for a in ("pod", "data") if a in sizes)
+    x_spec = P(bspec or None, "model" if "model" in sizes else None)
+    split = [math.prod(sizes[a] for a in bspec),
+             sizes.get("model", 1)]
+    if x.shape[0] % split[0] or x.shape[1] % split[1]:
+        raise ValueError(A2A_REFUSED.format(shape=tuple(x.shape),
+                                            spec=tuple(x_spec), sizes=sizes))
+    x_places = placements(x_spec, mesh)
+    w_places = placements(P(tuple(a for a in MODEL_MAJOR if a in sizes)),
+                          mesh)
+    router_places = placements(P(), mesh)
+    group, owner = _expert_group(mesh, axes)
+    me = owner[torch.distributed.get_rank(group)]
+
+    xl = _local(x, mesh, x_places)
+    router = _local(params["router"], mesh, router_places,
+                    _partial_where_replicated(router_places, mesh))
+    w = {k: _local(params[k], mesh, w_places,
+                   _partial_where_replicated(w_places, mesh))
+         for k in ("w_gate", "w_up", "w_down")}
+
+    B, S, D = xl.shape
+    T = B * S
+    xt = xl.reshape(T, D)
+    probs, gates, top_idx = route(xt, router, K)
+    density = _GroupMean.apply(F.one_hot(top_idx[:, 0], E).float().mean(0),
+                               group, n_dev)
+    router_mean = _GroupMean.apply(probs.mean(0), group, n_dev)
+    aux = (density * router_mean).sum() * E * config.router_aux_loss
+
+    # -- route each slot to its expert's owner ------------------------------
+    slot_expert = top_idx.reshape(-1)                           # (T*K,)
+    slot_token = torch.arange(T, device=xl.device).repeat_interleave(K)
+    slot_gate = gates.reshape(-1).float()
+    dest = slot_expert // e_per                                 # owner
+    cap = int(max(1, math.ceil(T * K / n_dev * config.capacity_factor)))
+    pos = _positions_in_expert(dest, n_dev)
+    keep = pos < cap
+    safe_pos = torch.where(keep, pos, cap - 1)
+    rows = torch.where(keep, dest * cap + pos, n_dev * cap)    # + a spare
+    send_x = xt.new_zeros((n_dev * cap + 1, D))
+    send_x[rows] = xt[slot_token]
+    send_e = torch.full((n_dev * cap + 1,), -1, dtype=torch.int32,
+                        device=xl.device)
+    send_e[rows] = slot_expert.to(torch.int32)
+    send_g = torch.zeros(n_dev * cap + 1, dtype=torch.float32,
+                         device=xl.device)
+    send_g[rows] = slot_gate
+
+    recv_x = _AllToAll.apply(send_x[:-1].view(n_dev, cap, D), group, owner)
+    with torch.no_grad():
+        recv_e = _all_to_all(send_e[:-1].view(n_dev, cap), group, owner)
+    recv_g = _AllToAll.apply(send_g[:-1].view(n_dev, cap), group, owner)
+    R = n_dev * cap
+    rx = recv_x.reshape(R, D)
+    le = recv_e.reshape(R).long() - me * e_per                  # local id
+    valid = (le >= 0) & (le < e_per)
+
+    # -- the local re-dispatch into (e_per, R, D): no second drop ------------
+    le_safe = torch.where(valid, le, e_per - 1)
+    lrows = le_safe * R + _positions_in_expert(le_safe, e_per)
+    buf = rx.new_zeros((e_per * R, D))
+    buf[lrows] = torch.where(valid[:, None], rx, 0)
+    buf = buf.view(e_per, R, D)
+    dtype = xl.dtype
+    up = torch.bmm(buf, w["w_up"].to(dtype))
+    gate = torch.bmm(buf, w["w_gate"].to(dtype))
+    h = activation(gate, config.hidden_act) * up
+    out_buf = torch.bmm(h, w["w_down"].to(dtype)).view(e_per * R, D)
+    ry = torch.where(valid[:, None], out_buf[lrows], 0)
+    ry = ry * recv_g.reshape(R, 1).to(dtype)
+    back = _AllToAll.apply(ry.view(n_dev, cap, D), group, owner)
+
+    # -- combine, in fp32 ------------------------------------------------------
+    slot_out = torch.where(keep[:, None],
+                           back.view(R, D)[dest * cap + safe_pos], 0)
+    combined = slot_out.float().view(T, K, D).sum(1)
+    out = combined.reshape(B, S, D).to(xl.dtype)
+    return (DTensor.from_local(out, mesh, x_places, run_check=False),
+            replicated(aux, mesh))

@@ -18,6 +18,9 @@ here), and is updated in place. ``loss_and_metrics`` is the training loss:
 the next-token cross-entropy by ``_chunked_ce``, whose (B, S, V) logits
 never exist at once, plus the MoE layers' aux loss; a VLM sequence's last
 image position predicts its first token, and no image position is a target.
+A block whose config sets the ``_moe_impl: "a2a"`` override runs
+``moe_layer_a2a`` (the reference's all-to-all expert parallelism) in the
+prefill, the decode and the loss alike.
 ``param_specs`` and ``cache_specs`` give the trees' logical axes
 (``parallel/sharding.py``); the residual stream is constrained where the
 reference's is, and under a mesh the loss's chunks take the vocabulary
@@ -113,7 +116,10 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
     x = logical_constraint(x + a, "batch", "act_seq", "embed")
     h = L.apply_norm(x, block_params["norm2"], config)
     if config.num_experts > 0:
-        m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
+        if config.sharding_overrides.get("_moe_impl") == "a2a":
+            m, aux = moe_lib.moe_layer_a2a(h, block_params["moe"], config)
+        else:
+            m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
     else:
         m, aux = L.mlp(h, block_params["mlp"], config), None
     x = logical_constraint(x + m, "batch", "act_seq", "embed")

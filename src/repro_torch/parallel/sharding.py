@@ -19,7 +19,12 @@ which propagates them at run time:
   ``Shard(d)`` where the spec puts that mesh axis on dimension d, else
   ``Replicate()``. A dimension over ('pod', 'data') is ``Shard(d)`` on
   both, which DTensor splits in mesh-dimension order, pod-major as the
-  reference's tuple is;
+  reference's tuple is. The one tuple against the mesh's order is the
+  'experts_a2a' rule's ('model', 'data'): whole experts model-major, rank
+  (m, d) holding block m·|data| + d, as the reference's all-to-all MoE
+  asks (``models/moe.py``); 'model' is ``Shard(d)`` and 'data'
+  DTensor's ``_StridedShard(d, split_factor=|model|)``, which splits
+  'model' first;
 * ``logical_constraint`` is a ``redistribute`` to the spec's placements,
   a no-op without a mesh or on a mesh of one device, as the reference's
   ``with_sharding_constraint`` is.
@@ -250,42 +255,64 @@ def drop_indivisible(spec: Sequence[Any], shape: tuple[int, ...],
 
 
 # -- placements and DTensors -------------------------------------------------------
+# The one tuple of mesh axes that may run against the mesh's order: the
+# 'experts_a2a' rule's, whole experts model-major
+MODEL_MAJOR = ("model", "data")
+
+
+def _strided_shard():
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return _StridedShard
+
+
 def placements(spec: Sequence[Any], mesh: Any) -> tuple:
     """One DTensor placement a mesh dimension: ``Shard(d)`` where ``spec``
     puts that axis on tensor dimension d, else ``Replicate()``, which an
     axis of size 1 also gets (the same layout; torch 2.11's view strategy
     refuses to flatten a dimension sharded over one device). A tuple of
     axes on one dimension must follow the mesh's order (DTensor splits in
-    mesh-dimension order)."""
+    mesh-dimension order), but for ``MODEL_MAJOR`` on a mesh that has
+    'data' before 'model': 'data' is then a ``_StridedShard`` that splits
+    each 'model' block (the module's docstring)."""
     from torch.distributed.tensor import Replicate, Shard
 
     sizes = mesh_axes(mesh)
     names = list(sizes)
     out: list[Any] = [Replicate()] * len(names)
     for d, part in enumerate(spec):
-        idx = [names.index(a) for a in _axes_of(part)]
-        if idx != sorted(idx):
+        axes = _axes_of(part)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx) and axes != MODEL_MAJOR:
             raise ValueError(f"spec {tuple(spec)}: the axes {part} of "
                              f"dimension {d} are not in the mesh's order "
                              f"{names}")
         for i in idx:
             if sizes[names[i]] > 1:
                 out[i] = Shard(d)
+        if idx != sorted(idx) and all(sizes[a] > 1 for a in axes):
+            out[names.index("data")] = _strided_shard()(
+                d, split_factor=sizes["model"])
     return tuple(out)
 
 
 def spec_of(places: Sequence[Any], mesh: Any) -> PartitionSpec:
-    """The spec that ``placements`` turns into ``places`` (Shard and
-    Replicate only)."""
+    """The spec that ``placements`` turns into ``places`` (Shard,
+    ``placements``' strided 'data' and Replicate only)."""
     from torch.distributed.tensor import Replicate, Shard
 
+    strided = _strided_shard()
     names = list(mesh_axes(mesh))
     dims: dict[int, list[str]] = {}
+    after: dict[int, list[str]] = {}     # split inside the others' blocks
     for name, p in zip(names, places):
-        if isinstance(p, Shard):
+        if isinstance(p, strided):
+            after.setdefault(p.dim, []).append(name)
+        elif isinstance(p, Shard):
             dims.setdefault(p.dim, []).append(name)
         elif not isinstance(p, Replicate):
             raise ValueError(f"no spec for the placement {p}")
+    for d, axes in after.items():
+        dims.setdefault(d, []).extend(axes)
     parts = [None] * (max(dims) + 1 if dims else 0)
     for d, axes in dims.items():
         parts[d] = axes[0] if len(axes) == 1 else tuple(axes)
@@ -300,17 +327,23 @@ def is_dtensor(x: Any) -> bool:
 def local_shard(x: torch.Tensor, mesh: Any, places: Sequence[Any]
                 ) -> torch.Tensor:
     """This rank's block of the global tensor ``x`` under ``places``
-    (even shards; ``drop_indivisible`` sees to that), a view of ``x``."""
-    from torch.distributed.tensor import Shard
-
-    coord = mesh.get_coordinate()
-    for i, p in enumerate(places):
-        if isinstance(p, Shard):
-            n = mesh.size(i)
-            if x.shape[p.dim] % n:
-                raise ValueError(f"dimension {p.dim} of {tuple(x.shape)} "
-                                 f"does not divide over {n}")
-            x = x.chunk(n, dim=p.dim)[coord[i]]
+    (even shards; ``drop_indivisible`` sees to that), a view of ``x``: on
+    each dimension the block whose index is this rank's coordinates on
+    the dimension's axes, the first axis of the spec's tuple the most
+    significant."""
+    sizes = mesh_axes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    for d, part in enumerate(spec_of(places, mesh)):
+        axes = _axes_of(part)
+        if not axes:
+            continue
+        n, block = 1, 0
+        for a in axes:
+            n, block = n * sizes[a], block * sizes[a] + coord[a]
+        if x.shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(x.shape)} does not "
+                             f"divide over {n}")
+        x = x.chunk(n, dim=d)[block]
     return x
 
 
@@ -573,9 +606,11 @@ def host_staged_class():
                         len(set(input_split_sizes or [0])) > 1:
                     raise NotImplementedError(
                         f"{HOST_STAGED}: all-to-all with unequal splits")
-            parts = self._gather_host(input)
-            mine = [p.chunk(self._size)[self._rank] for p in parts]
-            output.copy_(torch.cat(mine).view_as(output))
+            host = input.detach().to("cpu", copy=True).contiguous()
+            out = torch.empty_like(host)
+            self._gloo.alltoall_base(out, host, [], [],
+                                     AllToAllOptions()).wait()
+            output.copy_(out.view_as(output))
             return _work(output)
 
         def broadcast(self, tensors, opts=BroadcastOptions()):
@@ -589,9 +624,25 @@ def host_staged_class():
             self._gloo.barrier(opts).wait()
             return _work(None)
 
+        # point to point (a pipeline's hops, ``parallel/pp.py``): each
+        # returns once its tensors are through, so a caller that sends and
+        # receives orders its calls as a blocking MPI program would
+        def send(self, tensors, dstRank, tag):
+            host = [t.detach().to("cpu", copy=True).contiguous()
+                    for t in tensors]
+            self._gloo.send(host, dstRank, tag).wait()
+            return _work(tensors)
+
+        def recv(self, tensors, srcRank, tag):
+            host = [torch.empty(t.shape, dtype=t.dtype) for t in tensors]
+            self._gloo.recv(host, srcRank, tag).wait()
+            for t, h in zip(tensors, host):
+                t.copy_(h)
+            return _work(tensors)
+
     for name in ("allreduce", "allgather", "all_gather_single",
                  "reduce_scatter_single", "all_to_all_single", "broadcast",
-                 "barrier"):
+                 "barrier", "send", "recv"):
         setattr(HostStagedGloo, name, _timed(getattr(HostStagedGloo, name)))
     for alias, name in (("allreduce_coalesced", "allreduce"),
                         ("_allgather_base", "all_gather_single"),

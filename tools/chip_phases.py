@@ -9,7 +9,7 @@ Run from the root of a checkout:
     python3 tools/chip_phases.py 27 28 22 23 26
 
 The phases whose functions take only the card (``torch``, the device and
-the nvidia-smi line) are offered: 16-18 and 20-29 but 21, which needs
+the nvidia-smi line) are offered: 16-18 and 20-30 but 21, which needs
 phase 8's stream. Without a GPU it exits non-zero.
 """
 import sys
@@ -23,7 +23,7 @@ PHASES = {"16": "bridge_phase", "17": "elastic_phase",
           "18": "recovery_phase", "20": "moe_phase", "22": "hybrid_phase",
           "23": "audio_phase", "24": "ssm_phase", "25": "vlm_phase",
           "26": "train_phase", "27": "schedules_phase", "28": "dp_phase",
-          "29": "mesh_phase"}
+          "29": "mesh_phase", "30": "a2a_pp_phase"}
 
 
 def main(argv: list[str]) -> int:
