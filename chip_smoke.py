@@ -270,7 +270,8 @@ Phases, each fatal on failure:
      norm finite; step time, tokens/s, peak memory, and a profiled step
      split into the blocked attention, AdamW, the other GEMMs and the rest
      with its idle share; (c) the same from the same state with
-     ``_skip_blocks``, then ``triangular``, 3 steps each: step 1's loss
+     ``_skip_blocks``, then ``triangular``, 2 steps each (3 until phase
+     31): step 1's loss
      within 1e-3 relative of (b)'s; step times, peak memory, tiles issued.
  28. the explicit-collective data-parallel trainer (``parallel/dp.py``) in
      a child process under deterministic algorithms: (a) NCCL at world 1,
@@ -281,12 +282,15 @@ Phases, each fatal on failure:
      within tests/test_dp.py's bounds (losses 1e-2, parameters rtol 2e-2
      and atol 2e-3); step times split into gradients, collectives and the
      rest, peak memory; (b) two spawned gloo processes on the card at a
-     depth cut of 2 layers, 2 rows each, without and with int8, held to
-     the one-process step and the plain int8 step over the same rows.
+     depth cut of 2 layers, 2 rows each, without and with int8, 2 steps
+     each (4 until phase 31 took the time), held to the one-process step
+     and the plain int8 step over the same rows.
  29. the mesh in a child process under deterministic algorithms:
      internlm2-1.8b's ``shardings_for`` train and prefill cells on a
      (data 1, model 1) mesh at NCCL world 1 at full width, then ZeRO-1 and
-     tensor-parallel meshes of two host-staged gloo processes at 2 layers.
+     tensor-parallel meshes of two host-staged gloo processes at 2 layers
+     on 4 x 256 tokens (4 x 1,024 until phase 31 took the time); (a)'s
+     decode 2 steps (8 until phase 31).
  30. the all-to-all MoE and the pipeline in a child process under
      deterministic algorithms: (a) granite-moe-3b-a800m at full width with
      the a2a overrides at NCCL world 1 on a (data 1, model 1) mesh, the
@@ -294,7 +298,8 @@ Phases, each fatal on failure:
      scatter run's with 32 wgmma launches; (b) two host-staged gloo
      processes on (data 2, model 1), each owning 20 of the 40 experts a
      layer at full width and depth: the bf16 prefill of 4 x 1,024 (32
-     wgmma launches a rank) and 8 decode steps, the fp32 prefill at
+     wgmma launches a rank) and 2 decode steps (8 until phase 31), the
+     fp32 prefill of 4 x 128 (4 x 512 until phase 31) at
      capacity factor 5.0 with every layer's a2a output held to
      ``moe_layer`` on its own input (rtol/atol 2e-3, aux 1e-5), and a
      train step at 2 layers whose gradients are held to the one-process
@@ -303,6 +308,27 @@ Phases, each fatal on failure:
      processes, forward (2e-5) and the gradients of sum(y^2) (2e-4)
      against the blocks in sequence; times, the host-staged collectives'
      share and peak memory throughout.
+ 31. the dry-run (``launch/dryrun.py``, its walker ``launch/opcost.py``,
+     ``training.lower_cell``): (a) in a process of its own, started after
+     phase 1 (its traces are host work alone, ~90 s, which the phases
+     before this one overlap) and waited for here, ``run_cell`` with
+     ``device="cuda"``: internlm2-1.8b's train_4k, prefill_32k and
+     decode_32k on the (16, 16) production mesh and its train_4k on (2,
+     16, 16), each traced on fake CUDA tensors under a fake process group
+     of 256 or 512, every record ok, a card's flops, bytes, NVLink and
+     network bytes, peak, dominant term and useful share printed, the
+     prefill cell tracing exactly one flash operator call a layer; (b)
+     phase 29 (a)'s train and prefill cells (4 x 1,024 tokens) and a
+     decode step over decode_32k's 32,768 cached positions at 4 rows (its
+     128 cut for one card) traced with ``lower_cell`` on a (data 1, model
+     1) mesh under a fake group of one, then run under NCCL at world 1
+     once under the walker and twice timed: the real run's flops and bytes
+     equal to the trace's, the traced peak within 10 % of the allocator's,
+     no timed step under the roofline's largest term / 1.05, the prefill's
+     traced flash calls equal to its wgmma launches at hd 128; each
+     cell's roofline share of its median step printed; (b) runs in a
+     child process, as a fake process group and a real one may each be
+     the default group only in turn.
 Each phase prints its own wall time when it ends. It then prints a JSON
 line of the kernels (the ART row's
 ``launches_group_handoff`` is phase 14's count, ``launches_scheduler`` and
@@ -323,7 +349,9 @@ prefill as ``launches_schedules``; every flash row carries phase 29's
 ``launches_moe_a2a`` ((a)), ``launches_moe_a2a_gloo`` ((b)'s bf16
 prefills over both ranks) and ``launches_moe_a2a_gloo_fp32``; every
 flash row carries phase 9's own launches of its instances as
-``launches_kernel_checks``), the nvidia-smi line again,
+``launches_kernel_checks``, and phase 31's real prefill as
+``launches_dryrun``; phase 9's timed rows also carry ``direct_ms``, the
+same launch without the operator's dispatch), the nvidia-smi line again,
 and as its last line {"ok": true, "device": {...}}. Without a GPU, or outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -375,6 +403,10 @@ ART_ODD_SHAPE = (24, 37)        # kept from the dense kernel's checks
 # registers, so the kernel's tail loop runs
 ART_LONG_SHAPE = (8, 1000)
 ART_TOL = dict(rtol=1e-4, atol=1e-4)            # tests/test_kernels.py:107
+# the dense plain sweep at the full shape (2.4-5.7 s a call) is timed
+# once, after the check's call warmed it: 3 times after a warm-up until
+# phase 31 took the time
+ART_FULL_PLAIN_REPS = 1
 NRAY, NANGLES, NSLICE, PARTITIONS = 256, 76, 256, 4
 TOMO_ARGS = ["--nray", str(NRAY), "--angles", str(NANGLES), "--nslice",
              str(NSLICE), "--iterations", "2", "--partitions",
@@ -868,7 +900,7 @@ def art_phase(torch, dev, flush) -> dict:
     from repro_torch.kernels.art import ops as ao
     from repro_torch.kernels.art import ref as ar
 
-    def measure(label, A, b, f0, iters, reps, csr=None):
+    def measure(label, A, b, f0, iters, reps, csr=None, plain_reps=3):
         nrow, ncol = A.shape
         nslice = b.shape[0]
         inv_rip = ao.inverse_row_norms(A)
@@ -896,7 +928,8 @@ def art_phase(torch, dev, flush) -> dict:
               f"kernel {err64:.3g}, plain {plain64:.3g}; max|f| "
               f"{float(want.abs().max()):.3g}", flush=True)
         ms = _time_ms(torch, call, reps=reps, warmup=1, flush=flush)
-        plain_ms = _time_ms(torch, plain, reps=3, warmup=1, flush=flush)
+        plain_ms = _time_ms(torch, plain, reps=plain_reps,
+                            warmup=1 if plain_reps > 1 else 0, flush=flush)
         bound, by = _csr_bound_ms(csr, nslice, iters)
         dense, dense_by = _dense_bound_ms(nrow, ncol, nslice, iters)
         print(f"    kernel {ms:.4f} ms ({ms * 1e3 / (nrow * iters):.3f} us a "
@@ -952,7 +985,7 @@ def art_phase(torch, dev, flush) -> dict:
         variants.append(measure(
             f"{A.shape[0]}x{A.shape[1]}, slices {lo}-{lo + nslice - 1}, "
             f"{iters} sweep{'s' if iters > 1 else ''}", A, b, f0, iters, 5,
-            csr))
+            csr, plain_reps=ART_FULL_PLAIN_REPS))
     # one warp a slice: how a launch's time grows with its slices
     inv_rip = ao.inverse_row_norms(A)
     for nslice in (16, 128, 256):
@@ -1637,6 +1670,15 @@ def flash_phase(torch, dev, flush) -> list[dict]:
         sdpa_err = _max_err(torch, got.float(),
                             library().transpose(1, 2).float())
         ms = _time_ms(torch, call, flush=flush)
+        o_direct = torch.empty_like(q)
+
+        def direct():
+            _flash_direct(design, q, k, v, o_direct)
+        direct_ms = _time_ms(torch, direct, flush=flush)
+        if not torch.equal(o_direct, got):
+            raise AssertionError("the operator's output differs from the "
+                                 "same launch made directly")
+        del o_direct
         plain_ms = _time_ms(torch, plain, flush=flush)
         library_ms = _time_ms(torch, library, flush=flush)
         # q, k, v read once and o written once; QK^T and PV over the causal
@@ -1656,12 +1698,15 @@ def flash_phase(torch, dev, flush) -> list[dict]:
             extra = (f" (3 x {ops / 1e9:.2f} GFLOP of TF32 at "
                      f"{TF32_TC_OPS_PER_S / 1e12:.0f} TFLOP/s; fp32 FMA bound "
                      f"{fma_ms:.4f} ms ({fma_by}))")
-        print(f"    {design} kernel at hd {hd} {ms:.4f} ms, plain "
+        print(f"    {design} kernel at hd {hd} {ms:.4f} ms (through the "
+              f"repro_torch::flash_attention operator; the same launch "
+              f"without its dispatch {direct_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}){extra}, "
               f"library (SDPA) {library_ms:.4f} ms; max|kernel - SDPA| "
               f"{sdpa_err:.3g} (reported)", flush=True)
-        row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=library_ms, max_abs_err_vs_library=sdpa_err)
+        row.update(ms=ms, direct_ms=direct_ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=library_ms,
+                   max_abs_err_vs_library=sdpa_err)
         key = _flash_row(design, hd)
         variants[key].append(row)
         rows[key] = row
@@ -1679,6 +1724,22 @@ def flash_phase(torch, dev, flush) -> list[dict]:
                       launches_kernel_checks=_row_launches(checks, key),
                       variants=variants[key])
             for key, name in FLASH_ROWS.items()}
+
+
+def _flash_direct(design: str, q, k, v, o) -> None:
+    """One launch of ``design``'s kernel through the library's C entry,
+    without the operator's dispatch and uncounted: phase 9 times it beside
+    the operator's call."""
+    from repro_torch.kernels import _build
+
+    lib = _build.load_library()
+    entry = {"wgmma": lib.flash_attention_wgmma_launch,
+             "tf32x3": lib.flash_attention_tf32x3_launch,
+             "simt": lib.flash_attention_launch}[design]
+    B, S, H, hd = q.shape
+    rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+               H, hd, _build.current_stream(q.device))
+    _build.check_launch(f"flash_attention ({design}, direct)", rc)
 
 
 def _flash_row(design: str, hd: int) -> tuple:
@@ -4280,7 +4341,9 @@ def train_phase(torch, dev, smi: str) -> dict:
 # 4 x 4,096 tokens (train_4k's batch of 256, configs/base.py SHAPES, cut to
 # 4 for one card)
 SCHED_S = 4096
-SCHED_TRAIN_B, SCHED_TRAIN_STEPS, SCHED_C_STEPS = 4, 6, 3
+# (c)'s steps a schedule: 3 until phase 31 took the time (its check is
+# step 1's loss)
+SCHED_TRAIN_B, SCHED_TRAIN_STEPS, SCHED_C_STEPS = 4, 6, 2
 SCHED_LOSS_RTOL = 1e-3
 # label -> (attention_impl, the _skip_blocks override)
 SCHEDULES = {"flash": ("flash", False), "blocked": ("blocked", False),
@@ -4528,6 +4591,10 @@ DP_RTOL, DP_ATOL = 2e-2, 2e-3
 DP_OFF_SHARE = 1e-6
 DP_PART = 2 * DP_STEPS * DP_OPT["lr"] * 1.002
 DP_GLOO_WORLD, DP_GLOO_LAYERS = 2, 2
+# phase 28 (b)'s steps: cut from DP_STEPS (4) to make room for phase 31;
+# the allowance DP_PART stays the 4 steps' that phase 29 (b) also holds
+# its 2-step runs to
+DP_GLOO_STEPS = 2
 
 
 def _dp_plain_step(torch, config, opt, compression):
@@ -4751,7 +4818,7 @@ def _dp_gloo_rank(rank: int, world: int, init: str, device: str, results,
             out = {}
             for comp in (None, "int8"):
                 run = _dp_run(torch, dev, "dp", config, opt, batch,
-                              dist.group.WORLD, comp)
+                              dist.group.WORLD, comp, steps=DP_GLOO_STEPS)
                 out[comp] = {"line": _dp_line(f"rank {rank}, "
                                               f"{comp or 'uncompressed'}",
                                               run),
@@ -4832,10 +4899,12 @@ def dp_child() -> int:
         for comp, label in ((None, "the one-process step"),
                             ("int8", "the plain int8 step over the ranks' "
                                      "rows")):
-            run = (_dp_run(torch, dev, "one", config, opt, batch)
+            run = (_dp_run(torch, dev, "one", config, opt, batch,
+                           steps=DP_GLOO_STEPS)
                    if comp is None else
                    _dp_run(torch, dev, "plain", config, opt, batch,
-                           compression="int8", shares=DP_GLOO_WORLD))
+                           compression="int8", shares=DP_GLOO_WORLD,
+                           steps=DP_GLOO_STEPS))
             ref[comp] = {"losses": run["losses"], "params": run["params"]}
             print(f"  (b) at {DP_GLOO_LAYERS} layers, "
                   f"{_dp_line(label, run)}", flush=True)
@@ -4847,8 +4916,9 @@ def dp_child() -> int:
                              target=_dp_gloo_rank, extra=(ref_path,))
         spawn_s = time.perf_counter() - t0
     print(f"  (b) {DP_GLOO_WORLD} gloo processes on the card at "
-          f"{DP_GLOO_LAYERS} layers, {TRAIN_B // DP_GLOO_WORLD} rows each "
-          f"({spawn_s:.1f} s with their start):", flush=True)
+          f"{DP_GLOO_LAYERS} layers, {TRAIN_B // DP_GLOO_WORLD} rows each, "
+          f"{DP_GLOO_STEPS} steps ({spawn_s:.1f} s with their start):",
+          flush=True)
     for r, out in enumerate(ranks):
         for comp, res in out.items():
             want = "one-process" if comp is None else "plain int8"
@@ -4885,7 +4955,9 @@ def dp_phase(torch, dev, smi: str) -> None:
 # on flash and a decode on a placed cache; (b) two gloo processes on the
 # card (their collectives staged through the host) at phase 28's depth
 # cut on a ZeRO-1 mesh and a tensor-parallel one
-MESH_STEPS, MESH_GLOO_STEPS, MESH_DECODE = 4, 2, 8
+# (a)'s train steps and decode steps: 4 and 8 until phase 31 took the
+# time
+MESH_STEPS, MESH_GLOO_STEPS, MESH_DECODE = 2, 2, 2
 # (label, mesh shape, activation dtype, held to phase 28's rule): under
 # tensor parallelism each row-parallel product is two partial sums added
 # in the activations' dtype, so in bf16 the gradients part from the
@@ -4898,6 +4970,9 @@ MESH_GLOO_RUNS = (("ZeRO-1, (data 2, model 1)", (2, 1), "bfloat16", True),
                   ("tensor parallel, (data 1, model 2), fp32 activations",
                    (1, 2), "float32", True))
 MESH_TP = (1, 2)
+# (b)'s tokens a row: cut from TRAIN_S (1,024) to make room for phase 31;
+# the tensor-parallel steps' host-staged collectives move activations
+MESH_GLOO_S = 256
 MESH_LAUNCHES = "mesh_launches.json"
 
 
@@ -5216,9 +5291,9 @@ def _mesh_gloo(torch, dev, config, tokens, batch, tmp: str
     ranks = _spawn_group(DP_GLOO_WORLD, Path(tmp), dev,
                          target=_mesh_gloo_rank, extra=(ref_path,))
     print(f"  (b) {DP_GLOO_WORLD} gloo processes on the card, collectives "
-          f"staged through the host, at {DP_GLOO_LAYERS} layers "
-          f"({time.perf_counter() - t0:.1f} s with their start):",
-          flush=True)
+          f"staged through the host, at {DP_GLOO_LAYERS} layers on "
+          f"{tuple(tokens.shape)} tokens ({time.perf_counter() - t0:.1f} s "
+          f"with their start):", flush=True)
     failed, launched = [], {}
     for r, out in enumerate(ranks):
         for label in ([r[0] for r in MESH_GLOO_RUNS] + ["tp_serve"]):
@@ -5327,9 +5402,12 @@ def mesh_child() -> int:
         finally:
             dist.destroy_process_group()
         torch.cuda.empty_cache()
+        short = tokens[:, :MESH_GLOO_S]
         bad, counts["mesh_gloo_tp"] = part("(b) the gloo processes", lambda:
                                            _mesh_gloo(torch, dev, config,
-                                                      tokens, batch, tmp),
+                                                      short,
+                                                      {"tokens": short.to(
+                                                          dev)}, tmp),
                                            ([], {}))
         failed += bad
     (OUT / MESH_LAUNCHES).write_text(json.dumps({
@@ -5373,15 +5451,17 @@ def mesh_phase(torch, dev, smi: str) -> dict:
 # all-to-all; (c) two host-staged gloo processes as the 2 stages of a
 # (pod 2, data 1, model 1) mesh, internlm2-1.8b's 24 blocks in fp32
 A2A_OVERRIDES = {"_moe_impl": "a2a", "_moe_pad_experts": 2}
-A2A_WORLD, A2A_DECODE = 2, 8
+A2A_WORLD, A2A_DECODE = 2, 2   # (b)'s decode steps: 8 until phase 31
 # the fp32 prefill's and the train step's tokens a row: the reference's
 # local buffer, (experts a rank, ranks x capacity, d_model), is 10 GB a
 # layer in fp32 at capacity factor 5.0 and 1,024 tokens a row, with as
 # much again for its products, in each of the two processes on one card
-A2A_FP32_S, A2A_TRAIN_S, A2A_TRAIN_LAYERS = 512, 256, 2
+# (the fp32 prefill's 512 cut to 128 to make room for phase 31)
+A2A_FP32_S, A2A_TRAIN_S, A2A_TRAIN_LAYERS = 128, 256, 2
 A2A_TOL = dict(rtol=2e-3, atol=2e-3)    # tests/test_multidevice.py:240
 A2A_AUX_RTOL = 1e-5
-PP_B, PP_S, PP_MICRO = 4, 1024, 4
+# (c)'s tokens a row: 1,024 until phase 31 took the time
+PP_B, PP_S, PP_MICRO = 4, 256, 4
 PP_FWD_TOL, PP_GRAD_TOL = 2e-5, 2e-4    # tests/test_multidevice.py:268-276
 A2A_LAUNCHES = "a2a_launches.json"
 
@@ -5998,6 +6078,274 @@ def a2a_pp_phase(torch, dev, smi: str) -> dict:
             for name, rows in counts.items()}
 
 
+# phase 31: the dry-run (launch/dryrun.py, its walker launch/opcost.py,
+# training.lower_cell): (a) internlm2-1.8b's cells traced on fake CUDA
+# tensors on the production meshes, work for the host alone, in a process
+# that main() starts after phase 1 and phase 31 waits for (its ~90 s of
+# tracing would otherwise lengthen the script by as much); (b) in a child
+# process, the cells of phase 29 (a)'s sizes on a (data 1, model 1) mesh
+# traced on fake tensors, then run for real under the same walker and
+# timed, at NCCL world 1
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
+                ("decode_32k", False), ("train_4k", True))
+# (a)'s records and output: beside OUT, which phase 5 empties
+DRYRUN_OUT = ROOT / "build" / "chip_smoke_dryrun"
+# (b): phase 29 (a)'s train and prefill cells, 4 x 1,024 tokens; a decode
+# step over decode_32k's 32,768 cached positions with its batch of 128
+# rows cut to 4, whose cache (12.9 GB in bf16) the card holds
+DRYRUN_HELD = (("train", TRAIN_S, TRAIN_B), ("prefill", TRAIN_S, TRAIN_B),
+               ("decode", 32_768, TRAIN_B))
+DRYRUN_TIMED = 2                    # timed steps a cell, after the walked one
+DRYRUN_PEAK_RTOL = 0.10             # traced peak against the allocator's
+DRYRUN_BOUND_SLACK = 1.05           # no step under its largest term / 1.05
+DRYRUN_LAUNCHES = "dryrun_launches.json"
+
+
+def _dryrun_production(torch) -> list[str]:
+    """Phase 31 (a): DRYRUN_CELLS on the (16, 16) and (2, 16, 16)
+    production meshes; the failures."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+
+    failed, layers = [], get_config(ARCH).num_layers
+    for shape, multi in DRYRUN_CELLS:
+        rec = run_cell(ARCH, shape, multi,
+                       str(DRYRUN_OUT / ("multi" if multi else "single")),
+                       device="cuda")
+        if not rec["ok"]:
+            failed.append(f"(a) {shape} on {rec['mesh']}")
+            continue
+        cost, rf, mem = rec["cost"], rec["roofline"], rec["memory"]
+        calls = cost["kernel_calls"].get("flash_attention", 0)
+        print(f"  (a) {ARCH} x {shape} on ({rec['mesh']}), {rec['chips']} "
+              f"cards: traced in {rec['trace_s']} s; a card's flops "
+              f"{cost['flops']:.4e}, bytes {cost['bytes']:.4e}, NVLink "
+              f"{cost['nvlink_bytes']:.4e}, network "
+              f"{cost['network_bytes']:.4e} ({cost['collectives']}); peak "
+              f"{mem['peak_bytes'] / 1e9:.3f} GB at {mem['peak_scope']} "
+              f"(arguments {mem['argument_bytes'] / 1e9:.3f}); roofline "
+              f"compute {rf['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.3f} ms, NVLink "
+              f"{rf['nvlink_s'] * 1e3:.3f} ms, network "
+              f"{rf['network_s'] * 1e3:.3f} ms: {rf['dominant']}; useful "
+              f"{rf['useful_ratio']:.3f}; {cost['ops']} operations counted, "
+              f"flash operator calls {calls}", flush=True)
+        if shape.startswith("prefill") and calls != layers:
+            failed.append(f"(a) {shape}: {calls} flash calls, want "
+                          f"{layers}")
+    return failed
+
+
+def dryrun_cells_child() -> int:
+    """Phase 31 (a), in a process of its own on the host."""
+    import logging
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    # DTensor warns at every redistribution over two mesh dimensions
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    os.nice(10)             # the phases it runs beside take the host first
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    failed = _dryrun_production(torch)
+    print(f"  (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        print(f"  (a) outside the bounds: {failed}", flush=True)
+    return 1 if failed else 0
+
+
+def start_dryrun_cells():
+    """Start phase 31 (a) (``dryrun_cells_child``), its output into
+    DRYRUN_OUT/cells.log; the caller stops it."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    with open(DRYRUN_OUT / "cells.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.dryrun_cells_child())"],
+            cwd=ROOT, env=_child_env(), stdout=log, stderr=subprocess.STDOUT)
+
+
+def stop(proc) -> None:
+    """Kill ``proc`` if it still runs, and reap it."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def _dryrun_shape(kind: str, S: int, B: int):
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(f"held_{kind}", S, B, kind)
+
+
+def _dryrun_held(torch, dev, tmp: str) -> tuple[list[str], dict]:
+    """Phase 31 (b): each DRYRUN_HELD cell traced on fake CUDA tensors
+    under a fake group of one, then, under NCCL at world 1, run once for
+    real under the walker (the allocator's peak reset with the inputs
+    placed) and DRYRUN_TIMED times more, timed. Returns the failures and
+    the flash launches of the real prefill."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.dryrun import fake_group, roofline, trace_cell
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.opcost import OpCost
+    from repro_torch.training import lower_cell
+
+    config = get_config(ARCH)
+    opt = OptimizerConfig(**DP_OPT)
+    traced = {}
+    with fake_group(1):
+        mesh = make_test_mesh(1, 1, device_type="cuda")
+        for kind, S, B in DRYRUN_HELD:
+            cell, _ = lower_cell(config, _dryrun_shape(kind, S, B), mesh,
+                                 opt)
+            traced[kind] = trace_cell(cell)
+    failed, launched = [], {}
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+        rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_test_mesh(1, 1)
+        for kind, S, B in DRYRUN_HELD:
+            shape = _dryrun_shape(kind, S, B)
+            cell, _ = lower_cell(config, shape, mesh, opt, device=dev)
+            args = cell.inputs()
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            walker = OpCost(memory=True)
+            walker.track(args)
+            t0 = time.perf_counter()
+            with walker:
+                out = cell(*args)
+            torch.cuda.synchronize(dev)
+            walked_s = time.perf_counter() - t0
+            real_peak = torch.cuda.max_memory_allocated(dev)
+            if kind == "prefill":
+                launched = _launched(fk.flash_attention.launches_by_instance)
+            del out
+            times = []
+            for _ in range(DRYRUN_TIMED):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out = cell(*args)
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+                del out
+            del args
+            torch.cuda.empty_cache()
+            fake, real = traced[kind]["cost"], walker.result()
+            rf = roofline(fake, config, shape, 1)
+            terms = {t: rf[f"{t}_s"] for t in ("compute", "memory",
+                                               "nvlink", "network")}
+            top, top_s = max(terms.items(), key=lambda kv: kv[1])
+            fpeak = traced[kind]["memory"]["peak_bytes"]
+            same = all(fake[k] == real[k] for k in ("flops", "bytes"))
+            peak_off = abs(fpeak - real_peak) / real_peak
+            floor = top_s / DRYRUN_BOUND_SLACK
+            median = statistics.median(times)
+            print(f"  (b) {kind}, {B} x {S}: traced in "
+                  f"{traced[kind]['trace_s']:.1f} s; flops fake "
+                  f"{fake['flops']:.6e} / real {real['flops']:.6e}, bytes "
+                  f"fake {fake['bytes']:.6e} / real {real['bytes']:.6e}: "
+                  f"equal {same}; peak traced {fpeak / 1e9:.3f} GB, "
+                  f"allocator {real_peak / 1e9:.3f} GB ({peak_off:.4f} off, "
+                  f"limit {DRYRUN_PEAK_RTOL}); the walked step "
+                  f"{walked_s:.3f} s, timed steps (s) "
+                  f"{[round(t, 4) for t in times]}; roofline "
+                  f"{ {t: round(v * 1e3, 3) for t, v in terms.items()} } ms, "
+                  f"largest {top} {top_s * 1e3:.3f} ms: roofline share "
+                  f"{top_s / median:.4f} of the median step"
+                  + (f"; flash launches {launched}" if kind == "prefill"
+                     else ""), flush=True)
+            if not same:
+                failed.append(f"(b) {kind}: fake and real counts differ")
+            if peak_off > DRYRUN_PEAK_RTOL:
+                failed.append(f"(b) {kind}: peak {peak_off:.4f} off")
+            if min(times) < floor:
+                failed.append(f"(b) {kind}: a step under its bound")
+            if kind == "prefill":
+                calls = traced[kind]["cost"]["kernel_calls"].get(
+                    "flash_attention", 0)
+                want = {("wgmma", config.resolved_head_dim): calls}
+                if calls != config.num_layers or launched != want:
+                    failed.append(f"(b) prefill: {calls} traced flash "
+                                  f"calls, launches {launched}")
+    finally:
+        dist.destroy_process_group()
+    return failed, launched
+
+
+def dryrun_child() -> int:
+    """Phase 31 (b) in a child process: a fake process group and a real
+    one are each the default group in turn, which no other phase may
+    hold."""
+    import json
+    import logging
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+        failed, launched = _dryrun_held(torch, dev, tmp)
+    print(f"  (b) in {time.perf_counter() - t0:.1f} s", flush=True)
+    (OUT / DRYRUN_LAUNCHES).write_text(json.dumps({
+        "dryrun": [[k[0], k[1], n] for k, n in launched.items()]}))
+    if failed:
+        raise AssertionError(f"outside the bounds: {failed}")
+    return 0
+
+
+def dryrun_phase(torch, dev, smi: str, cells=None) -> dict:
+    """Phase 31: (b) ``dryrun_child`` in a child process, after this
+    process released what it held on the card; then (a), the process
+    ``cells`` that ``start_dryrun_cells`` started (started here when
+    None), waited for and its output printed. Returns the flash launches
+    of (b)'s real prefill ('dryrun'), by (design, head dim)."""
+    import json
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    (OUT / DRYRUN_LAUNCHES).unlink(missing_ok=True)
+    try:
+        if cells is None:
+            cells = start_dryrun_cells()
+        rc = subprocess.run([sys.executable, "-c",
+                             "import sys, chip_smoke; "
+                             "sys.exit(chip_smoke.dryrun_child())"],
+                            cwd=ROOT, env=_child_env(),
+                            timeout=600).returncode
+        t_wait = time.perf_counter()
+        cells_rc = cells.wait(timeout=600)
+        print(f"  (a), started after phase 1, ended "
+              f"{time.perf_counter() - t_wait:.1f} s after (b):", flush=True)
+        print((DRYRUN_OUT / "cells.log").read_text(), end="", flush=True)
+    finally:
+        stop(cells)
+    if rc != 0 or cells_rc != 0:
+        raise AssertionError(f"the dry-run failed (exit {rc}, the traces' "
+                             f"{cells_rc})")
+    counts = json.loads((OUT / DRYRUN_LAUNCHES).read_text())
+    print(f"  the dry-run OK; {time.perf_counter() - t_phase:.1f} s, on "
+          f"{smi}", flush=True)
+    return {name: {(d, hd): n for d, hd, n in rows}
+            for name, rows in counts.items()}
+
+
 @contextlib.contextmanager
 def _phase(label: str, title: str):
     """Prints a phase's header, and its own wall time when it ends."""
@@ -6018,14 +6366,24 @@ def main() -> int:
               "GPU is needed", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.apps.ptycho.sim import simulate
-    from repro_torch.kernels import _build
 
     t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     smi = _nvidia_smi()
     print(f"[1] card: {smi}; torch {torch.__version__} "
           f"(CUDA {torch.version.cuda})", flush=True)
+    # phase 31 (a): host work alone, traced while the phases below run
+    cells = start_dryrun_cells()
+    try:
+        return _phases(torch, dev, smi, t_script, cells)
+    finally:
+        stop(cells)
+
+
+def _phases(torch, dev, smi: str, t_script: float, cells) -> int:
+    """Phases 2-31 of ``main``."""
+    from repro_torch.apps.ptycho.sim import simulate
+    from repro_torch.kernels import _build
 
     with _phase("2", "the kernels' build, and SDPA's kernels:"):
         t0 = time.perf_counter()
@@ -6223,6 +6581,15 @@ def main() -> int:
         routed = a2a_pp_phase(torch, dev, smi)
         for key in FLASH_ROWS:
             for name, counts in routed.items():
+                flash_rows[key]["launches_" + name] = _row_launches(counts,
+                                                                    key)
+
+    with _phase("31", f"the dry-run: {ARCH}'s cells traced on fake CUDA "
+                      f"tensors on the production meshes, and held against "
+                      f"its real steps on the card:"):
+        dried = dryrun_phase(torch, dev, smi, cells)
+        for key in FLASH_ROWS:
+            for name, counts in dried.items():
                 flash_rows[key]["launches_" + name] = _row_launches(counts,
                                                                     key)
 

@@ -58,7 +58,6 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import activation, normal_init
@@ -136,6 +135,14 @@ def route(xt: torch.Tensor, router: torch.Tensor, k: int
     return probs, gates, top_idx
 
 
+def _top1_onehot(top_idx: torch.Tensor, E: int) -> torch.Tensor:
+    """Each token's first choice one-hot over the E experts, fp32: the
+    values of ``F.one_hot``, without its check of the indices' range (a
+    read of the data, which a trace on fake tensors cannot make)."""
+    experts = torch.arange(E, device=top_idx.device)
+    return (top_idx[:, :1] == experts).float()
+
+
 def capacity(tokens: int, config: ModelConfig) -> int:
     """Slots an expert takes: the reference's expression, in its order."""
     return int(max(1, math.ceil(tokens * config.experts_per_token
@@ -155,7 +162,7 @@ def moe_layer(x: torch.Tensor, params: dict, config: ModelConfig
 
     # -- router (fp32) and the Switch-style load-balance aux loss ----------
     probs, gates, top_idx = route(xt, whole(params["router"]), K)
-    density = F.one_hot(top_idx[:, 0], E).float().mean(0)
+    density = _top1_onehot(top_idx, E).mean(0)
     router_mean = probs.mean(0)
     aux = (density * router_mean).sum() * E * config.router_aux_loss
 
@@ -379,8 +386,8 @@ def moe_layer_a2a(x: torch.Tensor, params: dict, config: ModelConfig
     T = B * S
     xt = xl.reshape(T, D)
     probs, gates, top_idx = route(xt, router, K)
-    density = _GroupMean.apply(F.one_hot(top_idx[:, 0], E).float().mean(0),
-                               group, n_dev)
+    density = _GroupMean.apply(_top1_onehot(top_idx, E).mean(0), group,
+                               n_dev)
     router_mean = _GroupMean.apply(probs.mean(0), group, n_dev)
     aux = (density * router_mean).sum() * E * config.router_aux_loss
 

@@ -40,7 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
-from repro_torch.parallel.sharding import logical_constraint, place_logical
+from repro_torch.parallel.sharding import logical_constraint, zeros_logical
 
 _C = 8.0  # RG-LRU sharpness constant
 
@@ -291,9 +291,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     """Run the prompt ``batch['tokens']`` (B, S), fill a fresh cache for
     ``max_len`` (default S) tokens, return last-token logits (B, 1, V)."""
     tokens = batch["tokens"]
-    cache = place_logical(init_cache(config, tokens.shape[0],
-                                     max_len or tokens.shape[1],
-                                     tokens.device), cache_specs(config))
+    cache = zeros_logical(lambda dev: init_cache(
+        config, tokens.shape[0], max_len or tokens.shape[1], dev),
+        cache_specs(config), tokens.device)
     x, cache = _forward(params, tokens, config, cache, 0)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache
 

@@ -49,9 +49,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.parallel.sharding import (is_dtensor, like,
-                                           logical_constraint,
-                                           place_logical, redistribute,
-                                           summed)
+                                           logical_constraint, redistribute,
+                                           summed, zeros_logical)
 
 
 # -- init ------------------------------------------------------------------------
@@ -393,8 +392,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     from a zero state; returns last-token logits (B, 1, V) and the state.
     ``max_len`` is not read."""
     tokens = batch["tokens"]
-    state = place_logical(init_state(config, tokens.shape[0], tokens.device),
-                          cache_specs(config))
+    state = zeros_logical(lambda dev: init_state(config, tokens.shape[0],
+                                                 dev),
+                          cache_specs(config), tokens.device)
     x, state = _run(params, tokens, config, state, mode="chunked")
     return L.lm_logits(x[:, -1:], params["embed"], config), state
 

@@ -24,7 +24,9 @@ prefill, the decode and the loss alike.
 ``param_specs`` and ``cache_specs`` give the trees' logical axes
 (``parallel/sharding.py``); the residual stream is constrained where the
 reference's is, and under a mesh the loss's chunks take the vocabulary
-whole before the target's gather.
+whole before the target's gather. Each layer, its attention and its MLP
+or experts, and each CE chunk run in a ``cost_scope`` of that name, which
+the dry-run's walker (``launch/opcost.py``) files their work under.
 """
 from __future__ import annotations
 
@@ -35,9 +37,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.parallel.sharding import (is_dtensor, local_shard,
-                                           logical_constraint,
-                                           place_logical, redistribute,
-                                           summed, whole)
+                                           logical_constraint, redistribute,
+                                           summed, whole, zeros_logical)
+from repro_torch.utils import cost_scope
 
 
 # -- init ----------------------------------------------------------------------
@@ -110,18 +112,21 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
            ) -> tuple[torch.Tensor, torch.Tensor | None, dict | None]:
     """One block: (x, the MoE layer's aux loss or None for a dense block,
     the cache)."""
-    h = L.apply_norm(x, block_params["norm1"], config)
-    a, new_cache = attn.attention_layer(h, block_params["attn"], config,
-                                        positions, cache=cache)
+    with cost_scope("attention"):
+        h = L.apply_norm(x, block_params["norm1"], config)
+        a, new_cache = attn.attention_layer(h, block_params["attn"], config,
+                                            positions, cache=cache)
     x = logical_constraint(x + a, "batch", "act_seq", "embed")
-    h = L.apply_norm(x, block_params["norm2"], config)
-    if config.num_experts > 0:
-        if config.sharding_overrides.get("_moe_impl") == "a2a":
-            m, aux = moe_lib.moe_layer_a2a(h, block_params["moe"], config)
+    with cost_scope("experts" if config.num_experts > 0 else "mlp"):
+        h = L.apply_norm(x, block_params["norm2"], config)
+        if config.num_experts > 0:
+            if config.sharding_overrides.get("_moe_impl") == "a2a":
+                m, aux = moe_lib.moe_layer_a2a(h, block_params["moe"],
+                                               config)
+            else:
+                m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
         else:
-            m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
-    else:
-        m, aux = L.mlp(h, block_params["mlp"], config), None
+            m, aux = L.mlp(h, block_params["mlp"], config), None
     x = logical_constraint(x + m, "batch", "act_seq", "embed")
     return x, aux, new_cache
 
@@ -142,16 +147,18 @@ def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
             return x, aux_i
 
         block = L.remat(block, config.remat)
-        for block_params in params["layers"]:
-            x, aux_i = block(x, block_params)
+        for i, block_params in enumerate(params["layers"]):
+            with cost_scope(f"layer{i}"):
+                x, aux_i = block(x, block_params)
             if aux_i is not None:
                 aux = aux + aux_i
         return x, aux, None
     for i, block_params in enumerate(params["layers"]):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
                        "pos": cache["pos"]}
-        x, aux_i, _ = _block(x, block_params, config, positions,
-                             layer_cache)
+        with cost_scope(f"layer{i}"):
+            x, aux_i, _ = _block(x, block_params, config, positions,
+                                 layer_cache)
         if aux_i is not None:
             aux = aux + aux_i
     return x, aux, {"k": cache["k"], "v": cache["v"],
@@ -210,8 +217,9 @@ def _chunked_ce(x: torch.Tensor, params: dict, config: ModelConfig,
     mask_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n):
         cols = slice(c * chunk, (c + 1) * chunk)
-        loss_sum = loss_sum + chunk_nll(x[:, cols], targets[:, cols],
-                                        mask[:, cols])
+        with cost_scope(f"ce{c}"):
+            loss_sum = loss_sum + chunk_nll(x[:, cols], targets[:, cols],
+                                            mask[:, cols])
         mask_sum = mask_sum + torch.sum(mask[:, cols].float())
     return loss_sum / torch.clamp(mask_sum, min=1.0)
 
@@ -298,9 +306,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     ``max_len``."""
     tokens = batch["tokens"]
     x, positions = _embed_inputs(params, batch, config)
-    cache = place_logical(init_cache(config, tokens.shape[0],
-                                     max_len or x.shape[1], tokens.device),
-                          cache_specs(config))
+    cache = zeros_logical(lambda dev: init_cache(
+        config, tokens.shape[0], max_len or x.shape[1], dev),
+        cache_specs(config), tokens.device)
     x, _, cache = _run_layers(x, params, config, positions, cache)
     x = L.apply_norm(x, params["final_norm"], config)
     return L.lm_logits(x[:, -1:], params["embed"], config), cache

@@ -41,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer
 from repro_torch.parallel.sharding import (like, logical_constraint,
-                                           place_logical)
+                                           zeros_logical)
 
 
 # -- init ------------------------------------------------------------------------
@@ -233,9 +233,9 @@ def prefill(params: dict, batch: dict, config: ModelConfig,
     last-token logits (B, 1, V)."""
     tokens = batch["tokens"]
     enc_out = encode(params, batch["frames"], config)
-    cache = place_logical(init_cache(config, tokens.shape[0],
-                                     max_len or tokens.shape[1],
-                                     tokens.device), cache_specs(config))
+    cache = zeros_logical(lambda dev: init_cache(
+        config, tokens.shape[0], max_len or tokens.shape[1], dev),
+        cache_specs(config), tokens.device)
     x, positions = _embed_dec(params, tokens, config, 0)
     x, cache = _decode_layers(params, x, config, positions, enc_out, cache)
     x = L.apply_norm(x, params["dec_norm"], config)

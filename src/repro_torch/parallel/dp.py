@@ -30,9 +30,10 @@ On a gloo group every collective is staged through host memory, and the
 reduce-scatter is an all-reduce of which each rank keeps its own chunk
 (gloo does not reduce-scatter in every PyTorch build; the sum is the
 same, in its own order). Without a group the step is refused; at world 1
-it runs its collectives on the group of one. The reference's
-``lower_dp_cell`` is XLA lowering for its dry-run and comes with the
-port's (ROADMAP Queue 1 item 10).
+it runs its collectives on the group of one. ``lower_dp_cell`` is the
+reference's dry-run entry for this trainer: a ``training.Cell`` of one
+rank's step over the default group, which the dry-run runs on fake
+tensors.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import DTYPES, ModelConfig, OptimizerConfig
 from repro_torch.optim.adamw import lr_schedule
 from repro_torch.training import loss_and_grads, train_config
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import cost_scope, tree_leaves, tree_map
 
 NO_GROUP = ("the data-parallel step runs over a torch.distributed process "
             "group; pass one (a group of one process is world 1)")
@@ -187,7 +188,7 @@ def build_dp_train_step(config: ModelConfig, opt: OptimizerConfig,
     def step(state: dict, batch: dict) -> tuple[dict, dict]:
         params = state["params"]
         loss, metrics, grads = loss_and_grads(params, batch, config)
-        with torch.no_grad():
+        with torch.no_grad(), cost_scope("optimizer"):
             gflat, meta = flatten_params(grads, world)
             del grads
             g2d = gflat.view(world, -1)
@@ -259,3 +260,45 @@ def build_dp_train_step(config: ModelConfig, opt: OptimizerConfig,
         return state, dict(zip(names, mean.unbind()))
 
     return step
+
+
+def lower_dp_cell(config: ModelConfig, shape: Any, mesh: Any,
+                  opt: OptimizerConfig | None = None,
+                  compression: str | None = None) -> Any:
+    """The explicit-collective DP train step as a dry-run cell
+    (``repro/parallel/dp.py:168``): every device of ``mesh`` a rank of the
+    default group, as the reference's step runs data-parallel over all of
+    its mesh's axes. ``cell.inputs()`` draws {'params': the whole tree,
+    'opt': this rank's ``init_dp_opt_state``} and this rank's rows of the
+    global batch (``global_batch`` / world)."""
+    from repro_torch.configs import input_specs
+    from repro_torch.models.registry import get_model
+    from repro_torch.training import Cell, _cell_device, _draw_batch
+
+    opt = opt or OptimizerConfig()
+    group = dist.group.WORLD
+    world = _world(group)
+    n = 1
+    for d in getattr(mesh, "shape", (world,)):
+        n *= d
+    if n != world:
+        raise ValueError(f"the DP cell runs over the default group of "
+                         f"{world}; the mesh has {n} devices")
+    if shape.global_batch % world:
+        raise ValueError(f"batch of {shape.global_batch} rows does not "
+                         f"split over {world} ranks")
+    step = build_dp_train_step(config, opt, group, compression)
+    dev = _cell_device(mesh, None)
+    specs = input_specs(config, shape)["batch"]
+    rows = {k: torch.empty((shape.global_batch // world,) + tuple(v.shape[1:]),
+                           dtype=v.dtype, device="meta")
+            for k, v in specs.items()}
+
+    def draw() -> tuple:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = get_model(config).init(gen, config)
+        state = {"params": params,
+                 "opt": init_dp_opt_state(params, group, opt)}
+        return state, _draw_batch(gen, config, rows, dev)
+
+    return Cell("train", step, draw)

@@ -478,15 +478,32 @@ def place_tree(tree: Any, spec_tree: Any, mesh: Any) -> Any:
     return map_specs(place, spec_tree, tree)
 
 
-def place_logical(tree: Any, logical_tree: Any) -> Any:
-    """``tree``, made alike on every rank (a fresh cache), placed by its
-    logical axes on the active ``DeviceMesh``, whatever its size; as it is
-    without one."""
+def zeros_logical(make: Callable[[Any], Any], logical_tree: Any,
+                  device: Any) -> Any:
+    """A fresh tree of zeros (a cache; ``make(device)`` builds it at its
+    global shapes) placed by its logical axes on the active
+    ``DeviceMesh``, each rank allocating only its own block: the tree is
+    made on the meta device, and each leaf's local block drawn as zeros on
+    ``device`` (the reference's cache, zeros under a sharding constraint
+    inside ``jit``, is allocated so by XLA). ``make(device)`` as it is
+    without a mesh."""
+    from torch.distributed.tensor import DTensor
+
     mesh = _ctx.mesh
     if mesh is None or isinstance(mesh, Mapping):
-        return tree
-    specs = tree_specs_shaped(logical_tree, tree, mesh, _ctx.rules)
-    return place_tree(tree, specs, mesh)
+        return make(device)
+    meta = make(torch.device("meta"))
+    specs = tree_specs_shaped(logical_tree, meta, mesh, _ctx.rules)
+
+    def place(spec: Any, leaf: Any) -> Any:
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        places = placements(spec, mesh)
+        local = local_shard(leaf, mesh, places)
+        return DTensor.from_local(
+            torch.zeros(local.shape, dtype=leaf.dtype, device=device), mesh,
+            places, run_check=False)
+    return map_specs(place, specs, meta)
 
 
 def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -8,9 +8,12 @@ GSPMD ``in_shardings``), and ``CellShardings.place`` puts a state, batch
 or cache on the mesh by them, as DTensors: the same step functions then
 run on the placed trees under ``use_mesh(cell.mesh, cell.rules)``, DTensor
 propagating the shardings where XLA's compiler does in the reference.
-The reference's ``lower_cell`` lowers a cell for its dry-run and comes
-with the port's (ROADMAP Queue 1 item 10). The data-parallel step over a
-process group is ``parallel/dp.py``.
+``lower_cell`` is the reference's dry-run entry: where the reference
+lowers a cell's jitted step without allocating, it returns a ``Cell``,
+one rank's step with the inputs it is called on, which the dry-run
+(``launch/dryrun.py``) runs on fake tensors and a test or the card on
+real ones: one program either way. The data-parallel step over a process
+group is ``parallel/dp.py``.
 
 The train step takes gradients by autograd through the config's attention
 schedule, as the reference's ``jax.grad`` goes through its ``lax.scan``:
@@ -31,8 +34,9 @@ from repro_torch.configs.base import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models.registry import get_model, param_shapes
 from repro_torch.optim import adamw_update, init_opt_state, zero1_state_specs
 from repro_torch.parallel.sharding import (ShardingRules, is_dtensor,
-                                           place_tree, tree_specs_shaped)
-from repro_torch.utils import tree_leaves, tree_map
+                                           place_tree, tree_specs_shaped,
+                                           use_mesh)
+from repro_torch.utils import cost_scope, tree_leaves, tree_map
 
 
 def rules_for(config: ModelConfig) -> ShardingRules:
@@ -79,8 +83,9 @@ def build_train_step(config: ModelConfig, opt: OptimizerConfig
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         loss, metrics, grads = loss_and_grads(state["params"], batch, config)
-        params, opt_state, opt_metrics = adamw_update(
-            state["params"], grads, state["opt"], opt)
+        with cost_scope("optimizer"):
+            params, opt_state, opt_metrics = adamw_update(
+                state["params"], grads, state["opt"], opt)
         metrics = {**metrics, **opt_metrics, "total_loss": loss}
         return ({"params": params, "opt": opt_state},
                 {k: _plain(v) for k, v in metrics.items()})
@@ -174,3 +179,126 @@ def shardings_for(config: ModelConfig, shape: ShapeConfig, mesh: Any,
         cell.cache_specs = tree_specs_shaped(model.cache_specs(config),
                                              inputs["cache"], mesh, rules)
     return cell
+
+
+# -- lowering (dry-run entry points) -----------------------------------------------
+@dataclass
+class Cell:
+    """One rank's step of an (arch x shape x mesh) cell. ``inputs()`` draws
+    the step's arguments from seed 0 and places them by the cell's specs,
+    each sharded leaf this rank's own block in a storage of its own (under
+    ``FakeTensorMode`` fake tensors, nothing allocated);
+    ``cell(*args)`` runs the step under the cell's mesh and rules.
+    ``kind`` is the shape's: train -> ``train_step(state, batch)``,
+    prefill -> ``prefill(params, batch)``, decode -> ``decode_step(params,
+    tokens, cache)``."""
+    kind: str
+    step: Callable
+    inputs: Callable[[], tuple]
+    mesh: Any = None
+    rules: ShardingRules | None = None
+
+    def __call__(self, *args: Any) -> Any:
+        if self.mesh is None:
+            return self.step(*args)
+        with use_mesh(self.mesh, self.rules):
+            return self.step(*args)
+
+
+def _own_blocks(tree: Any) -> Any:
+    """``tree`` with each DTensor leaf whose local block is a view into a
+    larger tensor rebuilt on a copy of its block, so that a rank holds
+    (and a memory count sees) only its own bytes."""
+    from torch.distributed.tensor import DTensor
+
+    def own(x: Any) -> Any:
+        if not is_dtensor(x):
+            return x
+        local = x.to_local()
+        if local.untyped_storage().nbytes() <= local.numel() * \
+                local.element_size():
+            return x
+        return DTensor.from_local(local.clone(), x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return tree_map(own, tree)
+
+
+def _cell_device(mesh: Any, device: Any) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    kind = getattr(mesh, "device_type", "cpu")
+    return torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+
+
+def _draw_batch(gen: torch.Generator, config: ModelConfig, specs: dict,
+                device: torch.device) -> dict:
+    """``input_specs``' batch drawn from ``gen``: tokens uniform over the
+    vocabulary, image embeddings and frames standard normal."""
+    out = {}
+    for name, meta in specs.items():
+        if meta.dtype == torch.int64:
+            out[name] = torch.randint(0, config.vocab_size, tuple(meta.shape),
+                                      generator=gen, device=device)
+        else:
+            out[name] = torch.randn(tuple(meta.shape), generator=gen,
+                                    device=device).to(meta.dtype)
+    return out
+
+
+def lower_cell(config: ModelConfig, shape: ShapeConfig, mesh: Any,
+               opt: OptimizerConfig | None = None, *, device: Any = None
+               ) -> tuple[Cell, str]:
+    """The cell's step at full scale on ``mesh``
+    (``repro/training.py:131``): returns (cell, kind). train ->
+    ``build_train_step`` on ``init_state`` and the batch, placed by
+    ``shardings_for``'s state and batch specs; prefill -> ``build_serve_fns``'
+    prefill on the parameters and the batch; decode -> its decode step on
+    the parameters, one token a row and a cache of ``seq_len`` positions
+    whose last slot the step writes (the step reads every slot whatever
+    the position, as the reference's does). ``device`` defaults to the
+    mesh's device type."""
+    opt = opt or OptimizerConfig()
+    model = get_model(config)
+    cell = shardings_for(config, shape, mesh, opt)
+    specs = input_specs(config, shape)
+    dev = _cell_device(mesh, device)
+    B, S = shape.global_batch, shape.seq_len
+
+    def generator() -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(0)
+
+    if shape.kind == "train":
+        step = build_train_step(config, opt)
+
+        def draw() -> tuple:
+            gen = generator()
+            state = cell.place(init_state(gen, config, opt),
+                               cell.state_specs)
+            batch = cell.place(_draw_batch(gen, config, specs["batch"], dev),
+                               cell.batch_specs)
+            return _own_blocks(state), _own_blocks(batch)
+    elif shape.kind == "prefill":
+        step = build_serve_fns(config)[0]
+
+        def draw() -> tuple:
+            gen = generator()
+            params = cell.place(model.init(gen, config), cell.param_specs)
+            batch = cell.place(_draw_batch(gen, config, specs["batch"], dev),
+                               cell.batch_specs)
+            return _own_blocks(params), _own_blocks(batch)
+    else:
+        step = build_serve_fns(config)[1]
+
+        def draw() -> tuple:
+            gen = generator()
+            params = cell.place(model.init(gen, config), cell.param_specs)
+            tokens = cell.place(torch.randint(
+                0, config.vocab_size, (B, 1), generator=gen, device=dev),
+                cell.batch_specs)
+            cache = model.init_cache(config, B, S, dev)
+            if "pos" in cache:
+                cache["pos"] = S - 1
+            cache = cell.place(cache, cell.cache_specs)
+            return _own_blocks(params), _own_blocks(tokens), _own_blocks(cache)
+    return Cell(shape.kind, step, draw, cell.mesh, cell.rules), shape.kind

@@ -1,12 +1,15 @@
 """Shared utilities of the port: logging, device resolution, a map over
-nested dicts, lists and tuples of tensors and their leaves, and the
-reference's ``tree_params``, ``tree_any_nan`` and ``human_count``
-(``repro/utils.py``)."""
+nested dicts, lists and tuples of tensors and their leaves, the
+reference's timing, tree and numeric helpers (``repro/utils.py``), and
+the cost scopes that ``launch/opcost.py`` reads."""
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import logging
 import os
-from typing import Any, Callable
+import time
+from typing import Any, Callable, Iterator
 
 import torch
 
@@ -80,3 +83,88 @@ def human_count(n: float) -> str:
             return f"{n:.2f}{unit}"
         n /= 1000.0
     return f"{n:.2f}Q"
+
+
+def peak_memory_bytes(memory: dict) -> int:
+    """The peak of a dry-run's memory record (``launch/dryrun.py``), read
+    as the reference reads ``memory_analysis()``: 'peak_bytes' where the
+    record has one, else argument + output + temp bytes, less any alias
+    bytes."""
+    if memory.get("peak_bytes") is not None:
+        return int(memory["peak_bytes"])
+    return int(memory["argument_bytes"] + memory["output_bytes"]
+               + memory["temp_bytes"] - memory.get("alias_bytes", 0))
+
+
+@contextlib.contextmanager
+def timed(label: str, sink: dict | None = None) -> Iterator[None]:
+    """Context manager measuring wall time; optionally records into
+    ``sink``."""
+    t0 = time.perf_counter()
+    yield
+    dt = time.perf_counter() - t0
+    if sink is not None:
+        sink[label] = dt
+
+
+def block_tree(tree: Any) -> Any:
+    """Wait for the devices of a tree's CUDA tensors (for honest timing);
+    CPU tensors need no wait."""
+    devices = {leaf.device for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def tree_bytes(tree: Any) -> int:
+    """Total byte size of the tensor leaves (meta tensors included)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for leaf in tree_leaves(tree)
+               if isinstance(leaf, torch.Tensor))
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} PiB"
+
+
+def ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def round_up(a: int, b: int) -> int:
+    return ceil_div(a, b) * b
+
+
+def asdict_shallow(obj: Any) -> dict:
+    """``dataclasses.asdict`` without deep-copying tensor fields."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+# -- cost scopes ---------------------------------------------------------------------
+# The names of the parts of a step (a layer, its attention or MLP, a CE
+# chunk, the optimizer) that ``launch/opcost.py``'s walker files each
+# operation under. Entered only while a walker runs; elsewhere a scope
+# costs one truth test.
+SCOPE_LISTENERS: list = []
+
+
+@contextlib.contextmanager
+def cost_scope(name: str) -> Iterator[None]:
+    """Mark the operations run inside as part ``name`` of the enclosing
+    scope, for every active walker."""
+    if not SCOPE_LISTENERS:
+        yield
+        return
+    listeners = list(SCOPE_LISTENERS)
+    for w in listeners:
+        w.enter_scope(name)
+    try:
+        yield
+    finally:
+        for w in reversed(listeners):
+            w.exit_scope(name)

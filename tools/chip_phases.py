@@ -9,8 +9,10 @@ Run from the root of a checkout:
     python3 tools/chip_phases.py 27 28 22 23 26
 
 The phases whose functions take only the card (``torch``, the device and
-the nvidia-smi line) are offered: 16-18 and 20-30 but 21, which needs
-phase 8's stream. Without a GPU it exits non-zero.
+the nvidia-smi line) are offered: 16-18 and 20-31 but 21, which needs
+phase 8's stream; and phase 9, the flash kernels against their plain
+version, with its own buffer to empty the L2. Without a GPU it exits
+non-zero.
 """
 import sys
 import time
@@ -23,7 +25,8 @@ PHASES = {"16": "bridge_phase", "17": "elastic_phase",
           "18": "recovery_phase", "20": "moe_phase", "22": "hybrid_phase",
           "23": "audio_phase", "24": "ssm_phase", "25": "vlm_phase",
           "26": "train_phase", "27": "schedules_phase", "28": "dp_phase",
-          "29": "mesh_phase", "30": "a2a_pp_phase"}
+          "29": "mesh_phase", "30": "a2a_pp_phase", "31": "dryrun_phase",
+          "9": "flash_phase"}
 
 
 def main(argv: list[str]) -> int:
@@ -50,7 +53,13 @@ def main(argv: list[str]) -> int:
           flush=True)
     for phase in argv:
         with cs._phase(phase, f"chip_smoke.{PHASES[phase]} alone:"):
-            getattr(cs, PHASES[phase])(torch, dev, smi)
+            if phase == "9":
+                l2_flush = torch.empty(64 * 2**20, dtype=torch.float32,
+                                       device=dev)
+                cs.flash_phase(torch, dev, l2_flush.zero_)
+                del l2_flush
+            else:
+                getattr(cs, PHASES[phase])(torch, dev, smi)
     print(f"all in {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
