@@ -55,7 +55,7 @@ from repro_torch.core.rdd import RDD, Context
 from repro_torch.data.codec import compose_decoder
 from repro_torch.data.delivery import DeliveryRuntime
 from repro_torch.data.groups import GroupError, GroupMember
-from repro_torch.data.metrics import TraceLog, get_registry
+from repro_torch.data.metrics import Span, TraceLog, get_registry
 from repro_torch.data.obs_server import ObservabilityServer, lag_health
 from repro_torch.utils import get_logger
 
@@ -482,10 +482,10 @@ class StreamingContext:
             self.group_member.maintain()
             if self._group_unacked:
                 self._recommit_fenced()
-        t_pump = time.perf_counter()
-        self._pump_sources()
-        ranges = self._pending_ranges()
-        pump_s = time.perf_counter() - t_pump
+        pump = Span("pump")
+        with pump:
+            self._pump_sources()
+            ranges = self._pending_ranges()
         if not ranges:
             # no span for idle probes: the trace log holds batches, and an
             # idle poll loop would otherwise drown them
@@ -493,8 +493,16 @@ class StreamingContext:
         info = BatchInfo(index=self._batch_index, ranges=ranges,
                          num_records=sum(r.count() for r in ranges),
                          scheduled_at=self._clock())
-        rec = self.traces.begin(self._batch_index, info.num_records)
-        rec.add("pump", pump_s)
+        rec = self.traces.begin(self._batch_index, info.num_records,
+                                pump=pump)
+        try:
+            return self._run_batch(info, ranges, rec)
+        except BaseException:
+            rec.abandon()              # failed batches never enter the trace
+            raise
+
+    def _run_batch(self, info: BatchInfo, ranges: list[OffsetRange],
+                   rec: Any) -> BatchInfo:
         per_topic: dict[str, list[OffsetRange]] = {}
         for r in ranges:
             per_topic.setdefault(r.topic, []).append(r)
@@ -522,7 +530,7 @@ class StreamingContext:
         except BaseException:
             for w, st in rollback:
                 w.restore_state(st)
-            raise                      # failed batches never enter the trace
+            raise
         self._commit(ranges, rec=rec)
         self._batch_index += 1
         self._history.append(info)

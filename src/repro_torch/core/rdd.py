@@ -40,6 +40,7 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 
 from repro_torch.data.locktrace import new_lock
+from repro_torch.data.metrics import Span, current_span, span
 from repro_torch.utils import get_logger
 
 log = get_logger(__name__)
@@ -260,7 +261,10 @@ class TaskScheduler:
       execution.
 
     ``metrics`` counts ``tasks`` (attempts started), ``retries``,
-    ``speculative`` copies and ``speculative_wins``, over every job run."""
+    ``speculative`` copies and ``speculative_wins``, over every job run.
+    Each attempt is the span ``task`` (its partition, attempt and whether
+    it is speculative), from an executor's pick-up to its result, a child
+    of the span that ran the job, so of its micro-batch."""
 
     def __init__(self, num_executors: int = 4, max_failures: int = 4,
                  speculation: bool = True, speculation_multiplier: float = 4.0,
@@ -281,11 +285,16 @@ class TaskScheduler:
         with self._lock:
             self.metrics[metric] += 1
 
-    def _run_task(self, rdd: RDD, attempt: TaskAttempt) -> Any:
-        self._count("tasks")
-        if self.failure_injector is not None:
-            self.failure_injector.on_task(attempt)
-        return rdd.compute_partition(attempt.partition)
+    def _run_task(self, rdd: RDD, attempt: TaskAttempt,
+                  parent: Span | None = None) -> Any:
+        with span("task", parent=parent,
+                  attrs={"partition": attempt.partition,
+                         "attempt": attempt.attempt,
+                         "speculative": attempt.speculative}):
+            self._count("tasks")
+            if self.failure_injector is not None:
+                self.failure_injector.on_task(attempt)
+            return rdd.compute_partition(attempt.partition)
 
     def run(self, rdd: RDD) -> list[Any]:
         """Every partition of ``rdd``, in order. Raises ``RuntimeError``
@@ -295,13 +304,14 @@ class TaskScheduler:
         attempts: dict[int, int] = {p: 0 for p in range(n)}
         durations: list[float] = []
         running: dict[Future, tuple[TaskAttempt, float]] = {}
+        parent = current_span()        # each task's span joins the caller's
 
         pool = ThreadPoolExecutor(max_workers=self.num_executors)
         try:
             def launch(p: int, speculative: bool = False) -> None:
                 att = TaskAttempt(rdd.id, p, attempts[p], speculative)
                 attempts[p] += 1
-                fut = pool.submit(self._run_task, rdd, att)
+                fut = pool.submit(self._run_task, rdd, att, parent)
                 running[fut] = (att, time.monotonic())
                 if speculative:
                     self._count("speculative")

@@ -37,15 +37,26 @@ sinks, state commit, checkpoint, broker commit, delivery enqueue, each
 timed — tagged with the checkpoint epoch, into a bounded in-memory log. A
 slow batch then decomposes into *which stage* took the time
 (``GET /traces?last=N``).
+
+**The span log** (:class:`Span`, :func:`span`, :func:`fine_span`,
+:func:`cost_scope`): the port's one span API. The stages are spans of it,
+and so is the work under them that the program marks (a task of the
+scheduler, a sink write, the ART call, a train step, a decode step; and,
+while a torch profiler records, each layer and its parts), each tagged
+with its batch's index and placed on the profiler's timeline; the cost
+scopes the dry-run's walker reads are spans of it too.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Mapping
+
+import torch
 
 from repro_torch.data.locktrace import new_lock
 
@@ -415,6 +426,243 @@ class disabled:
         set_registry(self._prev)
 
 
+# -- the span log -------------------------------------------------------------
+#
+# A span is one piece of work: its name, its parent span, the index of the
+# micro-batch it belongs to (every span of a batch carries it, on whichever
+# thread it ran), its thread, its start and end on ``time.perf_counter``,
+# and for a device span the device time between a pair of CUDA events
+# recorded on the current stream, resolved when it is read. Spans nest per
+# thread; a span on another thread names its parent explicitly (the
+# ``TaskScheduler`` hands each task the span that submitted it).
+#
+# Batch-level spans (``span``) are recorded whenever they run inside a
+# micro-batch. Fine spans (``fine_span``, ``cost_scope``) are recorded only
+# while a torch profiler records; otherwise they cost one test of a bool.
+# While the profiler records, every span is also a host-side profiler range
+# named ``SPAN_PREFIX + name``, and the first span on the main thread emits
+# an anchor range whose time on the span clock is kept, so that a span on a
+# thread the profiler does not record can be placed on the trace's clock
+# (``anchor_offset_us``). A committed batch's spans stay readable after its
+# ``StreamingContext`` is gone (``recent_batches``).
+
+SPAN_PREFIX = "repro_torch/"
+ANCHOR = SPAN_PREFIX + "anchor."
+RECENT_BATCHES = 512
+
+_profiler = torch.autograd.profiler
+_RecordFunctionFast = getattr(torch._C._profiler, "_RecordFunctionFast",
+                              None)
+_clock = time.perf_counter
+_tls = threading.local()
+_span_ids = itertools.count(1)
+_anchor_ids = itertools.count(1)
+_listeners: list = []                  # cost walkers (launch/opcost.py)
+_recent: deque = deque(maxlen=RECENT_BATCHES)
+_anchors: deque = deque(maxlen=64)     # (anchor number, its span-clock time)
+
+
+class _AnchorState:
+    anchored = False                   # this profiler session has its anchor
+
+
+def tracing() -> bool:
+    """Whether a torch profiler records now: fine spans are on."""
+    return bool(_profiler._is_profiler_enabled)
+
+
+def _stack() -> list:
+    try:
+        return _tls.stack
+    except AttributeError:
+        _tls.stack = []
+        return _tls.stack
+
+
+def current_span() -> "Span | None":
+    """The innermost open span on this thread."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+def _anchor() -> None:
+    """Emit the profiler session's anchor range from the main thread (the
+    one that starts the profiler) and keep its time on the span clock."""
+    if (_RecordFunctionFast is None
+            or threading.current_thread() is not threading.main_thread()):
+        return
+    seq = next(_anchor_ids)
+    rf = _RecordFunctionFast(f"{ANCHOR}{seq}")
+    t0 = _clock()
+    rf.__enter__()
+    t1 = _clock()
+    rf.__exit__(None, None, None)
+    _anchors.append((seq, (t0 + t1) / 2))
+    _AnchorState.anchored = True
+
+
+def anchor_offset_us(events: Iterable[Any]) -> float | None:
+    """The offset that puts the span clock on a profiled window's clock:
+    a span time ``t`` (seconds) lies at ``t * 1e6 + offset`` among the
+    window's events' ``time_range`` (µs). None when the events hold no
+    anchor this process emitted."""
+    times = dict(_anchors)
+    offset = None
+    for ev in events:
+        if ev.name.startswith(ANCHOR):
+            t = times.get(int(ev.name[len(ANCHOR):]))
+            if t is not None:
+                offset = ev.time_range.start - t * 1e6
+    return offset
+
+
+class Span:
+    """One span (see the section's comment). ``with`` opens and closes it;
+    ``device_s`` reads its device time, or None for a host span, a span
+    still open, or one run before CUDA was initialised."""
+
+    __slots__ = ("id", "name", "parent", "batch", "thread", "start", "end",
+                 "attrs", "_into", "_keep", "_device", "_events",
+                 "_device_s", "_range", "_walkers")
+
+    def __init__(self, name: str, parent: "Span | None" = None, *,
+                 keep: bool = True, device: bool = False,
+                 attrs: dict | None = None,
+                 walkers: list | None = None) -> None:
+        self.id = next(_span_ids)
+        self.name = name
+        self.parent = parent
+        self.batch = None if parent is None else parent.batch
+        self.thread = threading.get_native_id()
+        self.start: float | None = None
+        self.end: float | None = None
+        self.attrs = attrs
+        self._into = None if parent is None else parent._into
+        self._keep = keep
+        self._device = device
+        self._events = None
+        self._device_s = None
+        self._range = None
+        self._walkers = walkers
+
+    def __enter__(self) -> "Span":
+        if _profiler._is_profiler_enabled:
+            if not _AnchorState.anchored:
+                _anchor()
+            if _RecordFunctionFast is not None:
+                self._range = _RecordFunctionFast(SPAN_PREFIX + self.name)
+                self._range.__enter__()
+        elif _AnchorState.anchored:
+            _AnchorState.anchored = False
+        if self._walkers:
+            for w in self._walkers:
+                w.enter_scope(self.name)
+        _stack().append(self)
+        if self._device and torch.cuda.is_initialized():
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+        self.start = _clock()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.end = _clock()
+        if self._events is not None:
+            self._events[1].record()
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
+        if self._walkers:
+            for w in reversed(self._walkers):
+                w.exit_scope(self.name)
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if self._keep and self._into is not None:
+            self._into.append(self)
+
+    @property
+    def device_s(self) -> float | None:
+        events = self._events
+        if events is not None and self.end is not None:
+            events[1].synchronize()
+            self._device_s = events[0].elapsed_time(events[1]) / 1e3
+            self._events = None
+        return self._device_s
+
+    def as_dict(self) -> dict[str, Any]:
+        return {"id": self.id, "name": self.name,
+                "parent": None if self.parent is None else self.parent.id,
+                "batch": self.batch, "thread": self.thread,
+                "start": self.start, "end": self.end,
+                "device_s": self.device_s, "attrs": dict(self.attrs or {})}
+
+
+class _NullSpan:
+    """What a span that records nothing returns: enters and exits, no
+    allocation."""
+
+    __slots__ = ()
+    device_s = None
+
+    def __enter__(self) -> "_NullSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+def span(name: str, *, device: bool = False, scope: bool = False,
+         parent: Span | None = None, attrs: dict | None = None) -> Any:
+    """A batch-level span: recorded whenever it runs inside a micro-batch
+    (its parent, by default this thread's innermost span, belongs to one),
+    a profiler range while the profiler records. ``device`` adds the CUDA
+    event pair; ``scope`` makes it a cost scope the walkers see; ``parent``
+    joins a span of another thread."""
+    if parent is None:
+        parent = current_span()
+    walkers = list(_listeners) if scope and _listeners else None
+    if (parent is None and walkers is None
+            and not _profiler._is_profiler_enabled):
+        return _NULL_SPAN
+    return Span(name, parent, device=device, attrs=attrs, walkers=walkers)
+
+
+def fine_span(name: str, *, device: bool = False) -> Any:
+    """A fine span: recorded only while a profiler records; otherwise one
+    test of a bool, no allocation."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return Span(name, current_span(), device=device)
+
+
+def cost_scope(name: str, index: int | None = None) -> Any:
+    """A fine span that is also a cost scope: the dry-run's walker
+    (``launch/opcost.py``) files the operations run inside under its name
+    (``f"{name}{index}"`` with an index). With no profiler recording and
+    no walker listening, one test of a bool."""
+    if not (_profiler._is_profiler_enabled or _listeners):
+        return _NULL_SPAN
+    return Span(name if index is None else f"{name}{index}", current_span(),
+                keep=bool(_profiler._is_profiler_enabled),
+                walkers=list(_listeners) or None)
+
+
+def add_listener(walker: Any) -> None:
+    """``walker.enter_scope(name)`` and ``exit_scope(name)`` on every cost
+    scope from now on, on every thread, innermost last in, first out."""
+    _listeners.append(walker)
+
+
+def remove_listener(walker: Any) -> None:
+    _listeners.remove(walker)
+
+
 # -- batch-epoch trace spans -------------------------------------------------
 
 @dataclass
@@ -422,20 +670,26 @@ class BatchSpan:
     """One micro-batch decomposed into stages. ``stages`` maps stage name ->
     seconds; ``epoch`` is the checkpoint epoch the batch committed as (the
     atomic (offsets, window state) publication), so a span joins exactly
-    one durable point in the stream."""
+    one durable point in the stream. ``spans`` holds the batch's spans,
+    the batch's own first, then each as it ended; ``traced`` whether a
+    profiler recorded when the batch began."""
     batch_index: int
     epoch: int
     num_records: int
     started_at: float                # wall clock (time.time)
     total_s: float = 0.0
     stages: dict[str, float] = field(default_factory=dict)
+    traced: bool = False
+    spans: list = field(default_factory=list, repr=False)
 
     def as_dict(self) -> dict[str, Any]:
         return {"batch_index": self.batch_index, "epoch": self.epoch,
                 "num_records": self.num_records,
                 "started_at": self.started_at,
                 "total_s": self.total_s,
-                "stages": dict(self.stages)}
+                "stages": dict(self.stages),
+                "traced": self.traced,
+                "spans": [s.as_dict() for s in list(self.spans)]}
 
 
 # Stage names in pipeline order (docs/observability.md documents each):
@@ -443,52 +697,72 @@ SPAN_STAGES = ("pump", "batch_fn", "sinks", "state_commit", "checkpoint",
                "broker_commit", "delivery_submit")
 
 
+class _Stage(Span):
+    """A stage of a batch: a span that adds its seconds to the batch's
+    ``stages`` (re-entering a stage adds to it)."""
+
+    __slots__ = ("_stages",)
+
+    def __init__(self, name: str, parent: Span, stages: dict) -> None:
+        super().__init__(name, parent)
+        self._stages = stages
+
+    def __exit__(self, *exc: Any) -> None:
+        super().__exit__(*exc)
+        self._stages[self.name] = (self._stages.get(self.name, 0.0)
+                                   + self.end - self.start)
+
+
 class SpanRecorder:
     """Builds one :class:`BatchSpan` stage by stage.
 
-    ``with rec.stage("pump"): ...`` accumulates (re-entering a stage adds to
-    it); ``finish(epoch)`` stamps the epoch + total and hands the span to
-    the trace log. Cost per batch: a few ``perf_counter`` calls and one
-    deque append — priced by the same ``--check`` overhead guard as the
-    registry.
+    The batch's own span (``batch``) opens here, on this thread, so that
+    every span run in the batch joins it. ``pump``, a :class:`Span` that
+    ran before the batch was known (the source pump that discovers whether
+    there is a batch at all), becomes its first stage. ``with
+    rec.stage("batch_fn"): ...`` times a stage; ``finish(epoch)`` stamps
+    the epoch + total and hands the span to the trace log and to
+    ``recent_batches``; ``abandon()`` closes a batch that failed, which
+    neither sees. Cost per batch: a few spans and one deque append —
+    priced by the same ``--check`` overhead guard as the registry.
     """
 
     def __init__(self, log: "TraceLog", batch_index: int,
-                 num_records: int) -> None:
+                 num_records: int, pump: Span | None = None) -> None:
         self._log = log
         self.span = BatchSpan(batch_index=batch_index, epoch=-1,
                               num_records=num_records,
-                              started_at=time.time())
-        self._t0 = time.perf_counter()
+                              started_at=time.time(), traced=tracing())
+        stack = _stack()
+        for i, s in enumerate(stack):       # a batch left open by a failure
+            if s.parent is None and s._into is not None:
+                del stack[i:]
+                break
+        root = Span("batch", keep=False)
+        root.batch = batch_index
+        root._into = self.span.spans
+        self.span.spans.append(root)
+        root.__enter__()
+        if pump is not None:            # before the batch's own span, so
+            pump.batch = batch_index        # beside it, as on the timeline
+            self.span.spans.append(pump)
+            self.span.stages["pump"] = pump.end - pump.start
+        self._root = root
+        self._t0 = _clock()
 
-    def stage(self, name: str) -> "_StageTimer":
-        return _StageTimer(self.span.stages, name)
-
-    def add(self, name: str, seconds: float) -> None:
-        """Fold an externally-measured duration into a stage (accumulating)
-        — for work timed before the recorder could exist (e.g. the source
-        pump that discovers whether there is a batch at all)."""
-        self.span.stages[name] = self.span.stages.get(name, 0.0) + seconds
+    def stage(self, name: str) -> _Stage:
+        return _Stage(name, self._root, self.span.stages)
 
     def finish(self, epoch: int) -> BatchSpan:
         self.span.epoch = epoch
-        self.span.total_s = time.perf_counter() - self._t0
+        self.span.total_s = _clock() - self._t0
+        self._root.__exit__(None, None, None)
         self._log.record(self.span)
+        _recent.append(self.span)
         return self.span
 
-
-class _StageTimer:
-    def __init__(self, stages: dict[str, float], name: str) -> None:
-        self._stages = stages
-        self._name = name
-
-    def __enter__(self) -> "_StageTimer":
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc: Any) -> None:
-        dt = time.perf_counter() - self._t0
-        self._stages[self._name] = self._stages.get(self._name, 0.0) + dt
+    def abandon(self) -> None:
+        self._root.__exit__(None, None, None)
 
 
 class TraceLog:
@@ -499,8 +773,9 @@ class TraceLog:
         self._lock = new_lock("TraceLog._lock")
         self.recorded = 0
 
-    def begin(self, batch_index: int, num_records: int) -> SpanRecorder:
-        return SpanRecorder(self, batch_index, num_records)
+    def begin(self, batch_index: int, num_records: int,
+              pump: Span | None = None) -> SpanRecorder:
+        return SpanRecorder(self, batch_index, num_records, pump)
 
     def record(self, span: BatchSpan) -> None:
         with self._lock:
@@ -522,3 +797,14 @@ class TraceLog:
             for name, dt in span.stages.items():
                 totals[name] = totals.get(name, 0.0) + dt
         return totals
+
+
+def recent_batches(n: int | None = None) -> list[dict[str, Any]]:
+    """The last ``n`` micro-batches (all kept, at most ``RECENT_BATCHES``)
+    that any ``StreamingContext`` of this process committed, oldest first,
+    each as ``BatchSpan.as_dict()`` with its spans' device times resolved:
+    the spans outlive the context that recorded them."""
+    batches = list(_recent)
+    if n is not None:
+        batches = batches[-n:] if n > 0 else []
+    return [b.as_dict() for b in batches]

@@ -19,6 +19,7 @@ from typing import (Any, Callable, Iterable, Protocol, Sequence,
 import numpy as np
 
 from repro_torch.core.broker import Broker
+from repro_torch.data.metrics import span
 
 KeyedItem = tuple[str, Any]
 
@@ -97,7 +98,8 @@ class KeyedSink:
 class NpzDirectorySink(KeyedSink):
     """Artifact store: one ``<key>.npz`` per item under ``directory``.
     Values may be an array, a dict of arrays, or a scalar. Idempotent across
-    restarts: an existing file is never rewritten."""
+    restarts: an existing file is never rewritten. Each write is the span
+    ``npz_write``, its flush and fsync the span ``fsync`` inside it."""
 
     def __init__(self, directory: str) -> None:
         super().__init__()
@@ -112,22 +114,24 @@ class NpzDirectorySink(KeyedSink):
         return os.path.exists(self.path_for(key))
 
     def _write_one(self, key: str, value: Any) -> None:
-        arrays = (dict(value) if isinstance(value, dict)
-                  else {"value": np.asarray(value)})
-        arrays = {k: np.asarray(v) for k, v in arrays.items()}
-        path = self.path_for(key)
-        # write via an open handle: np.savez would append ".npz" to a bare
-        # tmp name, and a ".tmp.npz" suffix would show up in keys_on_disk()
-        # after a crash before the rename
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, **arrays)
-            # flush+fsync before the rename, or a crash can leave `path`
-            # naming torn bytes — and _already_stored would then skip the
-            # rewrite forever
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
+        with span("npz_write"):
+            arrays = (dict(value) if isinstance(value, dict)
+                      else {"value": np.asarray(value)})
+            arrays = {k: np.asarray(v) for k, v in arrays.items()}
+            path = self.path_for(key)
+            # write via an open handle: np.savez would append ".npz" to a
+            # bare tmp name, and a ".tmp.npz" suffix would show up in
+            # keys_on_disk() after a crash before the rename
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+                # flush+fsync before the rename, or a crash can leave
+                # `path` naming torn bytes — and _already_stored would
+                # then skip the rewrite forever
+                with span("fsync"):
+                    f.flush()
+                    os.fsync(f.fileno())
+            os.replace(tmp, path)
 
     def keys_on_disk(self) -> list[str]:
         return sorted(f[:-4] for f in os.listdir(self.directory)

@@ -1,12 +1,22 @@
 """Dispatch for the ART sweep (row-norm precompute, then the CUDA kernel over
 the system's non-zeros for a CUDA tensor, the plain dense PyTorch version
 for a CPU tensor). A kernel that fails to build or launch raises; nothing
-falls back to the plain version."""
+falls back to the plain version.
+
+Each sweep is the span ``art``, on CUDA a device span. The §IV partitions
+call it from several executor threads onto one stream, so a CUDA sweep
+enqueues its work under ``_ENQUEUE``: its event pair then brackets its own
+kernels, and no other thread's ART kernel falls between them."""
 from __future__ import annotations
+
+import threading
 
 import torch
 
+from repro_torch.data.metrics import span
 from repro_torch.kernels.art import kernel, ref
+
+_ENQUEUE = threading.Lock()
 
 
 def inverse_row_norms(A: torch.Tensor) -> torch.Tensor:
@@ -50,5 +60,7 @@ def art_reconstruct(A: torch.Tensor, b: torch.Tensor, f0: torch.Tensor,
     if A.is_cuda if use_kernel is None else use_kernel:
         if csr is None:
             csr = csr_rows(A)
-        return kernel.art_sweep(csr, b, inv_rip, f0, beta, iters)
-    return ref.art_sweep_ref(A, b, inv_rip, f0, beta, iters)
+        with _ENQUEUE, span("art", device=True):
+            return kernel.art_sweep(csr, b, inv_rip, f0, beta, iters)
+    with span("art"):
+        return ref.art_sweep_ref(A, b, inv_rip, f0, beta, iters)

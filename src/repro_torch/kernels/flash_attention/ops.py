@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.data.metrics import fine_span
 from repro_torch.kernels.flash_attention import kernel, ref
 
 NO_BACKWARD = (
@@ -30,12 +31,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``use_kernel=None`` means the kernel iff ``q`` is on CUDA; ``False``
     asks for the plain version on either device. Asking for the kernel
     while autograd records and q, k or v requires grad raises
-    ``RuntimeError`` (``NO_BACKWARD``)."""
+    ``RuntimeError`` (``NO_BACKWARD``). The kernel's call is a fine span,
+    ``flash_attention``."""
     if q.is_cuda if use_kernel is None else use_kernel:
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
             raise RuntimeError(NO_BACKWARD)
-        return kernel.flash_attention(q, k, v)
+        with fine_span("flash_attention"):
+            return kernel.flash_attention(q, k, v)
     B, S, H, hd = q.shape
 
     def to_bhsd(x: torch.Tensor) -> torch.Tensor:

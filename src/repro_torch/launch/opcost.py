@@ -45,11 +45,13 @@ the step and are not counted.
 
 ``while_breakdown``'s job, which loop owns each term, is done by scopes:
 the model marks each layer, its attention and MLP or experts, each CE
-chunk and the optimizer with ``utils.cost_scope``, and every operation is
-filed under the scopes open when it ran. A backward operation is filed
-under the scope of the forward operation whose node it runs ('.../
-backward'), found by autograd's sequence numbers, and the recompute of a
-checkpointed layer under that layer ('<layer>/recompute').
+chunk and the optimizer with a cost scope of the span log
+(``data/metrics.py``: ``cost_scope``, and the optimizer's span), which
+calls the walkers registered with ``metrics.add_listener``, and every
+operation is filed under the scopes open when it ran. A backward
+operation is filed under the scope of the forward operation whose node
+it runs ('.../backward'), found by autograd's sequence numbers, and the
+recompute of a checkpointed layer under that layer ('<layer>/recompute').
 
 With ``memory=True`` it also follows every storage an operation returns
 until it is freed (rounded as the caching allocator rounds a CUDA block),
@@ -68,6 +70,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import utils
+from repro_torch.data import metrics
 from repro_torch.launch.mesh import GPUS_PER_NODE
 
 # the allocator's smallest block on a CUDA device
@@ -309,11 +312,11 @@ class OpCost(TorchDispatchMode):
     def __enter__(self) -> "OpCost":
         _mute_propagation()
         super().__enter__()
-        utils.SCOPE_LISTENERS.append(self)
+        metrics.add_listener(self)
         return self
 
     def __exit__(self, *exc: Any) -> None:
-        utils.SCOPE_LISTENERS.remove(self)
+        metrics.remove_listener(self)
         super().__exit__(*exc)
 
     # -- scopes -----------------------------------------------------------------

@@ -35,6 +35,7 @@ from repro_torch.configs.base import OptimizerConfig
 from repro_torch.core.broker import Broker
 from repro_torch.core.dstream import StreamingContext
 from repro_torch.core.rdd import Context
+from repro_torch.data.metrics import span
 from repro_torch.kernels import launch_counts
 from repro_torch.training import build_train_step, init_state
 from repro_torch.utils import get_logger, resolve_device, tree_any_nan
@@ -63,15 +64,17 @@ def synthetic_producer(broker: Broker, config: ModelConfig, steps: int,
 def assemble_batch(records: list[dict], config: ModelConfig,
                    device: str | torch.device = "cpu") -> dict:
     """The records stacked on ``device``: tokens as int64, image
-    embeddings and frames in bf16, as the reference casts them."""
-    batch = {"tokens": torch.from_numpy(
-        np.stack([r["tokens"] for r in records]).astype(np.int64)).to(device)}
-    for name in {"vlm": ("image_embeds",),
-                 "audio": ("frames",)}.get(config.family, ()):
-        batch[name] = torch.from_numpy(
-            np.stack([r[name] for r in records])).to(device,
-                                                     torch.bfloat16)
-    return batch
+    embeddings and frames in bf16, as the reference casts them; the span
+    ``assemble_batch``."""
+    with span("assemble_batch"):
+        batch = {"tokens": torch.from_numpy(np.stack(
+            [r["tokens"] for r in records]).astype(np.int64)).to(device)}
+        for name in {"vlm": ("image_embeds",),
+                     "audio": ("frames",)}.get(config.family, ()):
+            batch[name] = torch.from_numpy(
+                np.stack([r[name] for r in records])).to(device,
+                                                         torch.bfloat16)
+        return batch
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:

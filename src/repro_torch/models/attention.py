@@ -68,6 +68,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.metrics import fine_span
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, normal_init, seq_whole
 from repro_torch.parallel.sharding import (current_mesh, current_rules,
@@ -239,11 +240,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, hd), k, v: (B, Skv, H, hd) (KV already repeated) ->
     (B, Sq, H, hd): the naive function over (block_q x block_kv) tiles,
     every tile or, with ``skip_blocks``, the reachable ones
-    (``blocked_tiles``)."""
-    bq, bkv = min(block_q, q.shape[1]), min(block_kv, k.shape[1])
-    nq, nk = -(-q.shape[1] // bq), -(-k.shape[1] // bkv)
-    tiles = blocked_tiles(nq, nk, bq, bkv, causal, window, skip_blocks)
-    return _tiled(q, k, v, qpos, kpos, causal, window, bq, bkv, tiles)
+    (``blocked_tiles``). A fine span, ``blocked_attention``."""
+    with fine_span("blocked_attention"):
+        bq, bkv = min(block_q, q.shape[1]), min(block_kv, k.shape[1])
+        nq, nk = -(-q.shape[1] // bq), -(-k.shape[1] // bkv)
+        tiles = blocked_tiles(nq, nk, bq, bkv, causal, window, skip_blocks)
+        return _tiled(q, k, v, qpos, kpos, causal, window, bq, bkv, tiles)
 
 
 def triangular_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -408,24 +410,27 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
             cv[:, start:start + n] = like(v[:, :n].to(cv.dtype), cv)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
     else:
-        # decode; with a window the buffer wraps in place
-        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
-        Smax = ck.shape[1]
-        slot = pos % Smax if window > 0 else min(pos, Smax - 1)
-        ck[:, slot:slot + 1] = like(k.to(ck.dtype), ck)
-        cv[:, slot:slot + 1] = like(v.to(cv.dtype), cv)
-        # absolute positions of the cache slots; -1 marks not-yet-filled
-        idx = torch.arange(Smax, device=x.device)
-        if window > 0:
-            abs_pos = idx + torch.div(pos - idx, Smax,
-                                      rounding_mode="floor") * Smax
-            kpos_row = torch.where((abs_pos >= 0) & (abs_pos <= pos),
-                                   abs_pos, -1)
-        else:
-            kpos_row = torch.where(idx <= pos, idx, -1)
-        kpos = kpos_row.expand(B, Smax)
-        out = attention_core(q, rep(ck), rep(cv), positions, kpos, config,
-                             causal=True, window=window)
+        # decode; with a window the buffer wraps in place. The slot write,
+        # the repeated cache and the core are the device span
+        # ``decode_attention``.
+        with fine_span("decode_attention", device=True):
+            ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+            Smax = ck.shape[1]
+            slot = pos % Smax if window > 0 else min(pos, Smax - 1)
+            ck[:, slot:slot + 1] = like(k.to(ck.dtype), ck)
+            cv[:, slot:slot + 1] = like(v.to(cv.dtype), cv)
+            # absolute positions of the cache slots; -1 marks not-yet-filled
+            idx = torch.arange(Smax, device=x.device)
+            if window > 0:
+                abs_pos = idx + torch.div(pos - idx, Smax,
+                                          rounding_mode="floor") * Smax
+                kpos_row = torch.where((abs_pos >= 0) & (abs_pos <= pos),
+                                       abs_pos, -1)
+            else:
+                kpos_row = torch.where(idx <= pos, idx, -1)
+            kpos = kpos_row.expand(B, Smax)
+            out = attention_core(q, rep(ck), rep(cv), positions, kpos,
+                                 config, causal=True, window=window)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
 
     if pad_h:

@@ -26,7 +26,9 @@ prefill, the decode and the loss alike.
 reference's is, and under a mesh the loss's chunks take the vocabulary
 whole before the target's gather. Each layer, its attention and its MLP
 or experts, and each CE chunk run in a ``cost_scope`` of that name, which
-the dry-run's walker (``launch/opcost.py``) files their work under.
+the dry-run's walker (``launch/opcost.py``) files their work under and
+which, while a profiler records, is a span of the span log
+(``data/metrics.py``) and a profiler range.
 """
 from __future__ import annotations
 
@@ -148,7 +150,7 @@ def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
 
         block = L.remat(block, config.remat)
         for i, block_params in enumerate(params["layers"]):
-            with cost_scope(f"layer{i}"):
+            with cost_scope("layer", i):
                 x, aux_i = block(x, block_params)
             if aux_i is not None:
                 aux = aux + aux_i
@@ -156,7 +158,7 @@ def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
     for i, block_params in enumerate(params["layers"]):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
                        "pos": cache["pos"]}
-        with cost_scope(f"layer{i}"):
+        with cost_scope("layer", i):
             x, aux_i, _ = _block(x, block_params, config, positions,
                                  layer_cache)
         if aux_i is not None:
@@ -217,7 +219,7 @@ def _chunked_ce(x: torch.Tensor, params: dict, config: ModelConfig,
     mask_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n):
         cols = slice(c * chunk, (c + 1) * chunk)
-        with cost_scope(f"ce{c}"):
+        with cost_scope("ce", c):
             loss_sum = loss_sum + chunk_nll(x[:, cols], targets[:, cols],
                                             mask[:, cols])
         mask_sum = mask_sum + torch.sum(mask[:, cols].float())

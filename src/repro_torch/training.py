@@ -36,7 +36,8 @@ from repro_torch.optim import adamw_update, init_opt_state, zero1_state_specs
 from repro_torch.parallel.sharding import (ShardingRules, is_dtensor,
                                            place_tree, tree_specs_shaped,
                                            use_mesh)
-from repro_torch.utils import cost_scope, tree_leaves, tree_map
+from repro_torch.data.metrics import span
+from repro_torch.utils import tree_leaves, tree_map
 
 
 def rules_for(config: ModelConfig) -> ShardingRules:
@@ -78,14 +79,17 @@ def build_train_step(config: ModelConfig, opt: OptimizerConfig
     ``state`` in place (the reference donates it). Metrics: 'loss',
     'aux_loss', 'lr', 'grad_norm' and 'total_loss', fp32 scalars on the
     state's device (plain tensors, the same on every rank, under a
-    mesh)."""
+    mesh). The step is the span ``train_step``, its update the device
+    span ``optimizer`` (also the walker's cost scope of that name)."""
     config = train_config(config)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
-        loss, metrics, grads = loss_and_grads(state["params"], batch, config)
-        with cost_scope("optimizer"):
-            params, opt_state, opt_metrics = adamw_update(
-                state["params"], grads, state["opt"], opt)
+        with span("train_step"):
+            loss, metrics, grads = loss_and_grads(state["params"], batch,
+                                                  config)
+            with span("optimizer", device=True, scope=True):
+                params, opt_state, opt_metrics = adamw_update(
+                    state["params"], grads, state["opt"], opt)
         metrics = {**metrics, **opt_metrics, "total_loss": loss}
         return ({"params": params, "opt": opt_state},
                 {k: _plain(v) for k, v in metrics.items()})
@@ -95,16 +99,19 @@ def build_train_step(config: ModelConfig, opt: OptimizerConfig
 
 def build_serve_fns(config: ModelConfig) -> tuple[Callable, Callable]:
     """``prefill(params, batch, max_len=None)`` and ``decode_step(params,
-    tokens, cache)`` of the config's family."""
+    tokens, cache)`` of the config's family, each call a span of its name
+    (``prefill``, ``decode``)."""
     model = get_model(config)
 
     def prefill(params: dict, batch: dict, max_len: int | None = None
                 ) -> tuple[torch.Tensor, dict]:
-        return model.prefill(params, batch, config, max_len=max_len)
+        with span("prefill"):
+            return model.prefill(params, batch, config, max_len=max_len)
 
     def decode_step(params: dict, tokens: torch.Tensor, cache: dict
                     ) -> tuple[torch.Tensor, dict]:
-        return model.decode_step(params, tokens, cache, config)
+        with span("decode"):
+            return model.decode_step(params, tokens, cache, config)
 
     return prefill, decode_step
 

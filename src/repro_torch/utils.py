@@ -1,7 +1,8 @@
 """Shared utilities of the port: logging, device resolution, a map over
 nested dicts, lists and tuples of tensors and their leaves, the
 reference's timing, tree and numeric helpers (``repro/utils.py``), and
-the cost scopes that ``launch/opcost.py`` reads."""
+``cost_scope``, the span log's cost scope (``data/metrics.py``) that
+``launch/opcost.py`` reads, under the name the models import."""
 from __future__ import annotations
 
 import contextlib
@@ -12,6 +13,8 @@ import time
 from typing import Any, Callable, Iterator
 
 import torch
+
+from repro_torch.data.metrics import cost_scope  # noqa: F401
 
 _LOG_FORMAT = "%(asctime)s %(levelname).1s %(name)s: %(message)s"
 
@@ -143,28 +146,3 @@ def round_up(a: int, b: int) -> int:
 def asdict_shallow(obj: Any) -> dict:
     """``dataclasses.asdict`` without deep-copying tensor fields."""
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
-
-
-# -- cost scopes ---------------------------------------------------------------------
-# The names of the parts of a step (a layer, its attention or MLP, a CE
-# chunk, the optimizer) that ``launch/opcost.py``'s walker files each
-# operation under. Entered only while a walker runs; elsewhere a scope
-# costs one truth test.
-SCOPE_LISTENERS: list = []
-
-
-@contextlib.contextmanager
-def cost_scope(name: str) -> Iterator[None]:
-    """Mark the operations run inside as part ``name`` of the enclosing
-    scope, for every active walker."""
-    if not SCOPE_LISTENERS:
-        yield
-        return
-    listeners = list(SCOPE_LISTENERS)
-    for w in listeners:
-        w.enter_scope(name)
-    try:
-        yield
-    finally:
-        for w in reversed(listeners):
-            w.exit_scope(name)

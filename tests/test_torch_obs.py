@@ -27,8 +27,9 @@ from repro_torch.data.delivery import SinkPolicy
 from repro_torch.data.ingest import IngestConfig, IngestRunner
 from repro_torch.data.metrics import (COUNT_BUCKETS, DEFAULT_BUCKETS,
                                       SPAN_STAGES, BatchSpan, Histogram,
-                                      MetricsRegistry, NullRegistry, TraceLog,
-                                      disabled, get_registry, set_registry)
+                                      MetricsRegistry, NullRegistry, Span,
+                                      TraceLog, disabled, get_registry,
+                                      set_registry)
 from repro_torch.data.obs_server import (ObservabilityServer, lag_health,
                                          scrape_stream)
 from repro_torch.data.sources import ProjectionSource
@@ -246,11 +247,16 @@ def test_torch_metrics_span_stages_cover_the_documented_pipeline_order():
                            "checkpoint", "broker_commit", "delivery_submit")
 
 
+def _pump(seconds):
+    """A pump span that ran for ``seconds`` before its batch was known."""
+    pump = Span("pump")
+    pump.start, pump.end = 10.0, 10.0 + seconds
+    return pump
+
+
 def test_torch_metrics_span_recorder_builds_and_records_a_span():
     log = TraceLog()
-    rec = log.begin(batch_index=3, num_records=17)
-    rec.add("pump", 0.25)
-    rec.add("pump", 0.25)
+    rec = log.begin(batch_index=3, num_records=17, pump=_pump(0.5))
     with rec.stage("batch_fn"):
         pass
     with rec.stage("batch_fn"):
@@ -264,8 +270,12 @@ def test_torch_metrics_span_recorder_builds_and_records_a_span():
     assert log.last() == [span]
     assert log.recorded == 1
     d = span.as_dict()
+    # the reference's keys, and the batch's spans beside them
     assert set(d) == {"batch_index", "epoch", "num_records", "started_at",
-                      "total_s", "stages"}
+                      "total_s", "stages", "traced", "spans"}
+    assert [s["name"] for s in d["spans"]] == ["batch", "pump", "batch_fn",
+                                               "batch_fn"]
+    assert {s["batch"] for s in d["spans"]} == {3}
 
 
 def test_torch_metrics_trace_log_capacity_and_last_n():
@@ -282,22 +292,23 @@ def test_torch_metrics_trace_log_capacity_and_last_n():
 def test_torch_metrics_stage_totals_roll_up_across_spans():
     log = TraceLog()
     for i in range(3):
-        rec = log.begin(i, 1)
-        rec.add("batch_fn", 0.1)
-        rec.add("sinks", 0.01)
+        rec = log.begin(i, 1, pump=_pump(0.1))
+        with rec.stage("sinks"):
+            pass
         rec.finish(epoch=i + 1)
     totals = log.stage_totals()
-    assert totals["batch_fn"] == pytest.approx(0.3)
-    assert totals["sinks"] == pytest.approx(0.03)
+    assert totals["pump"] == pytest.approx(0.3)
+    assert set(totals) == {"pump", "sinks"} and 0 <= totals["sinks"] < 1.0
 
 
 def test_torch_metrics_unfinished_span_is_not_recorded():
     log = TraceLog()
-    rec = log.begin(0, 4)
-    rec.add("pump", 0.1)
+    rec = log.begin(0, 4, pump=_pump(0.1))
     assert log.last() == []
     assert log.recorded == 0
     assert isinstance(rec.span, BatchSpan)
+    rec.abandon()                      # a failed batch: closed, not recorded
+    assert log.last() == [] and log.recorded == 0
 
 
 def test_torch_metrics_default_buckets_are_sorted_and_nonempty():
@@ -324,8 +335,7 @@ def test_torch_obs_all_routes_serve(registry):
     registry.gauge("depth", callback=lambda: 3)
     registry.histogram("lat_seconds").observe(0.01)
     traces = TraceLog()
-    rec = traces.begin(0, 8)
-    rec.add("batch_fn", 0.1)
+    rec = traces.begin(0, 8, pump=_pump(0.1))
     rec.finish(epoch=1)
     with ObservabilityServer(registry, traces=traces) as srv:
         status, text = _get(srv.url + "/metrics")
@@ -345,7 +355,7 @@ def test_torch_obs_all_routes_serve(registry):
         assert status == 200
         assert spans["recorded"] == 1
         assert spans["spans"][0]["epoch"] == 1
-        assert spans["spans"][0]["stages"]["batch_fn"] == pytest.approx(0.1)
+        assert spans["spans"][0]["stages"]["pump"] == pytest.approx(0.1)
 
         status, health = _get_json(srv.url + "/health")
         assert status == 200
