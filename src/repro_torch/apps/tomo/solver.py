@@ -68,7 +68,10 @@ class DeviceSystem(NamedTuple):
 def _device_system(nray: int, angles: tuple, device: torch.device
                    ) -> DeviceSystem:
     A = torch.from_numpy(make_system(nray, np.asarray(angles))).to(device)
-    return DeviceSystem(A, art_ops.inverse_row_norms(A), art_ops.csr_rows(A))
+    system = DeviceSystem(A, art_ops.inverse_row_norms(A), art_ops.csr_rows(A))
+    if A.is_cuda:       # complete before any executor's own stream reads it
+        torch.cuda.current_stream(device).synchronize()
+    return system
 
 
 def system_on_device(config: TomoConfig, device: torch.device

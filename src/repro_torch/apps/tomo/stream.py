@@ -6,9 +6,10 @@ The port's counterpart of ``examples/tomo_pipeline.py``:
      --> broker topic --> StreamingContext micro-batches
      --> each batch parallelized into RDD partitions of neighbouring slices
      --> one ART sweep call per partition (the CUDA kernel on the card), on
-         a TaskScheduler of --partitions executors with speculation: a
-         failed partition is recomputed from lineage, a straggler gets a
-         speculative copy
+         a TaskScheduler of --partitions executors with speculation, each
+         executor's partition on a CUDA stream of its own so that they
+         overlap on the card: a failed partition is recomputed from
+         lineage, a straggler gets a speculative copy
      --> sinks: NpzDirectorySink sub-volumes + MetricsSink latency accounting
      --> gather from the sink, score (sinogram residual, volume error), render
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import functools
 import os
+import threading
 import time
 from typing import Any
 
@@ -68,14 +70,65 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+_executor = threading.local()
+
+
+def _own_stream(device: torch.device) -> torch.cuda.Stream:
+    """The calling thread's CUDA stream on ``device``, taken from PyTorch's
+    stream pool (no allocation) on the thread's first partition there; a
+    ``TaskScheduler``'s threads live for one job, so each batch's executors
+    take theirs anew. Before its first use it waits once on the device's
+    current stream, so that whatever the caller enqueued there before
+    handing partitions out is complete before any read."""
+    streams = getattr(_executor, "streams", None)
+    if streams is None:
+        streams = _executor.streams = {}
+    s = streams.get(device)
+    if s is None:
+        s = streams[device] = torch.cuda.Stream(device)
+        s.wait_stream(torch.cuda.current_stream(device))
+    return s
+
+
 def reconstruct_partition(items: list, config: TomoConfig,
                           device: torch.device) -> tuple[list, np.ndarray]:
     """One RDD partition's work: its ``(slice_index, sinogram_row)`` records
     to the device as one block, one ART call, the sub-volume back on the
-    host. Returns the slice indices and the (k, Nray, Nray) sub-volume."""
+    host. Returns the slice indices and the (k, Nray, Nray) sub-volume.
+
+    On a CUDA device the whole of it (the block's copy, the sweep, the
+    result's copy back) runs on the calling executor thread's own stream
+    (``_own_stream``), so the executors' partitions overlap on the card and
+    a result returns when its own sweep ends; ``art_own_stream_calls_total``
+    counts those calls. Both copies go through pinned host memory: a
+    pageable copy is staged through the driver's buffer, which another
+    partition's pageable result copy holds until that partition's sweep
+    has ended, so the partitions would still wait for each other."""
     idx = [i for i, _ in items]
-    block = torch.from_numpy(np.stack([b for _, b in items])).to(device)
-    return idx, reconstruct_slices(block, config).cpu().numpy()
+    rows = torch.from_numpy(np.stack([b for _, b in items]))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return idx, reconstruct_slices(rows.to(device), config).cpu().numpy()
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    # held until the result is on the host: the stream reads the cached
+    # system, which must not be freed while the sweep may still run
+    system = system_on_device(config, device)
+    stream = _own_stream(device)
+    with torch.cuda.stream(stream):
+        f = reconstruct_slices(rows.pin_memory().to(device, non_blocking=True),
+                               config)
+        get_registry().counter(
+            "art_own_stream_calls_total",
+            "ART calls enqueued on an executor thread's own CUDA stream").inc()
+        out = torch.empty(f.shape, dtype=f.dtype, pin_memory=True)
+        out.copy_(f, non_blocking=True)
+    stream.synchronize()
+    del system
+    # out of the pinned buffer, which then goes back to PyTorch's cache: a
+    # caller may keep the block (a StreamingContext's history keeps each
+    # batch's result), and pinned memory kept would grow with the stream
+    return idx, out.numpy().copy()
 
 
 def run_stream(args: argparse.Namespace,

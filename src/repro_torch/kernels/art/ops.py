@@ -4,12 +4,17 @@ for a CPU tensor). A kernel that fails to build or launch raises; nothing
 falls back to the plain version.
 
 Each sweep is the span ``art``, on CUDA a device span. The §IV partitions
-call it from several executor threads onto one stream, so a CUDA sweep
-enqueues its work under ``_ENQUEUE``: its event pair then brackets its own
-kernels, and no other thread's ART kernel falls between them."""
+call it from several executor threads, each on a CUDA stream of its own
+(``apps/tomo/stream.py:reconstruct_partition``), so their sweeps run side
+by side on the card. A CUDA sweep enqueues its work under ``_ENQUEUE``, a
+few µs: its host interval then holds its own launches and no other
+thread's, and its span's ``in_flight`` counts the other threads' sweeps
+enqueued and not yet finished on the card when it was enqueued (their end
+events queried, never waited on)."""
 from __future__ import annotations
 
 import threading
+from typing import Any
 
 import torch
 
@@ -17,6 +22,16 @@ from repro_torch.data.metrics import span
 from repro_torch.kernels.art import kernel, ref
 
 _ENQUEUE = threading.Lock()
+# (thread, end event) of each CUDA sweep enqueued and not yet seen finished,
+# guarded by _ENQUEUE
+_enqueued: list[tuple[int, Any]] = []
+
+
+def _in_flight(pending: list[tuple[int, Any]], thread: int) -> int:
+    """Drops from ``pending`` the sweeps whose end event has passed and
+    returns how many of the rest other threads than ``thread`` enqueued."""
+    pending[:] = [(t, ev) for t, ev in pending if not ev.query()]
+    return sum(t != thread for t, _ in pending)
 
 
 def inverse_row_norms(A: torch.Tensor) -> torch.Tensor:
@@ -60,7 +75,14 @@ def art_reconstruct(A: torch.Tensor, b: torch.Tensor, f0: torch.Tensor,
     if A.is_cuda if use_kernel is None else use_kernel:
         if csr is None:
             csr = csr_rows(A)
-        with _ENQUEUE, span("art", device=True):
-            return kernel.art_sweep(csr, b, inv_rip, f0, beta, iters)
+        me = threading.get_ident()
+        with _ENQUEUE:
+            with span("art", device=True,
+                      attrs={"in_flight": _in_flight(_enqueued, me)}):
+                f = kernel.art_sweep(csr, b, inv_rip, f0, beta, iters)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(A.device))
+            _enqueued.append((me, done))
+        return f
     with span("art"):
         return ref.art_sweep_ref(A, b, inv_rip, f0, beta, iters)

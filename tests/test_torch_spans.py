@@ -247,6 +247,8 @@ def test_torch_spans_device_spans_read_none_on_the_cpu(model_batches):
     d = sc.traces.last(1)[0].as_dict()
     arts = [s for s in d["spans"] if s["name"] == "art"]
     assert arts and all(s["device_s"] is None for s in arts)
+    # off the card no sweep is counted in flight
+    assert all("in_flight" not in s["attrs"] for s in arts)
     for b in (model_batches["off"], model_batches["on"]):
         device = [s for s in b.spans
                   if s.name in ("optimizer", "decode_attention")]

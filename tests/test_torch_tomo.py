@@ -285,6 +285,68 @@ def test_torch_reconstruct_slices_asked_for_the_kernel_does_not_fall_back():
     assert kernels.launch_counts()["art_sweep"] == 0
 
 
+def test_torch_reconstruct_partition_on_the_cpu_enters_no_stream(
+        monkeypatch):
+    """On the CPU a partition runs as it always has: its slice indices, and
+    the sweep of its rows as one block, bit for bit and as the reference
+    computes it; no CUDA stream is taken or entered, and
+    ``art_own_stream_calls_total`` stays at 0."""
+    from repro_torch.apps.tomo.stream import reconstruct_partition
+    from repro_torch.data import metrics as M
+    cfg = tsolver.TomoConfig(nray=16, angles=_angles(9), iterations=2)
+    _, _, sino = tsolver.simulate_tilt_series(cfg, 5, device="cpu")
+    rows = [1, 2, 4]
+    streams = []
+    monkeypatch.setattr(torch.cuda, "Stream",
+                        lambda *a, **kw: streams.append(("Stream", a)))
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda *a, **kw: streams.append(("stream", a)))
+    reg = M.MetricsRegistry()
+    prev = M.set_registry(reg)
+    try:
+        idx, block = reconstruct_partition([(i, sino[i]) for i in rows], cfg,
+                                           "cpu")
+    finally:
+        M.set_registry(prev)
+    assert idx == rows
+    want = tsolver.reconstruct_slices(torch.from_numpy(sino[rows]), cfg)
+    assert block.dtype == np.float32 and block.shape == (3, 16, 16)
+    np.testing.assert_array_equal(block, want.numpy())
+    jcfg = jsolver.TomoConfig(nray=16, angles=_angles(9), iterations=2,
+                              use_pallas=False)
+    np.testing.assert_allclose(block, jsolver.reconstruct_slices(
+        sino[rows], jcfg), **TOL)
+    assert streams == []
+    assert reg.counter("art_own_stream_calls_total").value() == 0
+
+
+class _Event:
+    """A CUDA event's ``query``: whether the work before it has finished."""
+
+    def __init__(self, done: bool) -> None:
+        self.done = done
+
+    def query(self) -> bool:
+        return self.done
+
+
+def test_torch_art_in_flight_counts_other_threads_unfinished_sweeps():
+    """``in_flight``: the sweeps other threads enqueued whose end event has
+    not passed; the finished ones leave the list, the caller's own do not
+    count."""
+    pending = [(1, _Event(False)), (2, _Event(True)), (3, _Event(False)),
+               (1, _Event(True)), (2, _Event(False))]
+    assert tart_ops._in_flight(pending, 1) == 2
+    assert [t for t, _ in pending] == [1, 3, 2]
+    assert tart_ops._in_flight(pending, 4) == 3
+    pending[1][1].done = True
+    assert tart_ops._in_flight(pending, 2) == 1
+    assert [t for t, _ in pending] == [1, 2]
+    for _, ev in pending:
+        ev.done = True
+    assert tart_ops._in_flight(pending, 1) == 0 and pending == []
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_torch_tomo_reduces_residual_as_reference(use_pallas):
     """tests/test_apps.py:77-85 on the port: the same residual and volume
