@@ -31,6 +31,16 @@ override selects the all-to-all MoE path and ``_moe_pad_experts`` its
 expert padding (``models/moe.py``). ``scan_layers`` has no counterpart: the port runs its layers in a
 Python loop.
 
+Fields of the port alone, for configurations the reference does not
+have (mellum2-12b-a2.5b): ``attention_pattern``, the attention kind of
+each layer of the dense/MoE transformer, cycled over the layers ("full",
+or "sliding" over ``local_window`` keys); ``full_rope``, the full
+layers' yarn RoPE (``Yarn``, transformers' ``_compute_yarn_parameters``;
+the sliding layers keep default RoPE at ``rope_theta``); and
+``moe_dropless``, routing with no slot dropped (``models/moe.py:
+moe_layer_dropless``). Their defaults keep every other configuration
+as it was: no pattern, default RoPE, the capacity buffer.
+
 ``ShapeConfig``, ``SHAPES``, ``SMOKE_SHAPE``, ``applicable_shapes``,
 ``OptimizerConfig`` and ``RunConfig`` are the reference's, with its names
 and defaults. ``OptimizerConfig.zero1`` and ``compression`` are the
@@ -51,6 +61,20 @@ DTYPES: dict[str, torch.dtype] = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
 }
+
+
+@dataclass(frozen=True)
+class Yarn:
+    """Yarn RoPE (arXiv:2309.00071) as transformers' ``rope_type:
+    "yarn"`` gives it: the context ``factor``, the pretraining length
+    ``original_max_position``, the ramp's rotation bounds ``beta_fast``
+    and ``beta_slow``, and ``attention_factor``, which scales cos and
+    sin."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
 
 
 @dataclass(frozen=True)
@@ -79,9 +103,13 @@ class ModelConfig:
     experts_per_token: int = 0
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.01
+    moe_dropless: bool = False     # route every slot, none dropped
     # hybrid / recurrent
     block_pattern: tuple[str, ...] = ("attn",)   # cycled over layers
     local_window: int = 0          # sliding window of the attention blocks
+    # dense/MoE: each layer's attention, cycled: "full" | "sliding"
+    attention_pattern: tuple[str, ...] = ()
+    full_rope: Yarn | None = None  # yarn RoPE of the full layers
     lru_width: int = 0             # RG-LRU state width (0 => d_model)
     conv_width: int = 4
     # ssm (rwkv)

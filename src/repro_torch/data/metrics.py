@@ -633,23 +633,27 @@ def span(name: str, *, device: bool = False, scope: bool = False,
     return Span(name, parent, device=device, attrs=attrs, walkers=walkers)
 
 
-def fine_span(name: str, *, device: bool = False) -> Any:
+def fine_span(name: str, *, device: bool = False,
+              attrs: dict | None = None) -> Any:
     """A fine span: recorded only while a profiler records; otherwise one
     test of a bool, no allocation."""
     if not _profiler._is_profiler_enabled:
         return _NULL_SPAN
-    return Span(name, current_span(), device=device)
+    return Span(name, current_span(), device=device, attrs=attrs)
 
 
-def cost_scope(name: str, index: int | None = None) -> Any:
+def cost_scope(name: str, index: int | None = None, *,
+               device: bool = False, attrs: dict | None = None) -> Any:
     """A fine span that is also a cost scope: the dry-run's walker
     (``launch/opcost.py``) files the operations run inside under its name
     (``f"{name}{index}"`` with an index). With no profiler recording and
-    no walker listening, one test of a bool."""
+    no walker listening, one test of a bool. ``device`` adds the event
+    pair while a profiler records."""
     if not (_profiler._is_profiler_enabled or _listeners):
         return _NULL_SPAN
+    profiling = bool(_profiler._is_profiler_enabled)
     return Span(name if index is None else f"{name}{index}", current_span(),
-                keep=bool(_profiler._is_profiler_enabled),
+                keep=profiling, device=device and profiling, attrs=attrs,
                 walkers=list(_listeners) or None)
 
 

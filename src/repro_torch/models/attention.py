@@ -67,7 +67,7 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, Yarn
 from repro_torch.data.metrics import fine_span
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, normal_init, seq_whole
@@ -328,9 +328,11 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
                     kv_source: torch.Tensor | None = None,
                     precomputed_kv: tuple[torch.Tensor, torch.Tensor]
                     | None = None,
-                    causal: bool = True, window: int = 0
+                    causal: bool = True, window: int = 0,
+                    yarn: Yarn | None = None
                     ) -> tuple[torch.Tensor, dict | None]:
-    """Attention layer: qkv projections, RoPE, core, out projection.
+    """Attention layer: qkv projections, RoPE (``yarn``'s when given),
+    core, out projection.
 
     ``cache`` (prefill/decode): dict with 'k', 'v' (B, Smax, KH, hd) buffers
     and 'pos' (tokens already cached, an int). The buffers are updated in
@@ -362,8 +364,8 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
         v = _split_heads(src @ params["wv"].to(dtype), kh, hd, "kv_heads")
     cross = kv_source is not None or precomputed_kv is not None
     if config.pos_embedding == "rope" and not cross:
-        q = apply_rope(q, positions, config.rope_theta)
-        k = apply_rope(k, positions, config.rope_theta)
+        q = apply_rope(q, positions, config.rope_theta, yarn)
+        k = apply_rope(k, positions, config.rope_theta, yarn)
     q = logical_constraint(q, "batch", "seq", "heads", "head_dim")
     k = logical_constraint(k, "batch", "seq", "kv_heads", "head_dim")
     v = logical_constraint(v, "batch", "seq", "kv_heads", "head_dim")
@@ -412,8 +414,9 @@ def attention_layer(x: torch.Tensor, params: dict, config: ModelConfig,
     else:
         # decode; with a window the buffer wraps in place. The slot write,
         # the repeated cache and the core are the device span
-        # ``decode_attention``.
-        with fine_span("decode_attention", device=True):
+        # ``decode_attention``, its ``kind`` sliding or full.
+        with fine_span("decode_attention", device=True,
+                       attrs={"kind": "sliding" if window > 0 else "full"}):
             ck, cv, pos = cache["k"], cache["v"], cache["pos"]
             Smax = ck.shape[1]
             slot = pos % Smax if window > 0 else min(pos, Smax - 1)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, Yarn
 from repro_torch.parallel.sharding import (current_mesh, current_rules,
                                            logical_constraint, use_mesh)
 
@@ -223,14 +223,49 @@ def rope_frequencies(head_dim: int, theta: float,
     return 1.0 / (theta ** exponents)
 
 
+def yarn_frequencies(head_dim: int, theta: float, yarn: Yarn,
+                     device: torch.device | None = None
+                     ) -> tuple[torch.Tensor, float]:
+    """Yarn's inverse frequencies and its cos/sin scale, as transformers'
+    ``_compute_yarn_parameters`` computes them (``truncate`` on): the
+    default frequencies (extrapolated) and those over ``factor``
+    (interpolated), blended by a linear ramp between the dimensions at
+    which the pretraining length turns ``beta_fast`` and ``beta_slow``
+    times; the scale is ``attention_factor``."""
+    pos = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                 device=device) / head_dim)
+
+    def dim_at(rotations: float) -> float:
+        return (head_dim * math.log(yarn.original_max_position
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    low = max(math.floor(dim_at(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim_at(yarn.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0, 1)
+    keep = 1 - ramp                 # the extrapolated share of each dim
+    return (1.0 / (yarn.factor * pos) * (1 - keep) + 1.0 / pos * keep,
+            yarn.attention_factor)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, yarn: Yarn | None = None) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq). The
-    split-halves form, angles in fp32."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
+    split-halves form, angles in fp32; with ``yarn``, its frequencies and
+    cos and sin times its scale (``yarn_frequencies``)."""
+    if yarn is None:
+        freqs, scale = rope_frequencies(x.shape[-1], theta, x.device), 1.0
+    else:
+        freqs, scale = yarn_frequencies(x.shape[-1], theta, yarn, x.device)
     angles = positions[..., :, None].float() * freqs            # (..., S, hd/2)
     angles = angles[..., :, None, :]                            # (..., S, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -42,6 +42,12 @@ capacity buffer and the expert products are constrained to ('experts',
 'expert_cap', 'embed'/'ff'), as the reference's are; the combine reads the
 whole expert output again.
 
+``moe_layer_dropless`` is the port's own path, for a config with
+``moe_dropless`` (mellum2-12b-a2.5b), which the reference does not have:
+the same router, the token-slots sorted by expert, and each expert's
+product over its own contiguous rows, so that no slot drops and no
+buffer is sized by a capacity.
+
 ``moe_layer_a2a`` is the reference's explicit all-to-all expert
 parallelism, which the ``_moe_impl: "a2a"`` override selects: experts
 padded to a multiple of ``_moe_pad_experts`` (``padded_experts``), each
@@ -60,6 +66,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.metrics import fine_span, get_registry
 from repro_torch.models.layers import activation, normal_init
 from repro_torch.parallel.sharding import (MODEL_MAJOR, P, current_mesh,
                                            is_dtensor, local_shard,
@@ -201,6 +208,106 @@ def moe_layer(x: torch.Tensor, params: dict, config: ModelConfig
                                  "embed")
         aux = replicated(aux, mesh)
     return out, aux
+
+
+# -- dropless routing -----------------------------------------------------------
+COMBINE_CHUNK = 16_384          # tokens a step of the dropless combine
+# up to this many tokens a call (a decode step's batch), every expert runs
+# over every token in one batched product: the call is bound by reading
+# the experts' weights, which both ways read, and needs no host sync
+DENSE_TOKENS = 64
+
+
+def _combine(out: torch.Tensor, gates: torch.Tensor, dtype: torch.dtype
+             ) -> torch.Tensor:
+    """(T, K, D) slot outputs weighed by their (T, K) fp32 gates and summed
+    over K in fp32, ``COMBINE_CHUNK`` tokens at a time -> (T, D)."""
+    T, _, D = out.shape
+    combined = torch.empty((T, D), dtype=dtype, device=out.device)
+    for c in range(0, T, COMBINE_CHUNK):
+        part = slice(c, c + COMBINE_CHUNK)
+        combined[part] = (out[part].float() * gates[part, :, None]
+                          ).sum(1).to(dtype)
+    return combined
+
+
+def _swiglu(rows: torch.Tensor, params: dict, e, config: ModelConfig
+            ) -> torch.Tensor:
+    """Expert ``e``'s product over ``rows`` (an index, or a full slice for
+    every expert at once by ``torch.matmul``'s batching)."""
+    dtype = rows.dtype
+    h = activation(torch.matmul(rows, params["w_gate"][e].to(dtype)),
+                   config.hidden_act) * torch.matmul(
+        rows, params["w_up"][e].to(dtype))
+    return torch.matmul(h, params["w_down"][e].to(dtype))
+
+
+def moe_layer_dropless(x: torch.Tensor, params: dict, config: ModelConfig
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D) in x's dtype, the aux loss): the
+    MoE with no slot dropped, for a config with ``moe_dropless``.
+
+    The router and the aux loss are ``moe_layer``'s (``route``: the fp32
+    softmax, the top k, the gates renormalised). Past ``DENSE_TOKENS``
+    tokens, the T·k token-slots are sorted by expert (a stable sort, so
+    each expert's rows keep token order), the rows gathered into one
+    (T·k, D) block in that order, and each expert's SwiGLU product runs
+    over its own contiguous rows, its result written back to its slots'
+    rows (pairs unique, so no accumulation); the rows an expert takes are
+    read on the host (one sync a call) to cut the block. Up to
+    ``DENSE_TOKENS`` tokens every expert runs over every token in one
+    batched product, (E, T, D) @ (E, D, F), and each slot takes its
+    expert's row. The combine weighs a token's k slots by their gates and
+    sums them in fp32 (``_combine``). No buffer grows with the experts
+    times a capacity: an expert that every token picks computes all T of
+    its rows.
+
+    The port's counter ``moe_rows_total`` adds the call's T·k slots, and
+    a sorted call sets the gauge ``moe_expert_rows_max`` to its largest
+    expert's rows. Each step is a fine device span: ``moe_route``,
+    ``moe_dispatch`` (sorted calls), ``moe_experts`` (``attrs`` rows, the
+    slots), ``moe_combine``."""
+    if is_dtensor(x):
+        raise ValueError("moe_layer_dropless runs on plain tensors; under a "
+                         "mesh take moe_layer or moe_layer_a2a")
+    B, S, D = x.shape
+    E, K = config.num_experts, config.experts_per_token
+    T = B * S
+    xt = x.reshape(T, D)
+    with fine_span("moe_route", device=True):
+        probs, gates, top_idx = route(xt, params["router"], K)
+        density = _top1_onehot(top_idx, E).mean(0)
+        aux = (density * probs.mean(0)).sum() * E * config.router_aux_loss
+    reg = get_registry()
+    reg.counter("moe_rows_total",
+                "token-slots the dropless MoE computed").inc(T * K)
+    if T <= DENSE_TOKENS:
+        with fine_span("moe_experts", device=True, attrs={"rows": T * K}):
+            every = _swiglu(xt.expand(E, T, D), params, slice(None), config)
+        with fine_span("moe_combine", device=True):
+            tokens = torch.arange(T, device=x.device)[:, None]
+            out = _combine(every[top_idx, tokens], gates, x.dtype)
+        return out.view(B, S, D), aux
+    with fine_span("moe_dispatch", device=True):
+        slot_expert = top_idx.reshape(-1)                       # (T*K,)
+        order = torch.argsort(slot_expert, stable=True)
+        counts = torch.bincount(slot_expert, minlength=E).tolist()
+        rows = xt[order // K]            # slot s is token s // K's
+    reg.gauge("moe_expert_rows_max",
+              "the largest expert's rows in the last sorted dropless MoE "
+              "call").set(max(counts))
+    with fine_span("moe_experts", device=True, attrs={"rows": T * K}):
+        out = torch.empty_like(rows)
+        start = 0
+        for e, n in enumerate(counts):
+            if n:
+                out[order[start:start + n]] = _swiglu(
+                    rows[start:start + n], params, e, config)
+            start += n
+        del rows
+    with fine_span("moe_combine", device=True):
+        out = _combine(out.view(T, K, D), gates, x.dtype)
+    return out.view(B, S, D), aux
 
 
 # -- explicit all-to-all expert parallelism -------------------------------------

@@ -20,7 +20,15 @@ never exist at once, plus the MoE layers' aux loss; a VLM sequence's last
 image position predicts its first token, and no image position is a target.
 A block whose config sets the ``_moe_impl: "a2a"`` override runs
 ``moe_layer_a2a`` (the reference's all-to-all expert parallelism) in the
-prefill, the decode and the loss alike.
+prefill, the decode and the loss alike; one with ``moe_dropless`` runs
+``moe_layer_dropless``. A config with an ``attention_pattern`` (the
+port's own; mellum2-12b-a2.5b) gives each layer a kind (``layer_kinds``):
+a full layer attends causally with the full layers' RoPE (yarn, where
+``full_rope`` is set), a sliding one over its last ``local_window`` keys
+with default RoPE; its cache keeps a stack of each kind side by side,
+the full layers' at ``max_len`` and the sliding layers' as rolling
+buffers of ``min(window, max_len)`` slots. A model without a pattern
+keeps the single stack.
 ``param_specs`` and ``cache_specs`` give the trees' logical axes
 (``parallel/sharding.py``); the residual stream is constrained where the
 reference's is, and under a mesh the loss's chunks take the vocabulary
@@ -35,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.metrics import get_registry
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -100,24 +109,52 @@ def init(gen: torch.Generator, config: ModelConfig) -> dict:
 # (``:104-105``), so a decode past the window writes the cache's last slot
 # over and over while the attention sees no window; no reference config
 # sets a window on this path, so nothing defines what it should compute
-# (ROADMAP Queue 3).
+# (ROADMAP Queue 3). A window comes with an ``attention_pattern`` that
+# says which layers slide.
 DENSE_WINDOW_REFUSED = (
     "local_window > 0 on the dense/MoE transformer is refused: the "
     "reference sizes this path's cache by the window but attends without "
     "one, so no reference config defines what it computes; the sliding "
-    "window is served by the hybrid family (models/rglru.py)")
+    "window is served by the hybrid family (models/rglru.py) or by an "
+    "attention_pattern naming the sliding layers")
+KINDS = ("full", "sliding")
+
+
+def layer_kinds(config: ModelConfig) -> list[str]:
+    """Each layer's attention kind, ``attention_pattern`` cycled over the
+    layers: "full", or "sliding" over ``local_window`` keys. Without a
+    pattern every layer is full, and a window is refused."""
+    pattern = config.attention_pattern or ("full",)
+    if not config.attention_pattern and config.local_window > 0:
+        raise NotImplementedError(DENSE_WINDOW_REFUSED)
+    if set(pattern) - set(KINDS):
+        raise ValueError(f"attention_pattern {pattern}: each of {KINDS}")
+    if "sliding" in pattern and config.local_window <= 0:
+        raise ValueError("a sliding layer needs local_window > 0")
+    return [pattern[i % len(pattern)] for i in range(config.num_layers)]
+
+
+def _cache_keys(kind: str) -> tuple[str, str]:
+    """The cache's stacks of a kind: 'k'/'v' for the full layers, as a
+    model with no pattern keeps them, 'k_sliding'/'v_sliding' for the
+    rolling buffers of the sliding ones."""
+    return ("k", "v") if kind == "full" else ("k_sliding", "v_sliding")
 
 
 # -- one transformer block -------------------------------------------------------
 def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
-           positions: torch.Tensor, cache: dict | None
+           positions: torch.Tensor, cache: dict | None, kind: str = "full"
            ) -> tuple[torch.Tensor, torch.Tensor | None, dict | None]:
-    """One block: (x, the MoE layer's aux loss or None for a dense block,
-    the cache)."""
-    with cost_scope("attention"):
+    """One block, its attention of ``kind``: (x, the MoE layer's aux loss
+    or None for a dense block, the cache). The ``attention`` scope is a
+    device span with the kind among its attrs."""
+    sliding = kind == "sliding"
+    with cost_scope("attention", device=True, attrs={"kind": kind}):
         h = L.apply_norm(x, block_params["norm1"], config)
-        a, new_cache = attn.attention_layer(h, block_params["attn"], config,
-                                            positions, cache=cache)
+        a, new_cache = attn.attention_layer(
+            h, block_params["attn"], config, positions, cache=cache,
+            window=config.local_window if sliding else 0,
+            yarn=None if sliding else config.full_rope)
     x = logical_constraint(x + a, "batch", "act_seq", "embed")
     with cost_scope("experts" if config.num_experts > 0 else "mlp"):
         h = L.apply_norm(x, block_params["norm2"], config)
@@ -125,6 +162,9 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
             if config.sharding_overrides.get("_moe_impl") == "a2a":
                 m, aux = moe_lib.moe_layer_a2a(h, block_params["moe"],
                                                config)
+            elif config.moe_dropless:
+                m, aux = moe_lib.moe_layer_dropless(h, block_params["moe"],
+                                                    config)
             else:
                 m, aux = moe_lib.moe_layer(h, block_params["moe"], config)
         else:
@@ -136,35 +176,39 @@ def _block(x: torch.Tensor, block_params: dict, config: ModelConfig,
 def _run_layers(x: torch.Tensor, params: dict, config: ModelConfig,
                 positions: torch.Tensor, cache: dict | None
                 ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
-    """The blocks in order, each with its layer's slice of the cache (or,
-    without one, under the config's ``remat`` policy); returns (x, the aux
-    losses summed in layer order from an fp32 zero, the cache). A dense
-    block adds nothing, where the reference adds a zero."""
-    if config.local_window > 0:
-        raise NotImplementedError(DENSE_WINDOW_REFUSED)
+    """The blocks in order, each with its layer's slice of its kind's
+    cache stack (or, without a cache, under the config's ``remat``
+    policy); returns (x, the aux losses summed in layer order from an
+    fp32 zero, the cache). A dense block adds nothing, where the
+    reference adds a zero."""
+    kinds = layer_kinds(config)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cache is None:
-        def block(x: torch.Tensor, block_params: dict):
-            x, aux_i, _ = _block(x, block_params, config, positions, None)
+        def block(x: torch.Tensor, block_params: dict, kind: str):
+            x, aux_i, _ = _block(x, block_params, config, positions, None,
+                                 kind)
             return x, aux_i
 
         block = L.remat(block, config.remat)
         for i, block_params in enumerate(params["layers"]):
             with cost_scope("layer", i):
-                x, aux_i = block(x, block_params)
+                x, aux_i = block(x, block_params, kinds[i])
             if aux_i is not None:
                 aux = aux + aux_i
         return x, aux, None
+    seen = dict.fromkeys(KINDS, 0)      # layers of each kind so far
     for i, block_params in enumerate(params["layers"]):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i],
+        kind = kinds[i]
+        ks, vs = _cache_keys(kind)
+        layer_cache = {"k": cache[ks][seen[kind]], "v": cache[vs][seen[kind]],
                        "pos": cache["pos"]}
+        seen[kind] += 1
         with cost_scope("layer", i):
             x, aux_i, _ = _block(x, block_params, config, positions,
-                                 layer_cache)
+                                 layer_cache, kind)
         if aux_i is not None:
             aux = aux + aux_i
-    return x, aux, {"k": cache["k"], "v": cache["v"],
-                    "pos": cache["pos"] + positions.shape[1]}
+    return x, aux, {**cache, "pos": cache["pos"] + positions.shape[1]}
 
 
 # -- input embedding -------------------------------------------------------------
@@ -283,19 +327,41 @@ def loss_and_metrics(params: dict, batch: dict, config: ModelConfig
 # -- serving -----------------------------------------------------------------------
 def init_cache(config: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> dict:
-    """'k', 'v': (L, batch, max_len, KH, hd) zeros in the activation dtype;
-    'pos': 0."""
-    layer = attn.init_cache(config, batch, max_len, device)
-    shape = (config.num_layers,) + tuple(layer["k"].shape)
-    return {"k": layer["k"].new_zeros(shape),
-            "v": layer["v"].new_zeros(shape), "pos": 0}
+    """'k', 'v': (L_full, batch, max_len, KH, hd) zeros in the activation
+    dtype, a stack for the full layers (every layer without a pattern);
+    with sliding layers also 'k_sliding', 'v_sliding': (L_sliding, batch,
+    min(window, max_len), KH, hd), rolling buffers (``attention_layer``);
+    'pos': 0. The bytes of each kind are the port's gauge
+    ``kv_cache_bytes{kind}``, set here."""
+    kinds = layer_kinds(config)
+    cache: dict = {}
+    for kind in KINDS:
+        n = kinds.count(kind)
+        if kind == "sliding" and not n:
+            continue
+        layer = attn.init_cache(
+            config, batch, max_len, device,
+            window=config.local_window if kind == "sliding" else 0)
+        shape = (n,) + tuple(layer["k"].shape)
+        ks, vs = _cache_keys(kind)
+        cache[ks] = layer["k"].new_zeros(shape)
+        cache[vs] = layer["v"].new_zeros(shape)
+        get_registry().gauge(
+            "kv_cache_bytes", "the serve cache's bytes by attention kind",
+            labels={"kind": kind}).set(
+                2 * cache[ks].numel() * cache[ks].element_size())
+    cache["pos"] = 0
+    return cache
 
 
 def cache_specs(config: ModelConfig) -> dict:
-    """Logical axes of ``init_cache``'s tree, stacked on L as the
-    reference's (``repro/models/transformer.py:266``)."""
+    """Logical axes of ``init_cache``'s tree, each stack on its layers as
+    the reference's (``repro/models/transformer.py:266``)."""
     kv = ("layers", "batch", "null", "kv_heads", "head_dim")
-    return {"k": kv, "v": kv, "pos": ()}
+    specs = {"k": kv, "v": kv, "pos": ()}
+    if "sliding" in layer_kinds(config):
+        specs.update(k_sliding=kv, v_sliding=kv)
+    return specs
 
 
 def prefill(params: dict, batch: dict, config: ModelConfig,

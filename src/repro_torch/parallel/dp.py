@@ -29,7 +29,11 @@ compression is an argument.
 On a gloo group every collective is staged through host memory, and the
 reduce-scatter is an all-reduce of which each rank keeps its own chunk
 (gloo does not reduce-scatter in every PyTorch build; the sum is the
-same, in its own order). Without a group the step is refused; at world 1
+same, in its own order). The plain step's reduce-scatter and all-gather
+are the device spans ``dp_reduce_scatter`` and ``dp_all_gather``
+(``data/metrics.py``), recorded inside a micro-batch: their event pairs
+hold the collective and its wait for the slowest rank. Without a group
+the step is refused; at world 1
 it runs its collectives on the group of one. ``lower_dp_cell`` is the
 reference's dry-run entry for this trainer: a ``training.Cell`` of one
 rank's step over the default group, which the dry-run runs on fake
@@ -43,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import DTYPES, ModelConfig, OptimizerConfig
+from repro_torch.data.metrics import span
 from repro_torch.optim.adamw import lr_schedule
 from repro_torch.training import loss_and_grads, train_config
 from repro_torch.utils import cost_scope, tree_leaves, tree_map
@@ -207,7 +212,8 @@ def build_dp_train_step(config: ModelConfig, opt: OptimizerConfig,
                 g_shard = total.to(torch.float32) * scale / world
                 del total
             else:
-                g_shard = wire.reduce_scatter(g2d) / world
+                with span("dp_reduce_scatter", device=True):
+                    g_shard = wire.reduce_scatter(g2d) / world
                 del gflat, g2d
 
             o = state["opt"]
@@ -243,7 +249,8 @@ def build_dp_train_step(config: ModelConfig, opt: OptimizerConfig,
                     ref.copy_(new)
             # gather the update in bf16, as the reference does: its params
             # are bf16, so gathering the fp32 master doubles the wire
-            new_flat = wire.all_gather(master.to(torch.bfloat16))
+            with span("dp_all_gather", device=True):
+                new_flat = wire.all_gather(master.to(torch.bfloat16))
             off = 0
             for p, (shape, _) in zip(tree_leaves(params), meta[1]):
                 p.copy_(new_flat[off:off + p.numel()].view(shape))

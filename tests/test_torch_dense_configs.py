@@ -22,7 +22,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import REFERENCE_ARCHS, get_config
 from repro_torch.launch.serve import parse_args, run_serve
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttransformer
@@ -84,7 +84,7 @@ def test_torch_dense_config_has_the_reference_numbers(arch):
         assert tcfg.resolved_head_dim == jcfg.resolved_head_dim
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(REFERENCE_ARCHS))
 def test_torch_embed_scale_is_the_reference_name_test(arch):
     """``embed_scale``, set in gemma-7b's and recurrentgemma-2b's config
     files, says what the reference decides from the name

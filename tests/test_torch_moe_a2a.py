@@ -43,7 +43,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import moe as jmoe
 from repro.models.registry import get_model as jax_get_model
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import REFERENCE_ARCHS, get_config
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.registry import param_shapes
@@ -292,7 +292,7 @@ def gloo8(reference, tmp_path_factory):
 
 
 # -- host only -----------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", REFERENCE_ARCHS)
 @pytest.mark.parametrize("overrides", [{}, A2A, {"_moe_impl": "a2a"},
                                        {"_moe_pad_experts": 8}])
 def test_torch_padded_experts_and_init_shapes_match_the_reference(

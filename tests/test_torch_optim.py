@@ -247,14 +247,14 @@ def test_torch_shapes_match_the_reference():
     import repro.configs.base as jbase
     import repro_torch.configs.base as tbase
     from repro.configs import get_config as jax_get_config
-    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs import REFERENCE_ARCHS, get_config
 
     def as_tuple(shape):
         return (shape.name, shape.seq_len, shape.global_batch, shape.kind)
     assert ({k: as_tuple(v) for k, v in tbase.SHAPES.items()}
             == {k: as_tuple(v) for k, v in jbase.SHAPES.items()})
     assert as_tuple(tbase.SMOKE_SHAPE) == as_tuple(jbase.SMOKE_SHAPE)
-    for arch in sorted(ARCHS):
+    for arch in sorted(REFERENCE_ARCHS):
         assert (tbase.applicable_shapes(get_config(arch))
                 == jbase.applicable_shapes(jax_get_config(arch))), arch
 

@@ -31,7 +31,8 @@ from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jax_get_config
 from repro.configs.base import OptimizerConfig as JOptimizerConfig
 from repro.models.registry import get_model as jax_get_model
-from repro_torch.configs import (ARCHS, SHAPES, get_config, input_specs)
+from repro_torch.configs import (REFERENCE_ARCHS, SHAPES, get_config,
+                                  input_specs)
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models.registry import get_model, param_shapes
 from repro_torch.optim import add_zero_axis, zero1_state_specs
@@ -174,7 +175,7 @@ def _check_tree(got, want):
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=MESH_IDS)
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(REFERENCE_ARCHS))
 def test_torch_param_and_cache_specs_equal_the_reference(arch, mesh):
     config, jcfg = get_config(arch), jax_get_config(arch)
     assert config.sharding_overrides == jcfg.sharding_overrides
@@ -250,7 +251,7 @@ def test_torch_zero1_state_specs_equal_the_reference(mesh):
     where L takes the axis there (module docstring); the leaves left
     replicated are the recorded ones."""
     replicated = 0
-    for arch in sorted(ARCHS):
+    for arch in sorted(REFERENCE_ARCHS):
         checked, n = _zero_counts(arch, mesh)
         assert checked > 0
         replicated += n

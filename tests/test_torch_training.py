@@ -31,7 +31,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import layers as jlayers
 from repro.models import transformer as jtransformer
 from repro.models.registry import get_model as jax_get_model
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import REFERENCE_ARCHS, get_config
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers as tlayers
@@ -181,7 +181,7 @@ def _loss_and_grads(arch, dtype, seed=0):
     return (jl, jm, params_from_jax(_np(jg), tcfg)), (tl, tm, tg)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", sorted(REFERENCE_ARCHS))
 def test_torch_loss_and_grads_match_jax(arch):
     """fp32 at reduced(): the total loss, the cross-entropy, the aux loss
     and every gradient leaf against ``jax.value_and_grad``."""
